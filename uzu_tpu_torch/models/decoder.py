@@ -1,0 +1,277 @@
+"""Decoder forward pass built from the config.
+
+Counterpart of `uzu_tpu/models/decoder.py`. One code path serves prefill
+chunks and decode steps: tokens carry absolute positions derived from
+state["pos"] (a device tensor), the KV cache is slot-per-position, and
+causal masking makes end-padding invisible (padded rows sit at future
+slots that later writes overwrite). Tree verification, sequence-parallel
+prefill, per-layer embeddings and deferred recurrent state wait for later
+slices of the port.
+
+Residual discipline:
+    h = pre_mixer_norm(x)            (layer 0 may have no pre-norm)
+    a = post_mixer_norm(mixer(h))
+    x = (x + a) * post_layer_scalar?
+    m = post_mlp_norm(mlp(pre_mlp_norm(x))) * post_layer_scalar?
+    x = x + m
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import torch
+
+from ..config.model import (
+    AttentionConfig,
+    DecoderConfig,
+    DenseMLPConfig,
+    TransformerLayerConfig,
+)
+from ..ops.activation import gated_act_mul
+from ..ops.attention import attention_reference
+from ..ops.linear import linear_apply
+from ..ops.norm import normalize
+from ..ops.rope import apply_rope, inverse_frequencies, rope_tables
+from ..quant.format import QuantizedTensor, unpack_codes
+from .kv_cache import append as kv_append, read as kv_read
+
+
+# --------------------------------------------------------------------------
+# Embedding
+# --------------------------------------------------------------------------
+
+
+def embedding_lookup(table, tokens: torch.Tensor, dtype=None) -> torch.Tensor:
+    """tokens [S] -> [S, D]; quantized tables dequantize only gathered rows."""
+    dtype = dtype or table.dtype
+    tokens = tokens.long()
+    if isinstance(table, QuantizedTensor):
+        codes = unpack_codes(table.codes[tokens], table.bits).float()
+        g = table.group_size
+        k = codes.shape[-1]
+        scales = torch.repeat_interleave(table.scales[tokens].float(), g, dim=-1)[:, :k]
+        if table.qbias is None:  # symmetric: qbias from the gathered scales
+            qbias = scales * table.qbias_coeff
+        else:
+            qbias = torch.repeat_interleave(table.qbias[tokens].float(), g, dim=-1)[:, :k]
+        return (codes * scales + qbias).to(dtype)
+    return table[tokens].to(dtype)
+
+
+def embedding_readout(table, hidden: torch.Tensor, soft_cap: float | None) -> torch.Tensor:
+    """hidden [S, D] -> logits [S, V] f32."""
+    logits = linear_apply(table, hidden).float()
+    if soft_cap is not None:
+        logits = soft_cap * torch.tanh(logits / soft_cap)
+    return logits
+
+
+# --------------------------------------------------------------------------
+# Attention mixer
+# --------------------------------------------------------------------------
+
+
+@lru_cache(maxsize=None)
+def _inv_freq(rope_cfg, device: str) -> tuple[torch.Tensor, float]:
+    """Inverse frequencies of one RoPE config, computed once per device."""
+    inv, scale = inverse_frequencies(rope_cfg)
+    return torch.from_numpy(inv).to(device), scale
+
+
+def attention_forward(
+    cfg: AttentionConfig,
+    layer_cfg: TransformerLayerConfig,
+    params: dict,
+    x: torch.Tensor,  # [S, D]
+    positions: torch.Tensor,  # [S]
+    kv,  # own cache dict or shared source cache dict
+    owns_cache: bool,
+    true_length=None,
+    ctx_limit: int | None = None,  # attention reads only cache slots
+    # [0, ctx_limit): the cache stays max_context-sized, but a step at
+    # position p reads only the smallest bucket covering p
+):
+    s, d = x.shape
+    h, g, dh = cfg.num_heads, cfg.num_groups, cfg.head_dim
+    q_dim = h * dh
+
+    qkv = linear_apply(params["qkv"]["w"], x, params["qkv"].get("b"))
+    if cfg.is_kv_sharing:
+        q = qkv.reshape(s, h, dh)
+        k_new = v_new = None
+    else:
+        q = qkv[:, :q_dim].reshape(s, h, dh)
+        k_new = qkv[:, q_dim: q_dim + g * dh].reshape(s, g, dh)
+        v_new = qkv[:, q_dim + g * dh:].reshape(s, g, dh)
+
+    if cfg.query_norm_config is not None:
+        q = normalize(q, cfg.query_norm_config, params["q_norm_scales"])
+    if k_new is not None and cfg.key_norm_config is not None:
+        k_new = normalize(k_new, cfg.key_norm_config, params["k_norm_scales"])
+    if k_new is not None and cfg.normalize_values:
+        v_new = normalize(v_new, cfg.value_norm_config(), params.get("v_norm_scales"))
+
+    if layer_cfg.rope_config is not None:
+        inv_freq, attn_scale = _inv_freq(layer_cfg.rope_config, str(x.device))
+        cos, sin = rope_tables(inv_freq, attn_scale, positions)
+        q = apply_rope(q, cos, sin)
+        if k_new is not None:
+            k_new = apply_rope(k_new, cos, sin)
+
+    new_kv = kv_append(kv, k_new, v_new, positions, true_length) if owns_cache else kv
+
+    read_kv = new_kv
+    if ctx_limit is not None and "pos" not in new_kv:
+        c_full = next(iter(new_kv.values())).shape[0]
+        if ctx_limit < c_full:
+            read_kv = {kk: vv[:ctx_limit] for kk, vv in new_kv.items()}
+    k_cache, v_cache, kv_positions = kv_read(read_kv)
+
+    scale = cfg.scale if cfg.scale is not None else float(dh) ** -0.5
+    kv_valid = None
+    if not cfg.is_causal and true_length is not None:
+        kv_valid = positions[0] + true_length
+    attn = attention_reference(
+        q, k_cache, v_cache, positions, scale=scale, is_causal=cfg.is_causal,
+        sliding_window_size=cfg.sliding_window_size,
+        logit_soft_cap=cfg.logit_soft_cap, sinks=params.get("sinks"),
+        kv_valid_length=kv_valid, kv_positions=kv_positions,
+    )
+    attn = attn.reshape(s, q_dim)
+
+    if "gate" in params:
+        gate = linear_apply(params["gate"]["w"], x)
+        attn = (attn.float() * torch.sigmoid(gate.float())).to(attn.dtype)
+
+    out = linear_apply(params["out"]["w"], attn, params["out"].get("b"))
+    return out, new_kv
+
+
+# --------------------------------------------------------------------------
+# MLP
+# --------------------------------------------------------------------------
+
+
+def mlp_forward(cfg, params: dict, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(cfg, DenseMLPConfig):
+        fused = linear_apply(params["up"]["w"], x, params["up"].get("b"))
+        half = fused.shape[-1] // 2
+        # fused rows are [up | gate]: out = up * act(gate)
+        up, gate = fused[:, :half], fused[:, half:]
+        hidden = gated_act_mul(cfg.activation, gate, up, cfg.gate_clipping, cfg.up_clipping)
+        return linear_apply(params["down"]["w"], hidden, params["down"].get("b"))
+    raise NotImplementedError(f"{type(cfg).__name__} MLPs are not ported yet")
+
+
+# --------------------------------------------------------------------------
+# Layer + decoder
+# --------------------------------------------------------------------------
+
+
+def _norm(params_key, cfg, params, x):
+    p = params[params_key]
+    return normalize(x, cfg, p["scales"], p.get("biases"))
+
+
+def layer_forward(
+    layer_cfg: TransformerLayerConfig,
+    params: dict,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    layer_state,
+    shared_kv,
+    true_length=None,
+    ctx_limit=None,
+):
+    mixer_cfg = layer_cfg.mixer_config
+    if not isinstance(mixer_cfg, AttentionConfig):
+        raise NotImplementedError(f"{type(mixer_cfg).__name__} mixers are not ported yet")
+    pls = params.get("post_layer_scalar")
+
+    h = (_norm("pre_mixer_norm", layer_cfg.pre_mixer_norm_config, params, x)
+         if layer_cfg.pre_mixer_norm_config else x)
+
+    owns = layer_state is not None
+    a, new_state = attention_forward(
+        mixer_cfg, layer_cfg, params["mixer"], h, positions,
+        layer_state if owns else shared_kv, owns, true_length, ctx_limit,
+    )
+    if not owns:
+        new_state = None
+
+    if layer_cfg.post_mixer_norm_config is not None:
+        a = _norm("post_mixer_norm", layer_cfg.post_mixer_norm_config, params, a)
+
+    x = (x.float() + a.float()).to(x.dtype)
+    if pls is not None:
+        x = (x.float() * pls[0]).to(x.dtype)
+
+    h = _norm("pre_mlp_norm", layer_cfg.pre_mlp_norm_config, params, x)
+    m = mlp_forward(layer_cfg.mlp_config, params["mlp"], h)
+    if layer_cfg.post_mlp_norm_config is not None:
+        m = _norm("post_mlp_norm", layer_cfg.post_mlp_norm_config, params, m)
+        if pls is not None:
+            m = (m.float() * pls[0]).to(m.dtype)
+
+    x = (x.float() + m.float()).to(x.dtype)
+    return x, new_state
+
+
+def decoder_forward(
+    cfg: DecoderConfig,
+    params: dict,
+    tokens: torch.Tensor,  # [S] integer
+    state: dict,
+    *,
+    last_only: bool = True,
+    true_length=None,  # int or 0-d device tensor
+    ctx_limit: int | None = None,  # context bucket for attention reads
+):
+    """Run the decoder; returns (logits, new_state).
+
+    tokens may be end-padded: `true_length` (default S) is how many are
+    real. pos advances by true_length; padded rows land in future cache
+    slots that the causal mask hides and later writes overwrite. The KV
+    caches in `state` are updated in place.
+    """
+    if cfg.ple_model_config is not None:
+        raise NotImplementedError("per-layer embeddings are not ported yet")
+    tcfg = cfg.transformer_config
+    s = tokens.shape[0]
+    if true_length is None:
+        true_length = s
+    positions = state["pos"] + torch.arange(s, dtype=torch.int32, device=tokens.device)
+
+    ecfg = cfg.embedding_config
+    table = params["embedding"].get("tied", params["embedding"].get("input"))
+    x = embedding_lookup(table, tokens)
+    if ecfg.input_scale is not None:
+        x = (x.float() * ecfg.input_scale).to(x.dtype)
+
+    new_layer_states = []
+    for i, layer_cfg in enumerate(tcfg.layer_configs):
+        src = layer_cfg.kv_source_layer_index
+        shared_kv = new_layer_states[src] if src is not None else None
+        x, new_state = layer_forward(
+            layer_cfg, params["layers"][i], x, positions, state["layers"][i], shared_kv,
+            true_length, ctx_limit,
+        )
+        new_layer_states.append(new_state)
+
+    x = normalize(x, tcfg.output_norm_config, params["output_norm"]["scales"],
+                  params["output_norm"].get("biases"))
+    if last_only:
+        if isinstance(true_length, torch.Tensor):
+            # a device-side true_length of 0 (a halted decode step) reads
+            # row 0, as the JAX package's clamped dynamic slice does
+            row = torch.clamp(true_length - 1, min=0)
+            x = x.index_select(0, row.reshape(1).long())
+        else:
+            row = max(true_length - 1, 0)
+            x = x[row:row + 1]
+
+    out_table = params["embedding"].get("tied", params["embedding"].get("output"))
+    logits = embedding_readout(out_table, x, ecfg.logit_soft_cap)
+    out_state = {"layers": new_layer_states, "pos": state["pos"] + true_length}
+    return logits, out_state
