@@ -9,15 +9,33 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    (one nvcc per source, in parallel) while the flagship model is
    synthesized; print the card's name and power limit.
 2. kernels: each kernel against its plain PyTorch version on the card at
-   the flagship's shapes (bf16 inputs, f32 accumulation), with its time,
-   the plain version's time, one PyTorch library call as a yardstick, and
-   the bound (bytes over the HBM rate or FLOPs over the bf16 peak).
+   the flagship's shapes (bf16 inputs or INT8 codes, f32 accumulation),
+   with its time, the plain version's time, one PyTorch library call as a
+   yardstick, and the bound (bytes over the HBM rate or FLOPs over the
+   bf16 peak): K1/K2 quant matmul, K3/K4 flash attention (bf16 / INT8
+   cache), K5/K6 paged decode attention (bf16 / INT8 pools).
 3. path INT4: the Llama-1B-shaped INT4 flagship (16 layers, d 2048, vocab
    128256, random weights from a seed) loaded with `LanguageModel.from_dir`
    on the card; greedy generation of 64 tokens after a 128-token prompt,
-   twice, with identical tokens; launch counts of K1 and K3 on that run.
-4. path INT8: the same shape with INT8 linears at 2 layers; K2 launched.
-5. whole-path check: teacher-forced logits of a 32-token prompt through
+   twice, with identical tokens; launch counts of K1 and K3 on that run;
+   then once more with the INT8 KV cache (`kv_quant=True`), through K4.
+4. paged INT4: `PagedBatchEngine` (8 slots, 8-step fused chunks, 64 pages
+   of 512 tokens) over the same model: 11 greedy requests of 17 to 700
+   prompt tokens (four share a 600-token prefix), then a follow-up that
+   extends a finished request's history (the automatic prefix cache);
+   each stream, fed step by step through the single-stream path, has
+   every token within MARGIN of that path's best logit (so it takes the
+   greedy choice wherever the top-2 margin is at least MARGIN), and the
+   run takes the greedy choice at GREEDY_FLOOR of its steps or more; K5
+   launched 16 times per step.
+5. path INT8: the same shape with INT8 linears at 2 layers; K2 launched.
+6. paged INT8: the 2-layer INT8 model with INT8 page pools; streams equal
+   the dense INT8-KV single stream under the same rule; K4 and K6
+   launched.
+7. control: the stream check must fail the streams of the paged engine
+   when its K5 call reads the next slot's page table, and when it drops
+   each slot's newest token.
+8. whole-path check: teacher-forced logits of a 32-token prompt through
    the 2-layer INT4 model on the card and on the host CPU.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -50,6 +68,16 @@ LINEAR_SHAPES = (("qkv", 3072, 2048), ("out", 2048, 2048),
                  ("readout", 128256, 2048))
 GEN_PROMPT, GEN_TOKENS = 128, 64
 REPS = 10
+# a greedy step whose single-stream top-2 logit margin is below this may
+# pick the other token on another path (bf16 activations, other summation
+# order); no token of a stream may lie this far below the best logit of
+# the single stream fed the same history (see check_streams) ...
+MARGIN = 0.125
+# ... and a run's streams take the single stream's greedy choice at no
+# fewer than this share of their steps
+GREEDY_FLOOR = 0.9
+PAGED_TOKENS = 64
+CONTROL_TOKENS = 16
 
 
 def log(msg: str) -> None:
@@ -114,7 +142,9 @@ def check_quant_matmul(torch, timer, rows) -> None:
                 else:
                     w = QuantizedTensor(codes, scales, qbias, bits, g)
                 wd = dequantize(w, torch.bfloat16)
-                for m in (1, 16, 256):
+                # 1: single-stream decode; 8: a paged decode step of 8 slots;
+                # 16/64/256: the prefill buckets
+                for m in (1, 8, 16, 64, 256):
                     x = torch.randn((m, k), device="cuda", generator=gen).to(torch.bfloat16)
                     got = quant_matmul(w, x)
                     want = quant_matmul_plain(w, x)
@@ -201,7 +231,161 @@ def check_flash_attention(torch, timer, rows) -> None:
                 log("KERNEL " + json.dumps(row))
 
 
-# -- phases 3-5: the port's main path -----------------------------------------
+def check_flash_attention_int8(torch, timer, rows) -> None:
+    """K4 against its plain version at the flagship's prefill shapes."""
+    import torch.nn.functional as F
+
+    from uzu_tpu_torch.models.kv_cache import dequantize_rows, quantize_rows
+    from uzu_tpu_torch.ops.cuda.flash_attention import flash_attention, flash_attention_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    h, g, dh, s = 32, 8, 64, 256
+    rep = h // g
+    scale = dh ** -0.5
+    for c in (1024, 4096):
+        pos0 = c - s - 3
+        q = torch.randn((s, h, dh), device="cuda", generator=gen).to(torch.bfloat16)
+        kq, ks = quantize_rows(torch.randn((c, g, dh), device="cuda", generator=gen))
+        vq, vs = quantize_rows(torch.randn((c, g, dh), device="cuda", generator=gen))
+        qpos = torch.arange(s, device="cuda", dtype=torch.int32) + pos0
+        sinks = torch.randn((h,), device="cuda", generator=gen)
+        for variant in ("plain", "window", "softcap", "sinks"):
+            kw = dict(k_scales=ks, v_scales=vs)
+            if variant == "window":
+                kw["sliding_window_size"] = 512
+            elif variant == "softcap":
+                kw["logit_soft_cap"] = 30.0
+            elif variant == "sinks":
+                kw["sinks"] = sinks
+            got = flash_attention(q, kq, vq, qpos, scale=scale, **kw)
+            want = flash_attention_plain(q, kq, vq, qpos, scale=scale, **kw)
+            torch.cuda.synchronize()
+            abs_err, err = rel_err(got, want)
+            if not (err <= TOL):
+                raise AssertionError(f"flash_attention_int8 S={s} C={c} {variant}: "
+                                     f"error {err:.3e} of RMS > {TOL}")
+            qp = pos0 + torch.arange(s)
+            lo = (qp - 511).clamp(min=0) if variant == "window" else torch.zeros_like(qp)
+            visible = int((qp + 1 - lo).sum())
+            kv_rows = int(qp[-1] + 1 - lo[0])
+            # int8 codes + one f32 scale per (slot, group), for K and V
+            nbytes = q.numel() * 2 + 2 * kv_rows * g * (dh + 4) + s * h * dh * 4
+            b_ms, b_by = bound(nbytes, 4.0 * visible * h * dh)
+            lib_ms = None
+            if variant in ("plain", "window"):
+                kpos = torch.arange(c, device="cuda")
+                mask = kpos[None, :] <= qpos.long()[:, None]
+                if variant == "window":
+                    mask &= kpos[None, :] > qpos.long()[:, None] - 512
+                qt = q.transpose(0, 1)[None]
+                kt = dequantize_rows(kq, ks).to(torch.bfloat16).transpose(0, 1)[None]
+                vt = dequantize_rows(vq, vs).to(torch.bfloat16).transpose(0, 1)[None]
+                kt = kt.repeat_interleave(rep, dim=1)
+                vt = vt.repeat_interleave(rep, dim=1)
+                lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, scale=scale))
+            row = dict(kernel="flash_attention_int8", S=s, H=h, G=g, Dh=dh, C=c, pos0=pos0,
+                       variant=variant, max_abs_err=abs_err, err_over_rms=err, tol=TOL,
+                       ms=timer.ms(lambda: flash_attention(q, kq, vq, qpos, scale=scale, **kw)),
+                       plain_ms=timer.ms(lambda: flash_attention_plain(
+                           q, kq, vq, qpos, scale=scale, **kw), 3),
+                       library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+            rows.append(row)
+            log("KERNEL " + json.dumps(row))
+
+
+def check_paged_attention(torch, timer, rows) -> None:
+    """K5 (bf16 pools) and K6 (INT8 pools) against their plain version:
+    8 slots of the flagship's heads, pages of 16 to 512 tokens, 8 x 1024
+    live tokens (the timed main shape) and ragged lengths up to 4096 with
+    a repeated physical page list (a shared prefix)."""
+    import torch.nn.functional as F
+
+    from uzu_tpu_torch.models.kv_cache import dequantize_rows, quantize_rows
+    from uzu_tpu_torch.ops.cuda.paged_attention import (
+        paged_attention_plain,
+        paged_decode_attention,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, h, g, dh = 8, 32, 8, 64
+    scale = dh ** -0.5
+    sinks = torch.randn((h,), device="cuda", generator=gen)
+    for page in (16, 64, 256, 512):
+        maxp = 4096 // page
+        p_total = b * maxp + 1
+        k = torch.randn((g, p_total, page, dh), device="cuda", generator=gen).to(torch.bfloat16)
+        v = torch.randn((g, p_total, page, dh), device="cuda", generator=gen).to(torch.bfloat16)
+        kq, ks = quantize_rows(k)
+        vq, vs = quantize_rows(v)
+        table = torch.randperm(p_total - 1, device="cuda", generator=gen)[: b * maxp]
+        table = table.reshape(b, maxp).to(torch.int32)
+        table[3] = table[0]
+        q = torch.randn((b, h, dh), device="cuda", generator=gen).to(torch.bfloat16)
+        lens_cases = {"uniform1024": [1024] * b,
+                      "ragged": [1, page, 777, 1024, 4096, 2 * page + 1, 3000, 4095]}
+        for lens_name, lens in lens_cases.items():
+            lengths = torch.tensor(lens, device="cuda", dtype=torch.int32)
+            variants = ("plain",) if lens_name == "uniform1024" else (
+                "plain", "window", "softcap", "sinks")
+            for variant in variants:
+                for quant in (False, True):
+                    kw = dict(scale=scale)
+                    if variant == "window":
+                        kw["sliding_window_size"] = 512
+                    elif variant == "softcap":
+                        kw["logit_soft_cap"] = 30.0
+                    elif variant == "sinks":
+                        kw["sinks"] = sinks
+                    if quant:
+                        kw.update(k_scales=ks, v_scales=vs)
+                    kk, vv = (kq, vq) if quant else (k, v)
+                    got = paged_decode_attention(q, kk, vv, table, lengths, **kw)
+                    want = paged_attention_plain(q, kk, vv, table, lengths, **kw)
+                    torch.cuda.synchronize()
+                    abs_err, err = rel_err(got, want)
+                    name = "paged_attention_int8" if quant else "paged_attention"
+                    if not (err <= TOL):
+                        raise AssertionError(f"{name} page={page} {lens_name} {variant}: "
+                                             f"error {err:.3e} of RMS > {TOL}")
+                    window = kw.get("sliding_window_size")
+                    live = sum(min(n, maxp * page) - (max(0, n - window) if window else 0)
+                               for n in lens)
+                    # each live token's K and V rows once (int8: codes + one
+                    # f32 scale per (token, group)), q, the output, tables
+                    per_tok = g * (dh + 4) * 2 if quant else g * dh * 2 * 2
+                    nbytes = (q.numel() * 2 + live * per_tok + b * h * dh * 4
+                              + table.numel() * 4 + b * 4)
+                    b_ms, b_by = bound(nbytes, 4.0 * live * h * dh)
+                    lib_ms = None
+                    if lens_name == "uniform1024":
+                        # yardstick: SDPA over the pre-gathered (for K6 also
+                        # pre-dequantized) cache, the gather not timed
+                        def gathered(pool, sc):
+                            t = pool[:, table.long()].transpose(0, 1).reshape(b, g, -1, dh)
+                            if sc is not None:
+                                s_ = sc[:, table.long()].transpose(0, 1).reshape(b, g, -1)
+                                t = dequantize_rows(t, s_).to(torch.bfloat16)
+                            return t[:, :, :1024].contiguous()
+                        kt = gathered(kk, ks if quant else None)
+                        vt = gathered(vv, vs if quant else None)
+                        qt = q[:, :, None, :]
+                        lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+                            qt, kt, vt, scale=scale, enable_gqa=True))
+                    row = dict(kernel=name, B=b, H=h, G=g, Dh=dh, page=page, lengths=lens_name,
+                               variant=variant, live_tokens=live, max_abs_err=abs_err,
+                               err_over_rms=err, tol=TOL,
+                               ms=timer.ms(lambda: paged_decode_attention(
+                                   q, kk, vv, table, lengths, **kw)),
+                               plain_ms=timer.ms(lambda: paged_attention_plain(
+                                   q, kk, vv, table, lengths, **kw), 3),
+                               library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                    rows.append(row)
+                    log("KERNEL " + json.dumps(row))
+        del k, v, kq, vq, ks, vs
+
+
+# -- phases 3-8: the port's main path -----------------------------------------
 
 
 def synth_flagship(num_layers: int, bits: int, name: str) -> str:
@@ -283,6 +467,259 @@ def path_int8(torch, model_dir: str, info: dict) -> dict:
     return launches
 
 
+def path_int4_kv_int8(torch, lm16, info: dict) -> dict:
+    """The dense INT4 path once more with the INT8 KV cache: prefill
+    attention goes through K4."""
+    from uzu_tpu_torch.engine.engine import LanguageModel, StreamMetrics
+    from uzu_tpu_torch.ops.cuda.build import LAUNCHES, reset_launches
+
+    lm = LanguageModel(lm16.config, lm16.params, device="cuda", max_context=4096,
+                       kv_quant=True)
+    metrics = StreamMetrics()
+    reset_launches()
+    toks = lm.generate_list(prompt_tokens(GEN_PROMPT, FLAGSHIP["vocab_size"]), 16,
+                            stop_token_ids=[], metrics=metrics)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    if launches["flash_attention_int8"] <= 0:
+        raise AssertionError("kernel flash_attention_int8 was not launched on the INT8-KV path")
+    info["int4_kv_int8_path"] = dict(generated=len(toks), tokens_head=toks[:16],
+                                     launches=launches,
+                                     prefill_tok_s=metrics.prefill_tokens_per_second,
+                                     decode_tok_s=metrics.decode_tokens_per_second)
+    log("PATH_INT4_KV_INT8 " + json.dumps(info["int4_kv_int8_path"]))
+    return launches
+
+
+def single_stream_along(torch, lm, prompt, tokens):
+    """The single-stream path of `lm` (prefill, then one decode step per
+    token) fed `tokens`: per step the greedy choice, its top-2 logit margin,
+    and how far the fed token's logit lies below the best one."""
+    state = lm.new_state()
+    logits, state = lm.prefill(state, prompt)
+    rows = []
+    for i, tok in enumerate(tokens):
+        top = torch.topk(logits, 2)
+        rows.append(torch.stack([top.indices[0].float(), top.values[0] - top.values[1],
+                                 top.values[0] - logits[tok]]))
+        if i + 1 < len(tokens):
+            logits, state, _ = lm._forward(torch.tensor([tok], device=logits.device), state, 1,
+                                           lm._ctx_bucket(len(prompt) + i + 1))
+    best, margin, gap = torch.stack(rows).cpu().double().T.tolist()
+    return [int(t) for t in best], margin, gap
+
+
+def stream_readings(torch, lm, prompts, streams) -> list[dict]:
+    """Each stream against the single-stream path of `lm` fed the stream's
+    own history. Per stream: `compared`, the tokens before the first step
+    whose single-stream top-2 logit margin is under MARGIN (up to there
+    the stream is the single stream's greedy stream run alone);
+    `clear_steps`, the steps whose margin is at least MARGIN;
+    `greedy_choices`, the steps at which the stream takes the single
+    stream's greedy choice; where it first leaves that choice, with the
+    margin there; and `max_gap`, how far its worst token's logit lies below
+    the best one."""
+    out = []
+    for prompt, got in zip(prompts, streams):
+        best, margin, gap = single_stream_along(torch, lm, prompt, got)
+        part = next((j for j, (a, b) in enumerate(zip(got, best)) if a != b), None)
+        out.append(dict(
+            compared=next((j for j, m in enumerate(margin) if m < MARGIN), len(got)),
+            clear_steps=sum(m >= MARGIN for m in margin),
+            greedy_choices=sum(a == b for a, b in zip(got, best)), tokens=len(got),
+            parted_at=part, margin_there=None if part is None else margin[part],
+            max_gap=max(gap)))
+    return out
+
+
+def check_streams(readings) -> None:
+    """On the same history the two paths' bf16 logits differ by a few bf16
+    ulps (other summation orders in attention), so greedy may take the
+    other side of a near-tie, and such a token's gap is at most twice that
+    difference. A token MARGIN or more below the best logit fails; so, as
+    a token that is not the greedy choice lies at least the margin below
+    the best, does any step with a margin of at least MARGIN that chose
+    otherwise (`compared` and `clear_steps` count those steps). A run whose
+    streams take the greedy choice at fewer than GREEDY_FLOOR of their
+    steps fails too."""
+    for i, r in enumerate(readings):
+        if r["max_gap"] >= MARGIN:
+            raise AssertionError(f"request {i}: a token lies {r['max_gap']:.3e} below the "
+                                 f"single stream's best logit (limit {MARGIN})")
+    share = sum(r["greedy_choices"] for r in readings) / sum(r["tokens"] for r in readings)
+    if share < GREEDY_FLOOR:
+        raise AssertionError(f"the streams take the single stream's greedy choice at "
+                             f"{share:.3f} of their steps (floor {GREEDY_FLOOR})")
+
+
+def stream_summary(readings) -> dict:
+    return dict(compared_tokens=[r["compared"] for r in readings],
+                clear_steps=[r["clear_steps"] for r in readings],
+                greedy_choices=[r["greedy_choices"] for r in readings],
+                greedy_share=sum(r["greedy_choices"] for r in readings)
+                / sum(r["tokens"] for r in readings),
+                max_gaps=[r["max_gap"] for r in readings])
+
+
+def drive(torch, eng) -> tuple[float, list]:
+    """Run the engine to idle; returns (seconds, [(seconds, decode-only)]
+    per scheduler step)."""
+    steps = []
+    t0 = time.perf_counter()
+    while True:
+        before = dict(eng.stats)
+        ts = time.perf_counter()
+        busy = eng.step()
+        steps.append((time.perf_counter() - ts,
+                      eng.stats["prefill_chunks"] == before["prefill_chunks"]
+                      and eng.stats["decode_chunks"] > before["decode_chunks"]))
+        if not busy:
+            break
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, steps
+
+
+def paged_prompts(vocab: int):
+    """11 prompts of 17 to 700 tokens; the last four share a 600-token
+    prefix, a whole 512-token page of it."""
+    import numpy as np
+
+    out = [((np.arange(n) * (31 + 2 * i) + 101 * i + 7) % vocab).tolist()
+           for i, n in enumerate((17, 700, 64, 300, 129, 450, 33))]
+    shared = prompt_tokens(600, vocab).tolist()
+    out += [shared + ((np.arange(n) * 7 + i) % vocab).tolist()
+            for i, n in enumerate((5, 40, 90, 17))]
+    return out
+
+
+def path_paged_int4(torch, lm16, info: dict) -> dict:
+    """PagedBatchEngine over the full-width INT4 flagship (bf16 pools)."""
+    from uzu_tpu_torch.engine.paged_batch import PagedBatchEngine
+    from uzu_tpu_torch.ops.cuda.build import LAUNCHES, reset_launches
+
+    eng = PagedBatchEngine(lm16, batch_size=8, decode_chunk=8, num_pages=64,
+                           stop_token_ids=[])
+    pool_bytes = sum(t.numel() * t.element_size() for pk in eng.pools if pk for t in pk)
+    prompts = paged_prompts(FLAGSHIP["vocab_size"])
+    reset_launches()
+    reqs = [eng.submit(p, PAGED_TOKENS) for p in prompts]
+    seconds, steps = drive(torch, eng)
+    skipped_before = eng.stats["shared_prefix_tokens"]
+    # a follow-up turn extending a finished request's history: its first
+    # page comes from the automatic prefix cache
+    follow = prompts[7] + reqs[7].tokens + [11, 12, 13]
+    prompts.append(follow)
+    reqs.append(eng.submit(follow, PAGED_TOKENS))
+    seconds2, steps2 = drive(torch, eng)
+    launches = dict(LAUNCHES)
+    apc_skipped = eng.stats["shared_prefix_tokens"] - skipped_before
+    decode_steps = eng.stats["decode_chunks"] * eng.decode_chunk
+    layers = len(lm16.params["layers"])
+    if launches["paged_attention"] != decode_steps * layers:
+        raise AssertionError(f"paged_attention launched {launches['paged_attention']} times, "
+                             f"expected {decode_steps} steps x {layers} layers")
+    if apc_skipped < eng.page_size:
+        raise AssertionError("the follow-up request did not reuse the prefix cache's pages")
+    if skipped_before < 3 * eng.page_size:
+        raise AssertionError("the shared-prefix requests did not share their first page")
+    if not all(r.finished and len(r.tokens) == PAGED_TOKENS for r in reqs):
+        raise AssertionError("a paged request did not produce its tokens")
+    eng._evict_retired(eng.pool.num_pages)
+    if eng.pool.free_pages != eng.pool.num_pages:
+        raise AssertionError(f"{eng.pool.num_pages - eng.pool.free_pages} pages leaked")
+    t0 = time.perf_counter()
+    readings = stream_readings(torch, lm16, prompts, [r.tokens for r in reqs])
+    log("COMPARED " + json.dumps(readings))
+    check_streams(readings)
+    chunk_ms = [1e3 * t for t, decode_only in steps + steps2 if decode_only]
+    generated = sum(len(r.tokens) for r in reqs)
+    info["paged_int4"] = dict(
+        requests=len(reqs), batch_size=8, decode_chunk=8, page_size=eng.page_size,
+        num_pages=64, pool_gb=pool_bytes / 1e9, prompt_tokens=[len(p) for p in prompts],
+        generated=generated, seconds=seconds + seconds2,
+        aggregate_tok_s=generated / (seconds + seconds2),
+        ms_per_chunk_median=statistics.median(chunk_ms), decode_only_chunks=len(chunk_ms),
+        decode_tok_s_steady=8 * 8 / (statistics.median(chunk_ms) / 1e3),
+        ttft_ms=[round(1e3 * r.ttft, 3) for r in reqs], decode_steps=decode_steps,
+        prefill_chunks=eng.stats["prefill_chunks"], shared_prefix_tokens=skipped_before,
+        prefix_cache_tokens=apc_skipped, **stream_summary(readings),
+        compare_seconds=time.perf_counter() - t0, launches=launches,
+        launches_per_decode_step={n: launches[n] / decode_steps for n in launches})
+    log("PATH_PAGED_INT4 " + json.dumps(info["paged_int4"]))
+    return launches
+
+
+def path_paged_int8(torch, model_dir: str, info: dict) -> dict:
+    """PagedBatchEngine with INT8 pools over the 2-layer INT8 flagship:
+    prefill through K4, decode through K6."""
+    from uzu_tpu_torch.engine.engine import LanguageModel
+    from uzu_tpu_torch.engine.paged_batch import PagedBatchEngine
+    from uzu_tpu_torch.ops.cuda.build import LAUNCHES, reset_launches
+
+    lm = LanguageModel.from_dir(model_dir, device="cuda", max_context=4096, kv_quant=True)
+    eng = PagedBatchEngine(lm, batch_size=8, decode_chunk=8, num_pages=64, stop_token_ids=[])
+    prompts = paged_prompts(FLAGSHIP["vocab_size"])[:6]
+    reset_launches()
+    reqs = [eng.submit(p, 32) for p in prompts]
+    seconds, _ = drive(torch, eng)
+    launches = dict(LAUNCHES)
+    for name in ("paged_attention_int8", "flash_attention_int8"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the INT8 paged path")
+    readings = stream_readings(torch, lm, prompts, [r.tokens for r in reqs])
+    log("COMPARED " + json.dumps(readings))
+    check_streams(readings)
+    info["paged_int8"] = dict(requests=len(reqs), generated=sum(len(r.tokens) for r in reqs),
+                              seconds=seconds, **stream_summary(readings), launches=launches,
+                              decode_steps=eng.stats["decode_chunks"] * eng.decode_chunk,
+                              prefill_chunks=eng.stats["prefill_chunks"])
+    log("PATH_PAGED_INT8 " + json.dumps(info["paged_int8"]))
+    return launches
+
+
+def control_planted_faults(torch, lm16, info: dict) -> None:
+    """The stream check held to planted faults in the paged decode step,
+    each wrapping the K5 wrapper where `models/paged_decode.py` calls it
+    (the package is untouched): K5 sees the next slot's page table, or
+    each slot's length minus one (the newest token dropped). Four requests
+    of 2 to 129 prompt tokens make CONTROL_TOKENS tokens each per fault;
+    each fault's streams must fail `check_streams`."""
+    import uzu_tpu_torch.models.paged_decode as pd
+    from uzu_tpu_torch.engine.paged_batch import PagedBatchEngine
+
+    real = pd.paged_decode_attention
+    faults = {
+        "next_slot_table": lambda q, k, v, t, n, **kw: real(q, k, v, t.roll(-1, 0), n, **kw),
+        "length_minus_one": lambda q, k, v, t, n, **kw: real(
+            q, k, v, t, (n - 1).clamp(min=1), **kw),
+    }
+    prompts = [prompt_tokens(n, FLAGSHIP["vocab_size"]).tolist() for n in (2, 5, 17, 129)]
+    out = {}
+    for name, fault in faults.items():
+        eng = PagedBatchEngine(lm16, batch_size=len(prompts), decode_chunk=8, num_pages=8,
+                               stop_token_ids=[])
+        pd.paged_decode_attention = fault
+        try:
+            reqs = [eng.submit(p, CONTROL_TOKENS) for p in prompts]
+            eng.run()
+        finally:
+            pd.paged_decode_attention = real
+        readings = stream_readings(torch, lm16, prompts, [r.tokens for r in reqs])
+        try:
+            check_streams(readings)
+            caught = None
+        except AssertionError as e:
+            caught = str(e)
+        out[name] = dict(stream_summary(readings), caught=caught)
+        del eng
+    info["control"] = dict(prompt_tokens=[len(p) for p in prompts], tokens=CONTROL_TOKENS,
+                           faults=out)
+    log("CONTROL " + json.dumps(info["control"]))
+    missed = [name for name, r in out.items() if r["caught"] is None]
+    if missed:
+        raise AssertionError(f"the stream check passed planted faults: {missed}")
+
+
 def whole_path_check(torch, lm16, info: dict) -> None:
     """Teacher-forced logits of the first 2 layers of the INT4 flagship,
     on the card and through the port's plain path on the host CPU."""
@@ -313,7 +750,9 @@ def whole_path_check(torch, lm16, info: dict) -> None:
 def kernel_record(rows, info) -> list[dict]:
     """One entry per kernel at its main-path shape (the decode GEMV of the
     up|gate projection for K1/K2, a 256-row prefill chunk over a 1024-slot
-    context for K3); errors are the worst over every shape checked."""
+    context for K3/K4, 8 slots x 1024 live tokens in 512-token pages for
+    K5/K6), with the launches of the path that runs it; errors are the
+    worst over every shape checked."""
     spec = {
         "quant_matmul_int4": ("uzu_tpu_torch/csrc/quant_matmul.cu",
                               "uzu_tpu/ops/pallas/quant_matmul.py:183",
@@ -324,6 +763,16 @@ def kernel_record(rows, info) -> list[dict]:
         "flash_attention": ("uzu_tpu_torch/csrc/flash_attention.cu",
                             "uzu_tpu/ops/pallas/flash_attention.py:111",
                             dict(S=256, C=1024, variant="plain"), "int4_path"),
+        "flash_attention_int8": ("uzu_tpu_torch/csrc/flash_attention.cu",
+                                 "uzu_tpu/ops/pallas/flash_attention.py:132",
+                                 dict(S=256, C=1024, variant="plain"), "paged_int8"),
+        "paged_attention": ("uzu_tpu_torch/csrc/paged_attention.cu",
+                            "uzu_tpu/ops/pallas/paged_attention.py:76",
+                            dict(page=512, lengths="uniform1024", variant="plain"), "paged_int4"),
+        "paged_attention_int8": ("uzu_tpu_torch/csrc/paged_attention.cu",
+                                 "uzu_tpu/ops/pallas/paged_attention.py:115",
+                                 dict(page=512, lengths="uniform1024", variant="plain"),
+                                 "paged_int8"),
     }
     out = []
     for name, (src, replaces, where, path) in spec.items():
@@ -337,7 +786,8 @@ def kernel_record(rows, info) -> list[dict]:
             ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
             bound_by=rep["bound_by"], library_ms=rep["library_ms"],
             shape={k: rep[k] for k in rep if k in ("weight", "N", "K", "M", "S", "H", "G",
-                                                    "Dh", "C", "pos0", "variant")}))
+                                                    "Dh", "C", "pos0", "variant", "B", "page",
+                                                    "lengths", "live_tokens")}))
     return out
 
 
@@ -395,16 +845,28 @@ def main() -> int:
     rows: list = []
     check_quant_matmul(torch, timer, rows)
     check_flash_attention(torch, timer, rows)
+    check_flash_attention_int8(torch, timer, rows)
+    check_paged_attention(torch, timer, rows)
     del timer
     torch.cuda.empty_cache()
     info["phase_seconds"]["kernels"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     lm16, _ = path_int4(torch, dir16, info)
+    path_int4_kv_int8(torch, lm16, info)
     info["phase_seconds"]["path_int4"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path_paged_int4(torch, lm16, info)
+    info["phase_seconds"]["paged_int4"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     path_int8(torch, dir8, info)
     info["phase_seconds"]["path_int8"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path_paged_int8(torch, dir8, info)
+    info["phase_seconds"]["paged_int8"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    control_planted_faults(torch, lm16, info)
+    info["phase_seconds"]["control"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     whole_path_check(torch, lm16, info)
     info["phase_seconds"]["whole_path"] = time.perf_counter() - t0

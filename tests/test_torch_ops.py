@@ -297,7 +297,7 @@ def test_port_sources_import_no_jax():
 
 def test_import_loads_no_jax_module():
     code = ("import sys, uzu_tpu_torch, uzu_tpu_torch.convert, uzu_tpu_torch.tools.synth; "
-            "import uzu_tpu_torch.ops.cuda.build; "
+            "import uzu_tpu_torch.ops.cuda.build, uzu_tpu_torch.engine.paged_batch; "
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]; "
             "print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -1,6 +1,7 @@
-// Causal GQA flash attention over a contiguous KV cache (K3).
+// Causal GQA flash attention over a contiguous KV cache (K3), and the same
+// over an INT8 cache (K4).
 //
-// Replaces the TPU kernel uzu_tpu/ops/pallas/flash_attention.py::_kernel_plain
+// K3 replaces the TPU kernel uzu_tpu/ops/pallas/flash_attention.py::_kernel_plain
 // (launched by _flash_p). q is [S, H, DH], the cache k/v is [C, G, DH]
 // (slot j holds token position j), both bf16 or f32; query row s sits at
 // position pos0 + s, with pos0 = q_positions[0] read on the device (so a
@@ -27,6 +28,15 @@
 //
 // Not carried over from the TPU kernel: the lane-replicated stat scratch,
 // the iota-matmul sink expansion, and the tile-divisibility constraints.
+//
+// K4 replaces flash_attention.py::_kernel_quant: the cache is int8 codes
+// [C, G, DH] with one f32 scale per (slot, group) in k_scales/v_scales
+// [C, G]. It is the same kernel instantiated for int8 K/V: a thread loads
+// 8 codes (8 bytes) of a row, converts them and multiplies by the row's
+// scale in registers while staging the tile, so the cache is read at one
+// byte per value and no dequantized copy of it is ever made in HBM. The
+// staged tile holds exactly codes * scale in f32, the plain version's
+// dequantized value.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,6 +62,13 @@ __device__ __forceinline__ void load8(const float* p, float* o) {
   o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
 }
 
+__device__ __forceinline__ void load8(const int8_t* p, float* o) {
+  const int2 u = *reinterpret_cast<const int2*>(p);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o[i] = static_cast<float>(b[i]);
+}
+
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* o) {
   const uint4 u = *reinterpret_cast<const uint4*>(p);
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
@@ -63,10 +80,13 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* o) {
   }
 }
 
-template <typename T, int DH>
+// TQ: the query type; TKV: the cache type (TQ, or int8_t with per-(slot,
+// group) scales k_sc/v_sc; nullptr otherwise).
+template <typename TQ, typename TKV, int DH>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, const int* __restrict__ q_positions,
+flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k,
+          const TKV* __restrict__ v, const float* __restrict__ k_sc,
+          const float* __restrict__ v_sc, const int* __restrict__ q_positions,
           const float* __restrict__ sinks, float* __restrict__ out, int S,
           int H, int G, int C, float scale, float soft_cap, int window) {
   constexpr int DPT = DH / TPR;  // output dims per thread
@@ -101,7 +121,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
   float qr[DH];
   {
-    const T* qrow = q + (static_cast<size_t>(s_idx) * H + h) * DH;
+    const TQ* qrow = q + (static_cast<size_t>(s_idx) * H + h) * DH;
 #pragma unroll
     for (int d = 0; d < DH; d += 8) load8(qrow + d, qr + d);
   }
@@ -121,6 +141,16 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
         const size_t off = static_cast<size_t>(c0 + c) * kv_stride + static_cast<size_t>(g) * DH + d8;
         load8(k + off, kv8);
         load8(v + off, vv8);
+        if (k_sc != nullptr) {
+          const size_t srow = static_cast<size_t>(c0 + c) * G + g;
+          const float ka = k_sc[srow];
+          const float va = v_sc[srow];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            kv8[j] *= ka;
+            vv8[j] *= va;
+          }
+        }
       } else {
 #pragma unroll
         for (int j = 0; j < 8; ++j) kv8[j] = vv8[j] = 0.f;
@@ -193,43 +223,76 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < DPT; ++i) orow[i] = acc[i] * inv;
 }
 
-template <typename T, int DH>
-void launch(const void* q, const void* k, const void* v, const int* qpos,
-            const float* sinks, float* out, int S, int H, int G, int C,
-            float scale, float soft_cap, int window, cudaStream_t stream) {
+template <typename TQ, typename TKV, int DH>
+void launch(const void* q, const void* k, const void* v, const float* ks,
+            const float* vs, const int* qpos, const float* sinks, float* out,
+            int S, int H, int G, int C, float scale, float soft_cap,
+            int window, cudaStream_t stream) {
   const int R = S * (H / G);
   const dim3 grid((R + BQ - 1) / BQ, G);
-  flash_fwd<T, DH><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), qpos, sinks, out, S, H, G, C, scale,
+  flash_fwd<TQ, TKV, DH><<<grid, THREADS, 0, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const TKV*>(k),
+      static_cast<const TKV*>(v), ks, vs, qpos, sinks, out, S, H, G, C, scale,
       soft_cap, window);
+}
+
+template <typename TQ, typename TKV>
+int dispatch(const void* q, const void* k, const void* v, const float* ks,
+             const float* vs, const int* qpos, const float* sk, float* o, int S,
+             int H, int G, int C, int DH, float scale, float soft_cap, int window,
+             cudaStream_t s) {
+  if (DH == 64) {
+    launch<TQ, TKV, 64>(q, k, v, ks, vs, qpos, sk, o, S, H, G, C, scale, soft_cap, window, s);
+  } else if (DH == 128) {
+    launch<TQ, TKV, 128>(q, k, v, ks, vs, qpos, sk, o, S, H, G, C, scale, soft_cap, window, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes. The caller guarantees: q [S,H,DH]
-// and k/v [C,G,DH] contiguous, 16-byte aligned, of one dtype; H % G == 0;
-// q_positions int32 on the device; sinks f32 [H] or nullptr; soft_cap <= 0
-// and window <= 0 mean none. Returns cudaGetLastError() after the launch.
+// Plain C entry points, bound with ctypes. The caller guarantees: q [S,H,DH]
+// and k/v [C,G,DH] contiguous, 16-byte aligned; H % G == 0; q_positions
+// int32 on the device; sinks f32 [H] or nullptr; soft_cap <= 0 and
+// window <= 0 mean none. K3: q, k, v of one dtype (bf16 or f32). K4: k/v
+// int8 codes with f32 scales [C,G]; q bf16 or f32. Each returns
+// cudaGetLastError() after the launch.
 extern "C" int uz_flash_attention(const void* q, const void* k, const void* v,
                                   int is_bf16, const void* q_positions,
                                   const void* sinks, void* out, int S, int H,
                                   int G, int C, int DH, float scale,
                                   float soft_cap, int window, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* qpos = static_cast<const int*>(q_positions);
   const float* sk = static_cast<const float*>(sinks);
   float* o = static_cast<float*>(out);
-  if (DH == 64 && is_bf16) {
-    launch<__nv_bfloat16, 64>(q, k, v, qpos, sk, o, S, H, G, C, scale, soft_cap, window, s);
-  } else if (DH == 64) {
-    launch<float, 64>(q, k, v, qpos, sk, o, S, H, G, C, scale, soft_cap, window, s);
-  } else if (DH == 128 && is_bf16) {
-    launch<__nv_bfloat16, 128>(q, k, v, qpos, sk, o, S, H, G, C, scale, soft_cap, window, s);
-  } else if (DH == 128) {
-    launch<float, 128>(q, k, v, qpos, sk, o, S, H, G, C, scale, soft_cap, window, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    return dispatch<__nv_bfloat16, __nv_bfloat16>(q, k, v, nullptr, nullptr, qpos, sk, o, S,
+                                                  H, G, C, DH, scale, soft_cap, window, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return dispatch<float, float>(q, k, v, nullptr, nullptr, qpos, sk, o, S, H, G, C, DH,
+                                scale, soft_cap, window, s);
+}
+
+extern "C" int uz_flash_attention_i8(const void* q, const void* k_codes,
+                                     const void* k_scales, const void* v_codes,
+                                     const void* v_scales, int is_bf16,
+                                     const void* q_positions, const void* sinks,
+                                     void* out, int S, int H, int G, int C,
+                                     int DH, float scale, float soft_cap,
+                                     int window, void* stream) {
+  const float* ks = static_cast<const float*>(k_scales);
+  const float* vs = static_cast<const float*>(v_scales);
+  const int* qpos = static_cast<const int*>(q_positions);
+  const float* sk = static_cast<const float*>(sinks);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    return dispatch<__nv_bfloat16, int8_t>(q, k_codes, v_codes, ks, vs, qpos, sk, o, S, H, G,
+                                           C, DH, scale, soft_cap, window, s);
+  }
+  return dispatch<float, int8_t>(q, k_codes, v_codes, ks, vs, qpos, sk, o, S, H, G, C, DH,
+                                 scale, soft_cap, window, s);
 }

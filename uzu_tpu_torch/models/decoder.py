@@ -34,7 +34,7 @@ from ..ops.linear import linear_apply
 from ..ops.norm import normalize
 from ..ops.rope import apply_rope, inverse_frequencies, rope_tables
 from ..quant.format import QuantizedTensor, unpack_codes
-from .kv_cache import append as kv_append, read as kv_read
+from .kv_cache import append as kv_append, is_quantized, read as kv_read, read_quantized
 
 
 # --------------------------------------------------------------------------
@@ -79,31 +79,24 @@ def _inv_freq(rope_cfg, device: str) -> tuple[torch.Tensor, float]:
     return torch.from_numpy(inv).to(device), scale
 
 
-def attention_forward(
-    cfg: AttentionConfig,
-    layer_cfg: TransformerLayerConfig,
-    params: dict,
-    x: torch.Tensor,  # [S, D]
-    positions: torch.Tensor,  # [S]
-    kv,  # own cache dict or shared source cache dict
-    owns_cache: bool,
-    true_length=None,
-    ctx_limit: int | None = None,  # attention reads only cache slots
-    # [0, ctx_limit): the cache stays max_context-sized, but a step at
-    # position p reads only the smallest bucket covering p
-):
-    s, d = x.shape
+def project_qkv(cfg: AttentionConfig, layer_cfg: TransformerLayerConfig, params: dict,
+                x: torch.Tensor, positions: torch.Tensor):
+    """x [N, D] at positions [N] -> (q [N, H, Dh], k_new, v_new [N, G, Dh]):
+    QKV linear, head norms and RoPE. k_new and v_new are None on a
+    KV-sharing layer. Rows are independent, so N may be a prefill chunk
+    of one sequence or one decode token of each of N slots."""
+    n = x.shape[0]
     h, g, dh = cfg.num_heads, cfg.num_groups, cfg.head_dim
     q_dim = h * dh
 
     qkv = linear_apply(params["qkv"]["w"], x, params["qkv"].get("b"))
     if cfg.is_kv_sharing:
-        q = qkv.reshape(s, h, dh)
+        q = qkv.reshape(n, h, dh)
         k_new = v_new = None
     else:
-        q = qkv[:, :q_dim].reshape(s, h, dh)
-        k_new = qkv[:, q_dim: q_dim + g * dh].reshape(s, g, dh)
-        v_new = qkv[:, q_dim + g * dh:].reshape(s, g, dh)
+        q = qkv[:, :q_dim].reshape(n, h, dh)
+        k_new = qkv[:, q_dim: q_dim + g * dh].reshape(n, g, dh)
+        v_new = qkv[:, q_dim + g * dh:].reshape(n, g, dh)
 
     if cfg.query_norm_config is not None:
         q = normalize(q, cfg.query_norm_config, params["q_norm_scales"])
@@ -118,7 +111,33 @@ def attention_forward(
         q = apply_rope(q, cos, sin)
         if k_new is not None:
             k_new = apply_rope(k_new, cos, sin)
+    return q, k_new, v_new
 
+
+def attention_output(params: dict, x: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
+    """attn [N, H*Dh] -> [N, D]: the optional sigmoid gate from x, then
+    the out linear."""
+    if "gate" in params:
+        gate = linear_apply(params["gate"]["w"], x)
+        attn = (attn.float() * torch.sigmoid(gate.float())).to(attn.dtype)
+    return linear_apply(params["out"]["w"], attn, params["out"].get("b"))
+
+
+def attention_forward(
+    cfg: AttentionConfig,
+    layer_cfg: TransformerLayerConfig,
+    params: dict,
+    x: torch.Tensor,  # [S, D]
+    positions: torch.Tensor,  # [S]
+    kv,  # own cache dict or shared source cache dict
+    owns_cache: bool,
+    true_length=None,
+    ctx_limit: int | None = None,  # attention reads only cache slots
+    # [0, ctx_limit): the cache stays max_context-sized, but a step at
+    # position p reads only the smallest bucket covering p
+):
+    s = x.shape[0]
+    q, k_new, v_new = project_qkv(cfg, layer_cfg, params, x, positions)
     new_kv = kv_append(kv, k_new, v_new, positions, true_length) if owns_cache else kv
 
     read_kv = new_kv
@@ -126,9 +145,17 @@ def attention_forward(
         c_full = next(iter(new_kv.values())).shape[0]
         if ctx_limit < c_full:
             read_kv = {kk: vv[:ctx_limit] for kk, vv in new_kv.items()}
-    k_cache, v_cache, kv_positions = kv_read(read_kv)
+    scales = {}
+    if is_quantized(read_kv):
+        # INT8 codes + scales: K4 reads them where the flash gate holds,
+        # attention_reference dequantizes them everywhere else
+        k_cache, ks, v_cache, vs = read_quantized(read_kv)
+        kv_positions = read_kv.get("pos")
+        scales = {"k_scales": ks, "v_scales": vs}
+    else:
+        k_cache, v_cache, kv_positions = kv_read(read_kv)
 
-    scale = cfg.scale if cfg.scale is not None else float(dh) ** -0.5
+    scale = cfg.scale if cfg.scale is not None else float(cfg.head_dim) ** -0.5
     kv_valid = None
     if not cfg.is_causal and true_length is not None:
         kv_valid = positions[0] + true_length
@@ -136,16 +163,9 @@ def attention_forward(
         q, k_cache, v_cache, positions, scale=scale, is_causal=cfg.is_causal,
         sliding_window_size=cfg.sliding_window_size,
         logit_soft_cap=cfg.logit_soft_cap, sinks=params.get("sinks"),
-        kv_valid_length=kv_valid, kv_positions=kv_positions,
+        kv_valid_length=kv_valid, kv_positions=kv_positions, **scales,
     )
-    attn = attn.reshape(s, q_dim)
-
-    if "gate" in params:
-        gate = linear_apply(params["gate"]["w"], x)
-        attn = (attn.float() * torch.sigmoid(gate.float())).to(attn.dtype)
-
-    out = linear_apply(params["out"]["w"], attn, params["out"].get("b"))
-    return out, new_kv
+    return attention_output(params, x, attn.reshape(s, -1)), new_kv
 
 
 # --------------------------------------------------------------------------
@@ -174,32 +194,14 @@ def _norm(params_key, cfg, params, x):
     return normalize(x, cfg, p["scales"], p.get("biases"))
 
 
-def layer_forward(
-    layer_cfg: TransformerLayerConfig,
-    params: dict,
-    x: torch.Tensor,
-    positions: torch.Tensor,
-    layer_state,
-    shared_kv,
-    true_length=None,
-    ctx_limit=None,
-):
-    mixer_cfg = layer_cfg.mixer_config
-    if not isinstance(mixer_cfg, AttentionConfig):
-        raise NotImplementedError(f"{type(mixer_cfg).__name__} mixers are not ported yet")
+def residual_block(layer_cfg: TransformerLayerConfig, params: dict, x: torch.Tensor,
+                   mixer):
+    """One layer's norms and residuals around `mixer(h) -> (a, state)`;
+    returns (x, state)."""
     pls = params.get("post_layer_scalar")
-
     h = (_norm("pre_mixer_norm", layer_cfg.pre_mixer_norm_config, params, x)
          if layer_cfg.pre_mixer_norm_config else x)
-
-    owns = layer_state is not None
-    a, new_state = attention_forward(
-        mixer_cfg, layer_cfg, params["mixer"], h, positions,
-        layer_state if owns else shared_kv, owns, true_length, ctx_limit,
-    )
-    if not owns:
-        new_state = None
-
+    a, new_state = mixer(h)
     if layer_cfg.post_mixer_norm_config is not None:
         a = _norm("post_mixer_norm", layer_cfg.post_mixer_norm_config, params, a)
 
@@ -216,6 +218,43 @@ def layer_forward(
 
     x = (x.float() + m.float()).to(x.dtype)
     return x, new_state
+
+
+def layer_forward(
+    layer_cfg: TransformerLayerConfig,
+    params: dict,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    layer_state,
+    shared_kv,
+    true_length=None,
+    ctx_limit=None,
+):
+    mixer_cfg = layer_cfg.mixer_config
+    if not isinstance(mixer_cfg, AttentionConfig):
+        raise NotImplementedError(f"{type(mixer_cfg).__name__} mixers are not ported yet")
+    owns = layer_state is not None
+    x, new_state = residual_block(layer_cfg, params, x, lambda h: attention_forward(
+        mixer_cfg, layer_cfg, params["mixer"], h, positions,
+        layer_state if owns else shared_kv, owns, true_length, ctx_limit))
+    return x, new_state if owns else None
+
+
+def embed(cfg: DecoderConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens [N] -> input activations [N, D]."""
+    table = params["embedding"].get("tied", params["embedding"].get("input"))
+    x = embedding_lookup(table, tokens)
+    scale = cfg.embedding_config.input_scale
+    return x if scale is None else (x.float() * scale).to(x.dtype)
+
+
+def readout(cfg: DecoderConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Final norm and readout: x [N, D] -> logits [N, V] f32."""
+    tcfg = cfg.transformer_config
+    x = normalize(x, tcfg.output_norm_config, params["output_norm"]["scales"],
+                  params["output_norm"].get("biases"))
+    table = params["embedding"].get("tied", params["embedding"].get("output"))
+    return embedding_readout(table, x, cfg.embedding_config.logit_soft_cap)
 
 
 def decoder_forward(
@@ -242,12 +281,7 @@ def decoder_forward(
     if true_length is None:
         true_length = s
     positions = state["pos"] + torch.arange(s, dtype=torch.int32, device=tokens.device)
-
-    ecfg = cfg.embedding_config
-    table = params["embedding"].get("tied", params["embedding"].get("input"))
-    x = embedding_lookup(table, tokens)
-    if ecfg.input_scale is not None:
-        x = (x.float() * ecfg.input_scale).to(x.dtype)
+    x = embed(cfg, params, tokens)
 
     new_layer_states = []
     for i, layer_cfg in enumerate(tcfg.layer_configs):
@@ -259,9 +293,8 @@ def decoder_forward(
         )
         new_layer_states.append(new_state)
 
-    x = normalize(x, tcfg.output_norm_config, params["output_norm"]["scales"],
-                  params["output_norm"].get("biases"))
     if last_only:
+        # the final norm is per row, so picking the row first is the same
         if isinstance(true_length, torch.Tensor):
             # a device-side true_length of 0 (a halted decode step) reads
             # row 0, as the JAX package's clamped dynamic slice does
@@ -271,7 +304,6 @@ def decoder_forward(
             row = max(true_length - 1, 0)
             x = x[row:row + 1]
 
-    out_table = params["embedding"].get("tied", params["embedding"].get("output"))
-    logits = embedding_readout(out_table, x, ecfg.logit_soft_cap)
+    logits = readout(cfg, params, x)
     out_state = {"layers": new_layer_states, "pos": state["pos"] + true_length}
     return logits, out_state

@@ -8,15 +8,17 @@ absolute positions so prefill chunks and decode steps share one code path.
 
 Dispatch mirrors the JAX package's kernel mode: wherever the flash kernel's
 semantic gate holds (causal, contiguous layout, no tree or padding mask,
-enough query rows), the call goes to K3 (`ops/cuda/flash_attention.py`).
-Decode widths and the other masks stay on the plain einsum / online-softmax
-paths below, in f32.
+enough query rows), the call goes to K3 (`ops/cuda/flash_attention.py`),
+or to K4 when the cache is INT8 codes with `k_scales`/`v_scales`. Decode
+widths and the other masks stay on the plain einsum / online-softmax paths
+below, in f32; an INT8 cache is dequantized for them.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..models.kv_cache import dequantize_rows
 from .cuda import flash_attention as fa
 
 NEG_INF = -1e30
@@ -39,6 +41,8 @@ def attention_reference(
     kv_valid_length=None,  # mask kv slots >= this (bidirectional padding)
     suffix_start=None,  # slot index where tree-suffix nodes begin
     suffix_mask: torch.Tensor | None = None,  # [S, M] ancestor mask
+    k_scales: torch.Tensor | None = None,  # [C, G] f32: k/v are INT8 codes
+    v_scales: torch.Tensor | None = None,
 ) -> torch.Tensor:
     s, h, dh = q.shape
     c, g, _ = k_cache.shape
@@ -46,11 +50,17 @@ def attention_reference(
 
     if fa.supported(s, h, g, dh, c, is_causal=is_causal, suffix_mask=suffix_mask,
                     kv_valid_length=kv_valid_length, kv_positions=kv_positions):
+        if k_scales is None:
+            k_cache, v_cache = k_cache.to(q.dtype), v_cache.to(q.dtype)
         out = fa.flash_attention(
-            q, k_cache.to(q.dtype), v_cache.to(q.dtype), q_positions, scale=scale,
+            q, k_cache, v_cache, q_positions, scale=scale,
             sliding_window_size=sliding_window_size,
-            logit_soft_cap=logit_soft_cap, sinks=sinks)
+            logit_soft_cap=logit_soft_cap, sinks=sinks,
+            k_scales=k_scales, v_scales=v_scales)
         return out.to(q.dtype)
+    if k_scales is not None:
+        k_cache = dequantize_rows(k_cache, k_scales)
+        v_cache = dequantize_rows(v_cache, v_scales)
 
     if suffix_mask is None and s >= ONLINE_MIN_S and c % ONLINE_CHUNK == 0:
         return attention_online(

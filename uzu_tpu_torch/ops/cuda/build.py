@@ -23,7 +23,7 @@ from ...runtime import kernel_build_dir
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
-SOURCES = ("quant_matmul", "flash_attention")
+SOURCES = ("quant_matmul", "flash_attention", "paged_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -31,6 +31,9 @@ LAUNCHES: dict[str, int] = {
     "quant_matmul_int4": 0,
     "quant_matmul_int8": 0,
     "flash_attention": 0,
+    "flash_attention_int8": 0,
+    "paged_attention": 0,
+    "paged_attention_int8": 0,
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
