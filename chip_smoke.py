@@ -6,14 +6,16 @@
 Phases, each of which ends the run with a non-zero exit if it fails:
 
 1. build: compile every CUDA kernel of the port from `uzu_tpu_torch/csrc/`
-   (one nvcc per source, in parallel) while the flagship model is
-   synthesized; print the card's name and power limit.
+   (one nvcc per source, in parallel) while the four models are
+   synthesized (one process each); print the card's name and power limit.
 2. kernels: each kernel against its plain PyTorch version on the card at
-   the flagship's shapes (bf16 inputs or INT8 codes, f32 accumulation),
-   with its time, the plain version's time, one PyTorch library call as a
-   yardstick, and the bound (bytes over the HBM rate or FLOPs over the
-   bf16 peak): K1/K2 quant matmul, K3/K4 flash attention (bf16 / INT8
-   cache), K5/K6 paged decode attention (bf16 / INT8 pools).
+   the shapes its path gives it (bf16 inputs or INT8 codes, f32
+   accumulation), with its time, the plain version's time, one PyTorch
+   library call as a yardstick, and the bound (bytes over the HBM rate or
+   FLOPs over the bf16 peak): K1/K2 quant matmul, K3/K4 flash attention
+   (bf16 / INT8 cache), K5/K6 paged decode attention (bf16 / INT8 pools),
+   K3/K5 again at gpt-oss's heads (8 per KV group, window 128, sinks),
+   K7/K8 expert-gather GEMV, K9/K10 grouped expert matmul.
 3. path INT4: the Llama-1B-shaped INT4 flagship (16 layers, d 2048, vocab
    128256, random weights from a seed) loaded with `LanguageModel.from_dir`
    on the card; greedy generation of 64 tokens after a 128-token prompt,
@@ -32,11 +34,30 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 6. paged INT8: the 2-layer INT8 model with INT8 page pools; streams equal
    the dense INT8-KV single stream under the same rule; K4 and K6
    launched.
-7. control: the stream check must fail the streams of the paged engine
+7. gpt-oss INT4: gpt-oss-20b's widths (d 2880, 64 query heads over 8 KV
+   groups, 32 experts of which 4 are active, vocab 201088, sliding and
+   full attention alternating, sinks) at 4 layers, bf16 attention and
+   embeddings, INT4 g32 experts: the MoE routing runs with no host sync;
+   a 128-token prompt and 64 greedy tokens, twice, identical; K7, K9 and
+   K3 launched. Then `PagedBatchEngine` over it (11 requests, 8 slots),
+   K9 launched twice per layer per decode step, K5 once per layer. Its
+   streams are held, under the rule of phase 4, to the single stream
+   (K7 in decode) taking the paged engine's expert choices, and each
+   choice the single stream would not have made must be a router near-tie
+   (ROUTER_MARGIN); the readings against the free single stream are
+   reported too.
+8. gpt-oss INT8 experts: 2 layers, prefill buckets up to 1024, an
+   1100-token prompt and 16 greedy tokens: K10 (the 1024-row chunk) and K8
+   (decode) launched.
+9. control: the stream check must fail the streams of the paged engine
    when its K5 call reads the next slot's page table, and when it drops
-   each slot's newest token.
-8. whole-path check: teacher-forced logits of a 32-token prompt through
-   the 2-layer INT4 model on the card and on the host CPU.
+   each slot's newest token; the MoE check of phase 7 must fail when K9
+   multiplies by the next expert's weights, and when the router's decode
+   rows take the experts ranked K+1 to 2K.
+10. whole-path checks: teacher-forced logits of a 32-token prompt through
+    the 2-layer INT4 flagship and through the 4-layer INT4 gpt-oss model,
+    on the card and on the host CPU (for gpt-oss, the CPU pass takes the
+    card's expert choices, each a router near-tie where they differ).
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Full per-shape numbers also go to
@@ -47,12 +68,14 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -66,6 +89,12 @@ FLAGSHIP = dict(num_layers=16, model_dim=2048, hidden_dim=8192, num_heads=32,
 LINEAR_SHAPES = (("qkv", 3072, 2048), ("out", 2048, 2048),
                  ("up|gate", 16384, 2048), ("down", 2048, 8192),
                  ("readout", 128256, 2048))
+# gpt-oss-20b's published widths; the depth is cut to 4 layers (2 for the
+# INT8-expert model) so the models synthesize and load inside the run
+GPTOSS = dict(model_dim=2880, num_heads=64, num_groups=8, head_dim=64, vocab_size=201088,
+              num_experts=32, num_active=4, expert_hidden_dim=2880, sliding_window=128,
+              max_seq=8192)
+EXPERT_SHAPES = (("up", 5760, 2880), ("down", 2880, 2880))
 GEN_PROMPT, GEN_TOKENS = 128, 64
 REPS = 10
 # a greedy step whose single-stream top-2 logit margin is below this may
@@ -76,6 +105,15 @@ MARGIN = 0.125
 # ... and a run's streams take the single stream's greedy choice at no
 # fewer than this share of their steps
 GREEDY_FLOOR = 0.9
+# An MoE router's choice flips at a near-tie: the two paths' router inputs
+# differ by bf16 rounding that compounds layer by layer (a few 1e-3 of
+# RMS by layer 3 of gpt-oss, router logits ~N(0, 1.07): their logits differ
+# by ~1e-2), and one flipped expert moves the logits far past MARGIN. So
+# the single stream that the MoE streams are held to takes the expert
+# choices the paged engine took (see path_paged_gptoss), and each choice
+# it did not make itself may lie at most this far below its own K-th
+# router logit (check_routing).
+ROUTER_MARGIN = 0.125
 PAGED_TOKENS = 64
 CONTROL_TOKENS = 16
 
@@ -385,20 +423,245 @@ def check_paged_attention(torch, timer, rows) -> None:
         del k, v, kq, vq, ks, vs
 
 
-# -- phases 3-8: the port's main path -----------------------------------------
+def _routing(torch, gen, tokens: int, experts: int, active: int):
+    """[tokens, active] distinct experts per token, as a router picks them."""
+    return torch.stack([torch.randperm(experts, device="cuda", generator=gen)[:active]
+                        for _ in range(tokens)])
 
 
-def synth_flagship(num_layers: int, bits: int, name: str) -> str:
+def _random_stack(torch, gen, e: int, n: int, k: int, bits: int, g: int = 32):
+    from uzu_tpu_torch.quant.format import StackedQuantized
+
+    codes = torch.randint(0, 256, (e, n, k * bits // 8), dtype=torch.uint8, device="cuda",
+                          generator=gen)
+    scales = (torch.rand((e, n, k // g), device="cuda", generator=gen) * 0.01
+              + 0.001).to(torch.bfloat16)
+    return StackedQuantized(codes, scales, bits, g, -float(1 << (bits - 1)))
+
+
+def check_moe_gemv(torch, timer, rows) -> None:
+    """K7 (INT4) and K8 (INT8) at gpt-oss's expert shapes: P = 4 pairs (one
+    token's 4 experts: single-stream decode) and P = 32 (8 slots)."""
+    from uzu_tpu_torch.ops.cuda.moe_gemv import (
+        gather_experts,
+        moe_expert_gemv,
+        moe_expert_gemv_plain,
+    )
+    from uzu_tpu_torch.quant.format import dequantize_stacked
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    e, active = GPTOSS["num_experts"], GPTOSS["num_active"]
+    for bits in (4, 8):
+        for wname, n, k in EXPERT_SHAPES:
+            sq = _random_stack(torch, gen, e, n, k, bits)
+            plane_bytes = (sq.codes[0].numel() + sq.scales[0].numel() * 2)
+            for p in (4, 32):
+                ids = _routing(torch, gen, p // active, e, active).reshape(-1)
+                x = torch.randn((p, k), device="cuda", generator=gen)
+                got = moe_expert_gemv(sq, x, ids)
+                want = moe_expert_gemv_plain(sq, x, ids)
+                torch.cuda.synchronize()
+                abs_err, err = rel_err(got, want)
+                name = f"moe_gemv_int{bits}"
+                if not (err <= TOL):
+                    raise AssertionError(f"{name} {wname} P={p}: error {err:.3e} of RMS > {TOL}")
+                distinct = len(set(ids.tolist()))
+                nbytes = distinct * plane_bytes + p * k * 4 + p * 4 + p * n * 4
+                b_ms, b_by = bound(nbytes, 2.0 * p * n * k)
+                # yardstick: one bmm over the pairs' pre-gathered, pre-dequantized
+                # bf16 planes (the gather not timed)
+                wg = dequantize_stacked(gather_experts(sq, ids), torch.bfloat16)
+                xb = x.to(torch.bfloat16)[:, None, :]
+                row = dict(kernel=name, weight=wname, N=n, K=k, E=e, P=p,
+                           distinct_experts=distinct, max_abs_err=abs_err, err_over_rms=err,
+                           tol=TOL, ms=timer.ms(lambda: moe_expert_gemv(sq, x, ids)),
+                           plain_ms=timer.ms(lambda: moe_expert_gemv_plain(sq, x, ids), 3),
+                           library_ms=timer.ms(lambda: torch.bmm(xb, wg.transpose(1, 2))),
+                           bound_ms=b_ms, bound_by=b_by)
+                rows.append(row)
+                log("KERNEL " + json.dumps(row))
+                del wg
+
+
+def check_grouped_matmul(torch, timer, rows) -> None:
+    """K9 over INT4 stacks at the routed rows of a 64- and a 256-row prefill
+    chunk (T = 256, 1024) and of a paged decode step of 8 slots (T = 32);
+    K10 over a dense bf16 stack at a 1024-row chunk (T = 4096). Only the
+    real rows are compared (rows of unused tiles are undefined)."""
+    from uzu_tpu_torch.ops.cuda.grouped_matmul import (
+        grouped_matmul,
+        grouped_matmul_plain,
+        grouped_matmul_quant,
+        grouped_matmul_quant_plain,
+        route_layout,
+    )
+    from uzu_tpu_torch.ops.cuda.moe_gemv import gather_experts
+    from uzu_tpu_torch.quant.format import dequantize_stacked
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    e, active = GPTOSS["num_experts"], GPTOSS["num_active"]
+    cases = [("grouped_matmul_int4", t) for t in (32, 256, 1024)] + [("grouped_matmul", 4096)]
+    for wname, n, k in EXPERT_SHAPES:
+        sq = _random_stack(torch, gen, e, n, k, 4)
+        dense = dequantize_stacked(_random_stack(torch, gen, e, n, k, 8), torch.bfloat16)
+        for name, t in cases:
+            quant = name == "grouped_matmul_int4"
+            flat = _routing(torch, gen, t // active, e, active).reshape(-1)
+            order, dst, te, used, _ = route_layout(flat, e)
+            row_dtype = torch.float32 if quant else torch.bfloat16
+            x_pad = torch.zeros((te.shape[0] * 64, k), dtype=row_dtype, device="cuda")
+            x_pad[dst] = torch.randn((t, k), device="cuda", generator=gen).to(row_dtype)
+            if quant:
+                def run():
+                    return grouped_matmul_quant(x_pad, sq, te, used)
+
+                def plain():
+                    return grouped_matmul_quant_plain(x_pad, sq, te, used)
+            else:
+                def run():
+                    return grouped_matmul(x_pad, dense, te, used)
+
+                def plain():
+                    return grouped_matmul_plain(x_pad, dense, te, used)
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            abs_err, err = rel_err(got[dst], want[dst])
+            if not (err <= TOL):
+                raise AssertionError(f"{name} {wname} T={t}: error {err:.3e} of RMS > {TOL}")
+            n_used = int(used[0])
+            distinct = len(set(flat.tolist()))
+            plane = (sq.codes[0].numel() + sq.scales[0].numel() * 2) if quant \
+                else dense[0].numel() * 2
+            nbytes = distinct * plane + t * k * x_pad.element_size() + t * n * 4
+            b_ms, b_by = bound(nbytes, 2.0 * t * n * k)
+            # yardstick: one bmm over the used tiles' pre-gathered bf16 planes
+            tiles = te[:n_used]
+            wt = (dequantize_stacked(gather_experts(sq, tiles), torch.bfloat16) if quant
+                  else dense[tiles.long()])
+            xt = x_pad[: n_used * 64].to(torch.bfloat16).reshape(n_used, 64, k)
+            row = dict(kernel=name, weight=wname, N=n, K=k, E=e, T=t, Tp=x_pad.shape[0],
+                       used_tiles=n_used, distinct_experts=distinct, max_abs_err=abs_err,
+                       err_over_rms=err, tol=TOL, ms=timer.ms(run), plain_ms=timer.ms(plain, 3),
+                       library_ms=timer.ms(lambda: torch.bmm(xt, wt.transpose(1, 2))),
+                       bound_ms=b_ms, bound_by=b_by)
+            rows.append(row)
+            log("KERNEL " + json.dumps(row))
+            del wt, xt
+        del dense
+
+
+def check_attention_gptoss(torch, timer, rows) -> None:
+    """K3 and K5 at gpt-oss's heads: 64 query heads over 8 KV groups (8 per
+    group), Dh 64, its sliding window of 128 with sinks, and sinks alone
+    (the full-attention layers)."""
+    from uzu_tpu_torch.ops.cuda.flash_attention import flash_attention, flash_attention_plain
+    from uzu_tpu_torch.ops.cuda.paged_attention import (
+        paged_attention_plain,
+        paged_decode_attention,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    h, g, dh = GPTOSS["num_heads"], GPTOSS["num_groups"], GPTOSS["head_dim"]
+    win = GPTOSS["sliding_window"]
+    scale = dh ** -0.5
+    sinks = torch.randn((h,), device="cuda", generator=gen)
+    for s, c in ((16, 1024), (256, 1024)):
+        pos0 = c - s - 3
+        q = torch.randn((s, h, dh), device="cuda", generator=gen).to(torch.bfloat16)
+        kc = torch.randn((c, g, dh), device="cuda", generator=gen).to(torch.bfloat16)
+        vc = torch.randn((c, g, dh), device="cuda", generator=gen).to(torch.bfloat16)
+        qpos = torch.arange(s, device="cuda", dtype=torch.int32) + pos0
+        for variant, kw in (("gptoss_window_sinks", dict(sliding_window_size=win, sinks=sinks)),
+                            ("gptoss_sinks", dict(sinks=sinks))):
+            got = flash_attention(q, kc, vc, qpos, scale=scale, **kw)
+            want = flash_attention_plain(q, kc, vc, qpos, scale=scale, **kw)
+            torch.cuda.synchronize()
+            abs_err, err = rel_err(got, want)
+            if not (err <= TOL):
+                raise AssertionError(f"flash_attention S={s} C={c} {variant}: "
+                                     f"error {err:.3e} of RMS > {TOL}")
+            qp = pos0 + torch.arange(s)
+            lo = (qp - win + 1).clamp(min=0) if "window" in variant else torch.zeros_like(qp)
+            visible = int((qp + 1 - lo).sum())
+            kv_rows = int(qp[-1] + 1 - lo[0])
+            nbytes = q.numel() * 2 + 2 * kv_rows * g * dh * 2 + s * h * dh * 4
+            b_ms, b_by = bound(nbytes, 4.0 * visible * h * dh)
+            row = dict(kernel="flash_attention", S=s, H=h, G=g, Dh=dh, C=c, pos0=pos0,
+                       variant=variant, max_abs_err=abs_err, err_over_rms=err, tol=TOL,
+                       ms=timer.ms(lambda: flash_attention(q, kc, vc, qpos, scale=scale, **kw)),
+                       plain_ms=timer.ms(lambda: flash_attention_plain(
+                           q, kc, vc, qpos, scale=scale, **kw), 3),
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by)
+            rows.append(row)
+            log("KERNEL " + json.dumps(row))
+    b, page = 8, 512
+    maxp = 4096 // page
+    p_total = b * maxp + 1
+    k = torch.randn((g, p_total, page, dh), device="cuda", generator=gen).to(torch.bfloat16)
+    v = torch.randn((g, p_total, page, dh), device="cuda", generator=gen).to(torch.bfloat16)
+    table = torch.randperm(p_total - 1, device="cuda", generator=gen)[: b * maxp]
+    table = table.reshape(b, maxp).to(torch.int32)
+    q = torch.randn((b, h, dh), device="cuda", generator=gen).to(torch.bfloat16)
+    for lens_name, lens in (("uniform1024", [1024] * b),
+                            ("ragged", [1, 100, 129, 777, 1024, 3000, 4095, 4096])):
+        lengths = torch.tensor(lens, device="cuda", dtype=torch.int32)
+        for variant, kw in (("gptoss_window_sinks", dict(sliding_window_size=win, sinks=sinks)),
+                            ("gptoss_sinks", dict(sinks=sinks))):
+            got = paged_decode_attention(q, k, v, table, lengths, scale=scale, **kw)
+            want = paged_attention_plain(q, k, v, table, lengths, scale=scale, **kw)
+            torch.cuda.synchronize()
+            abs_err, err = rel_err(got, want)
+            if not (err <= TOL):
+                raise AssertionError(f"paged_attention {lens_name} {variant}: "
+                                     f"error {err:.3e} of RMS > {TOL}")
+            window = kw.get("sliding_window_size")
+            live = sum(n - (max(0, n - window) if window else 0) for n in lens)
+            nbytes = (q.numel() * 2 + live * g * dh * 2 * 2 + b * h * dh * 4
+                      + table.numel() * 4 + b * 4)
+            b_ms, b_by = bound(nbytes, 4.0 * live * h * dh)
+            row = dict(kernel="paged_attention", B=b, H=h, G=g, Dh=dh, page=page,
+                       lengths=lens_name, variant=variant, live_tokens=live,
+                       max_abs_err=abs_err, err_over_rms=err, tol=TOL,
+                       ms=timer.ms(lambda: paged_decode_attention(
+                           q, k, v, table, lengths, scale=scale, **kw)),
+                       plain_ms=timer.ms(lambda: paged_attention_plain(
+                           q, k, v, table, lengths, scale=scale, **kw), 3),
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by)
+            rows.append(row)
+            log("KERNEL " + json.dumps(row))
+
+
+# -- phases 3-10: the port's main paths -----------------------------------------
+
+
+def synth_model(name: str) -> str:
+    """Synthesize one of the run's models into .port_cache/<name>, unless a
+    finished one is there: the Llama-shaped flagships (16 layers with INT4
+    linears, 2 with INT8; INT4 tied embedding; normal fill, seed 0) and
+    gpt-oss at 4 layers with INT4 experts and at 2 with INT8 experts (bf16
+    attention and untied embeddings; raw-bytes fill, seed 0)."""
     from uzu_tpu_torch.config.model import IntSpec, Layout
-    from uzu_tpu_torch.tools.synth import llama_config, synthesize
+    from uzu_tpu_torch.tools.synth import gptoss_config, llama_config, synthesize
 
     out = os.path.join(REPO, ".port_cache", name)
-    if not os.path.exists(os.path.join(out, "model.safetensors")):
-        dims = dict(FLAGSHIP, num_layers=num_layers)
-        lin = IntSpec(bits=bits, group_size=32, is_symmetric=True, layout=Layout.OUTPUT_INPUT)
-        emb = IntSpec(bits=4, group_size=32, is_symmetric=True, layout=Layout.OUTPUT_INPUT)
-        synthesize(llama_config(**dims), out, seed=0, linear_spec=lin, embedding_spec=emb)
+    if os.path.exists(os.path.join(out, "model.safetensors")):
+        return out
+
+    def spec(bits):
+        return IntSpec(bits=bits, group_size=32, is_symmetric=True, layout=Layout.OUTPUT_INPUT)
+
+    if name.startswith("llama1b"):
+        layers, bits = (16, 4) if name == "llama1b_int4" else (2, 8)
+        synthesize(llama_config(**dict(FLAGSHIP, num_layers=layers)), out, seed=0,
+                   linear_spec=spec(bits), embedding_spec=spec(4))
+    else:
+        layers, bits = (4, 4) if name == "gptoss_int4" else (2, 8)
+        synthesize(gptoss_config(num_layers=layers, **GPTOSS), out, seed=0,
+                   expert_spec=spec(bits), fill="fast")
     return out
+
+
+MODELS = ("llama1b_int4", "llama1b_int8_2l", "gptoss_int4", "gptoss_int8_2l")
 
 
 def prompt_tokens(n: int, vocab: int):
@@ -407,12 +670,13 @@ def prompt_tokens(n: int, vocab: int):
     return (np.arange(n) * 37 + 11) % vocab
 
 
-def path_int4(torch, model_dir: str, info: dict) -> tuple:
-    from uzu_tpu_torch.engine.engine import LanguageModel, StreamMetrics
+def single_stream_run(torch, lm, vocab: int, key: str, kernels, info: dict) -> dict:
+    """GEN_TOKENS greedy tokens after a GEN_PROMPT-token prompt, twice: the
+    tokens must repeat, and each kernel in `kernels` must have launched."""
+    from uzu_tpu_torch.engine.engine import StreamMetrics
     from uzu_tpu_torch.ops.cuda.build import LAUNCHES, reset_launches
 
-    lm = LanguageModel.from_dir(model_dir, device="cuda", max_context=4096)
-    prompt = prompt_tokens(GEN_PROMPT, FLAGSHIP["vocab_size"])
+    prompt = prompt_tokens(GEN_PROMPT, vocab)
     lm.generate_list(prompt[:16], 2, stop_token_ids=[])  # warm the allocator
 
     reset_launches()
@@ -429,22 +693,31 @@ def path_int4(torch, model_dir: str, info: dict) -> tuple:
         runs.append((toks, metrics, dict(LAUNCHES)))
     (toks, metrics, launches), (toks2, metrics2, _) = runs
     if toks != toks2:
-        raise AssertionError(f"greedy generation differs between runs:\n{toks}\n{toks2}")
+        raise AssertionError(f"{key}: greedy generation differs between runs:\n{toks}\n{toks2}")
     if len(toks) != GEN_TOKENS:
-        raise AssertionError(f"expected {GEN_TOKENS} tokens, got {len(toks)}")
-    for name in ("quant_matmul_int4", "flash_attention"):
+        raise AssertionError(f"{key}: expected {GEN_TOKENS} tokens, got {len(toks)}")
+    for name in kernels:
         if launches[name] <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the INT4 path")
+            raise AssertionError(f"kernel {name} was not launched on the {key} run")
     decode_steps = metrics.num_forward_passes - 1
     per_step = {n: (launches[n] - per_prefill_chunk[n]) / decode_steps for n in launches}
-    info["int4_path"] = dict(
+    info[key] = dict(
         prompt=GEN_PROMPT, generated=len(toks), tokens_head=toks[:16],
         prefill_tok_s=[m.prefill_tokens_per_second for _, m, _ in runs],
         decode_tok_s=[m.decode_tokens_per_second for _, m, _ in runs],
         launches=launches, launches_per_prefill_chunk=per_prefill_chunk,
         launches_per_decode_step=per_step, decode_steps=decode_steps)
-    log("PATH_INT4 " + json.dumps(info["int4_path"]))
-    return lm, launches
+    log(key.upper() + " " + json.dumps(info[key]))
+    return launches
+
+
+def path_int4(torch, model_dir: str, info: dict):
+    from uzu_tpu_torch.engine.engine import LanguageModel
+
+    lm = LanguageModel.from_dir(model_dir, device="cuda", max_context=4096)
+    single_stream_run(torch, lm, FLAGSHIP["vocab_size"], "int4_path",
+                      ("quant_matmul_int4", "flash_attention"), info)
+    return lm
 
 
 def path_int8(torch, model_dir: str, info: dict) -> dict:
@@ -491,25 +764,91 @@ def path_int4_kv_int8(torch, lm16, info: dict) -> dict:
     return launches
 
 
-def single_stream_along(torch, lm, prompt, tokens):
+def router_logits(params, x):
+    """The MoE router's f32 logits for rows x, as `models.moe.router_topk`
+    computes them."""
+    logits = x.float() @ params["router"]["w"].float().t()
+    return logits + params["router"]["b"].float() if "b" in params["router"] else logits
+
+
+def pinned_router(torch, routes):
+    """A stand-in for `models.moe.router_topk` that takes the expert ids
+    `routes(x)` gives for the call's rows ([S, K]; None: its own choice),
+    weights them as the router would, and records per row how far the
+    lowest of them lies below its own K-th router logit (0 where the
+    choices agree)."""
+    import uzu_tpu_torch.models.moe as moe
+    from uzu_tpu_torch.config.model import SoftmaxRouting
+
+    real = moe.router_topk
+    gaps = []
+
+    def topk(cfg, params, x):
+        ids = routes(x)
+        if ids is None:
+            return real(cfg, params, x)
+        ids = ids.to(x.device).long().reshape(x.shape[0], -1)
+        logits = router_logits(params, x)
+        k = cfg.num_active_routed_experts
+        kth = torch.sort(logits, dim=-1, descending=True).values[:, k - 1]
+        vals = logits.gather(1, ids)
+        gaps.append((kth - vals.min(-1).values).clamp(min=0))
+        probs = torch.softmax(vals, -1) if isinstance(cfg.routing_function,
+                                                      SoftmaxRouting) else vals
+        return ids, probs
+
+    return topk, gaps
+
+
+def single_stream_along(torch, lm, prompt, tokens, routes=None):
     """The single-stream path of `lm` (prefill, then one decode step per
     token) fed `tokens`: per step the greedy choice, its top-2 logit margin,
-    and how far the fed token's logit lies below the best one."""
+    and how far the fed token's logit lies below the best one. `routes`
+    ({position: ([layers, K] expert ids, [layers, D] MoE inputs)}) makes
+    each decode step's MoE layers take those experts; the last two results
+    are then, per routed layer and step, how far the lowest of them lies
+    below the step's own K-th router logit (0 where the choices agree), and
+    per layer the relative L2 distances of this path's MoE inputs from the
+    given ones (empty without `routes`)."""
+    import uzu_tpu_torch.models.moe as moe
+
     state = lm.new_state()
     logits, state = lm.prefill(state, prompt)
+    at = {"pos": None, "layer": 0}
+    x_dist = {}
+
+    def current(x):
+        got = routes.get(at["pos"]) if routes is not None and x.shape[0] == 1 else None
+        layer = at["layer"]
+        at["layer"] += 1
+        if got is None:
+            return None
+        ids, x_other = got
+        x_dist.setdefault(layer, []).append(
+            (x[0].float() - x_other[layer]).norm() / x_other[layer].norm())
+        return ids[layer]
+
+    real = moe.router_topk
+    moe.router_topk, router_gaps = pinned_router(torch, current)
     rows = []
-    for i, tok in enumerate(tokens):
-        top = torch.topk(logits, 2)
-        rows.append(torch.stack([top.indices[0].float(), top.values[0] - top.values[1],
-                                 top.values[0] - logits[tok]]))
-        if i + 1 < len(tokens):
-            logits, state, _ = lm._forward(torch.tensor([tok], device=logits.device), state, 1,
-                                           lm._ctx_bucket(len(prompt) + i + 1))
+    try:
+        for i, tok in enumerate(tokens):
+            top = torch.topk(logits, 2)
+            rows.append(torch.stack([top.indices[0].float(), top.values[0] - top.values[1],
+                                     top.values[0] - logits[tok]]))
+            if i + 1 < len(tokens):
+                at["pos"], at["layer"] = len(prompt) + i, 0
+                logits, state, _ = lm._forward(torch.tensor([tok], device=logits.device),
+                                               state, 1, lm._ctx_bucket(len(prompt) + i + 1))
+    finally:
+        moe.router_topk = real
     best, margin, gap = torch.stack(rows).cpu().double().T.tolist()
-    return [int(t) for t in best], margin, gap
+    rg = torch.cat(router_gaps).cpu().double().tolist() if router_gaps else []
+    xd = {layer: torch.stack(d).cpu().double().tolist() for layer, d in x_dist.items()}
+    return [int(t) for t in best], margin, gap, rg, xd
 
 
-def stream_readings(torch, lm, prompts, streams) -> list[dict]:
+def stream_readings(torch, lm, prompts, streams, routes=None) -> list[dict]:
     """Each stream against the single-stream path of `lm` fed the stream's
     own history. Per stream: `compared`, the tokens before the first step
     whose single-stream top-2 logit margin is under MARGIN (up to there
@@ -518,17 +857,26 @@ def stream_readings(torch, lm, prompts, streams) -> list[dict]:
     `greedy_choices`, the steps at which the stream takes the single
     stream's greedy choice; where it first leaves that choice, with the
     margin there; and `max_gap`, how far its worst token's logit lies below
-    the best one."""
+    the best one. With `routes` (one per stream, see single_stream_along)
+    the single stream takes the stream's expert choices, and the reading
+    adds `routed_layers`, `router_flips` (choices it would not have made),
+    `max_router_gap` and, per layer, the relative L2 distances of the two
+    paths' MoE inputs (`moe_input_dist`)."""
     out = []
-    for prompt, got in zip(prompts, streams):
-        best, margin, gap = single_stream_along(torch, lm, prompt, got)
+    for i, (prompt, got) in enumerate(zip(prompts, streams)):
+        best, margin, gap, rg, xd = single_stream_along(
+            torch, lm, prompt, got, None if routes is None else routes[i])
         part = next((j for j, (a, b) in enumerate(zip(got, best)) if a != b), None)
-        out.append(dict(
+        r = dict(
             compared=next((j for j, m in enumerate(margin) if m < MARGIN), len(got)),
             clear_steps=sum(m >= MARGIN for m in margin),
             greedy_choices=sum(a == b for a, b in zip(got, best)), tokens=len(got),
             parted_at=part, margin_there=None if part is None else margin[part],
-            max_gap=max(gap)))
+            max_gap=max(gap))
+        if routes is not None:
+            r.update(routed_layers=len(rg), router_flips=sum(g > 0 for g in rg),
+                     max_router_gap=max(rg, default=0.0), moe_input_dist=xd)
+        out.append(r)
     return out
 
 
@@ -552,13 +900,36 @@ def check_streams(readings) -> None:
                              f"{share:.3f} of their steps (floor {GREEDY_FLOOR})")
 
 
+def check_routing(readings) -> None:
+    """Every expert the paged engine chose that the single stream would
+    not have lies within ROUTER_MARGIN of the single stream's own K-th
+    router logit: a near-tie, not a wrong route."""
+    for i, r in enumerate(readings):
+        if r["max_router_gap"] >= ROUTER_MARGIN:
+            raise AssertionError(f"request {i}: an expert the paged engine chose lies "
+                                 f"{r['max_router_gap']:.3e} below the single stream's K-th "
+                                 f"router logit (limit {ROUTER_MARGIN})")
+
+
 def stream_summary(readings) -> dict:
-    return dict(compared_tokens=[r["compared"] for r in readings],
-                clear_steps=[r["clear_steps"] for r in readings],
-                greedy_choices=[r["greedy_choices"] for r in readings],
-                greedy_share=sum(r["greedy_choices"] for r in readings)
-                / sum(r["tokens"] for r in readings),
-                max_gaps=[r["max_gap"] for r in readings])
+    out = dict(compared_tokens=[r["compared"] for r in readings],
+               clear_steps=[r["clear_steps"] for r in readings],
+               greedy_choices=[r["greedy_choices"] for r in readings],
+               greedy_share=sum(r["greedy_choices"] for r in readings)
+               / sum(r["tokens"] for r in readings),
+               max_gaps=[r["max_gap"] for r in readings])
+    if "router_flips" in readings[0]:
+        dist = {}
+        for r in readings:
+            for layer, d in r["moe_input_dist"].items():
+                dist.setdefault(layer, []).extend(d)
+        out.update(routed_layers=sum(r["routed_layers"] for r in readings),
+                   router_flips=[r["router_flips"] for r in readings],
+                   max_router_gaps=[r["max_router_gap"] for r in readings],
+                   moe_input_dist_median_max_per_layer=[
+                       (statistics.median(dist[layer]), max(dist[layer]))
+                       for layer in sorted(dist)])
+    return out
 
 
 def drive(torch, eng) -> tuple[float, list]:
@@ -677,6 +1048,217 @@ def path_paged_int8(torch, model_dir: str, info: dict) -> dict:
     return launches
 
 
+def moe_routing_has_no_host_sync(torch, lm) -> None:
+    """Layer 0's MoE block at a single-stream decode step (1 row: K7) and a
+    paged step of 8 slots (8 rows: K9) under the CUDA sync debug mode set
+    to error: any call in the routing that waits for the device raises."""
+    from uzu_tpu_torch.models.moe import moe_forward
+
+    cfg = lm.decoder_config.transformer_config.layer_configs[0].mlp_config
+    params = lm.params["layers"][0]["mlp"]
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for s in (1, 8):
+        x = torch.randn((s, GPTOSS["model_dim"]), device="cuda", generator=gen)
+        x = x.to(torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            moe_forward(cfg, params, x)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def path_gptoss_int4(torch, model_dir: str, info: dict):
+    from uzu_tpu_torch.engine.engine import LanguageModel
+
+    lm = LanguageModel.from_dir(model_dir, device="cuda", max_context=4096)
+    moe_routing_has_no_host_sync(torch, lm)
+    single_stream_run(torch, lm, GPTOSS["vocab_size"], "gptoss_int4",
+                      ("moe_gemv_int4", "grouped_matmul_int4", "flash_attention"), info)
+    return lm
+
+
+def router_margins(torch, lm, prompt, tokens, step) -> list[float]:
+    """Per layer, the gap between the K-th and the (K+1)-th router logit on
+    the teacher-forced row that picks tokens[step]: how near the routing of
+    that row is to a tie."""
+    import uzu_tpu_torch.models.moe as moe
+    from uzu_tpu_torch.models.decoder import decoder_forward
+
+    seen = []
+    real = moe.router_topk
+
+    def spy(cfg, params, x):
+        logits = router_logits(params, x[-1:])[0]
+        top = torch.topk(logits, cfg.num_active_routed_experts + 1).values
+        seen.append(top[-2] - top[-1])
+        return real(cfg, params, x)
+
+    seq = torch.as_tensor(list(prompt) + list(tokens[:step]), device="cuda")
+    moe.router_topk = spy
+    try:
+        decoder_forward(lm.decoder_config, lm.params, seq, lm.new_state())
+    finally:
+        moe.router_topk = real
+    return [float(m) for m in seen]
+
+
+def recorded_routes(torch, eng):
+    """Patch the paged engine's decode step so that each step records, for
+    every occupied slot, the expert ids its MoE layers chose. Returns
+    (restore, routes_of): routes_of(request) is that request's {position:
+    ([layers, K] ids, [layers, D] MoE inputs)}, taken from the step that
+    fed the token at each position (a halted slot repeats its last
+    position; the first step at a position is the one that fed it)."""
+    import uzu_tpu_torch.engine.paged_batch as pb
+    import uzu_tpu_torch.models.moe as moe
+
+    real_step = pb.paged_decode_step
+    steps = []
+
+    def step(cfg, params, pools, tokens, tables, positions):
+        live = [(b, s.request) for b, s in enumerate(eng.slots) if not s.free]
+        real_topk, ids, xs = moe.router_topk, [], []
+
+        def topk(c, p, x):
+            out = real_topk(c, p, x)
+            ids.append(out[0])
+            xs.append(x.float())
+            return out
+
+        moe.router_topk = topk
+        try:
+            logits = real_step(cfg, params, pools, tokens, tables, positions)
+        finally:
+            moe.router_topk = real_topk
+        steps.append((live, positions, torch.stack(ids, 1), torch.stack(xs, 1)))
+        return logits
+
+    def restore():
+        pb.paged_decode_step = real_step
+
+    host = []  # each step's positions, read once after the run
+
+    def routes_of(req):
+        if not host:
+            host.extend(torch.stack([pos for _, pos, _, _ in steps]).tolist())
+        out = {}
+        for (live, _, ids, xs), pos in zip(steps, host):
+            for b, r in live:
+                if r is req:
+                    out.setdefault(pos[b], (ids[b], xs[b]))
+        return out
+
+    pb.paged_decode_step = step
+    return restore, routes_of
+
+
+def run_paged_routed(torch, eng, prompts, tokens: int):
+    """Submit `prompts`, run the engine to idle while recording its expert
+    choices; returns (requests, seconds, per-step times, routes per
+    request)."""
+    restore, routes_of = recorded_routes(torch, eng)
+    try:
+        reqs = [eng.submit(p, tokens) for p in prompts]
+        seconds, steps = drive(torch, eng)
+    finally:
+        restore()
+    if any(r.preempted for r in reqs):
+        raise AssertionError("a request was preempted: its recorded routes would mix runs")
+    return reqs, seconds, steps, [routes_of(r) for r in reqs]
+
+
+def path_paged_gptoss(torch, lm, info: dict) -> dict:
+    """PagedBatchEngine over the 4-layer INT4 gpt-oss model: admission
+    chunks and decode steps both route their rows through K9. The streams
+    are held to the single stream (K7 in decode) that takes the paged
+    engine's expert choices, under check_streams and check_routing; the
+    same streams against the free single stream are reported, with the
+    router margins where the first one parts."""
+    from uzu_tpu_torch.engine.paged_batch import PagedBatchEngine
+    from uzu_tpu_torch.ops.cuda.build import LAUNCHES, reset_launches
+
+    eng = PagedBatchEngine(lm, batch_size=8, decode_chunk=8, num_pages=64, stop_token_ids=[])
+    prompts = paged_prompts(GPTOSS["vocab_size"])
+    reset_launches()
+    reqs, seconds, steps, routes = run_paged_routed(torch, eng, prompts, PAGED_TOKENS)
+    launches = dict(LAUNCHES)
+    decode_steps = eng.stats["decode_chunks"] * eng.decode_chunk
+    chunks = eng.stats["prefill_chunks"]
+    layers = len(lm.params["layers"])
+    if launches["paged_attention"] != decode_steps * layers:
+        raise AssertionError(f"paged_attention launched {launches['paged_attention']} times, "
+                             f"expected {decode_steps} steps x {layers} layers")
+    if launches["grouped_matmul_int4"] != 2 * layers * (decode_steps + chunks):
+        raise AssertionError(f"grouped_matmul_int4 launched {launches['grouped_matmul_int4']} "
+                             f"times, expected 2 x {layers} layers x ({decode_steps} decode "
+                             f"steps + {chunks} prefill chunks)")
+    if not all(r.finished and len(r.tokens) == PAGED_TOKENS for r in reqs):
+        raise AssertionError("a paged gpt-oss request did not produce its tokens")
+    eng._evict_retired(eng.pool.num_pages)
+    if eng.pool.free_pages != eng.pool.num_pages:
+        raise AssertionError(f"{eng.pool.num_pages - eng.pool.free_pages} pages leaked")
+    streams = [r.tokens for r in reqs]
+    free = stream_readings(torch, lm, prompts, streams)
+    readings = stream_readings(torch, lm, prompts, streams, routes)
+    log("COMPARED " + json.dumps([{k: v for k, v in r.items() if k != "moe_input_dist"}
+                                  for r in readings]))
+    i, r = next(((i, r) for i, r in enumerate(free) if r["parted_at"] is not None), (0, free[0]))
+    step = r["parted_at"] or 0
+    chunk_ms = [1e3 * t for t, decode_only in steps if decode_only]
+    generated = sum(len(r.tokens) for r in reqs)
+    info["paged_gptoss"] = dict(
+        requests=len(reqs), batch_size=8, decode_chunk=8, page_size=eng.page_size,
+        prompt_tokens=[len(p) for p in prompts], generated=generated, seconds=seconds,
+        aggregate_tok_s=generated / seconds,
+        ms_per_chunk_median=statistics.median(chunk_ms) if chunk_ms else None,
+        decode_only_chunks=len(chunk_ms),
+        decode_tok_s_steady=8 * 8 / (statistics.median(chunk_ms) / 1e3) if chunk_ms else None,
+        ttft_ms=[round(1e3 * r.ttft, 3) for r in reqs], decode_steps=decode_steps,
+        prefill_chunks=chunks, **stream_summary(readings),
+        free_single_stream=dict(stream_summary(free), first_parted=dict(
+            request=i, step=step, margin_there=r["margin_there"],
+            router_kth_minus_next_per_layer=router_margins(
+                torch, lm, prompts[i], streams[i], step))),
+        launches=launches,
+        grouped_matmul_int4_per_decode_step=(
+            launches["grouped_matmul_int4"] - 2 * layers * chunks) / decode_steps,
+        paged_attention_per_decode_step=launches["paged_attention"] / decode_steps)
+    log("PATH_PAGED_GPTOSS " + json.dumps(info["paged_gptoss"]))
+    check_streams(readings)
+    check_routing(readings)
+    return launches
+
+
+def path_gptoss_int8(torch, model_dir: str, info: dict) -> dict:
+    """The 2-layer INT8-expert gpt-oss model with a 1024-row prefill bucket:
+    an 1100-token prompt takes one 1024-row chunk (dequantized stacks, K10)
+    and one 256-row chunk (masked loop); decode takes K8."""
+    from uzu_tpu_torch.engine.engine import LanguageModel, StreamMetrics
+    from uzu_tpu_torch.ops.cuda.build import LAUNCHES, reset_launches
+
+    lm = LanguageModel.from_dir(model_dir, device="cuda", max_context=4096,
+                                prefill_buckets=(16, 64, 256, 1024))
+    metrics = StreamMetrics()
+    reset_launches()
+    toks = lm.generate_list(prompt_tokens(1100, GPTOSS["vocab_size"]), 16, stop_token_ids=[],
+                            metrics=metrics)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    for name in ("grouped_matmul", "moe_gemv_int8"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the INT8-expert path")
+    if len(toks) != 16:
+        raise AssertionError(f"expected 16 tokens, got {len(toks)}")
+    info["gptoss_int8"] = dict(prompt=1100, generated=len(toks), tokens_head=toks,
+                               launches=launches,
+                               prefill_tok_s=metrics.prefill_tokens_per_second,
+                               decode_tok_s=metrics.decode_tokens_per_second)
+    log("GPTOSS_INT8 " + json.dumps(info["gptoss_int8"]))
+    return launches
+
+
 def control_planted_faults(torch, lm16, info: dict) -> None:
     """The stream check held to planted faults in the paged decode step,
     each wrapping the K5 wrapper where `models/paged_decode.py` calls it
@@ -720,39 +1302,127 @@ def control_planted_faults(torch, lm16, info: dict) -> None:
         raise AssertionError(f"the stream check passed planted faults: {missed}")
 
 
-def whole_path_check(torch, lm16, info: dict) -> None:
-    """Teacher-forced logits of the first 2 layers of the INT4 flagship,
-    on the card and through the port's plain path on the host CPU."""
+def control_moe_faults(torch, lm, info: dict) -> None:
+    """The routed stream check of path_paged_gptoss held to planted faults
+    in the paged engine's MoE blocks, each wrapped around a name that
+    `models/moe.py` calls (the package is untouched): K9 multiplying each
+    tile by the next expert's weights, and a router whose decode rows take
+    the experts ranked K+1 to 2K. Four requests of 2 to 129 prompt tokens
+    in 8 slots (so decode rows take K9) make CONTROL_TOKENS tokens each per
+    fault; each fault's streams must fail check_streams or check_routing."""
+    import uzu_tpu_torch.models.moe as moe
+    from uzu_tpu_torch.engine.paged_batch import PagedBatchEngine
+
+    e = GPTOSS["num_experts"]
+    real_k9, real_topk = moe.grouped_matmul_quant, moe.router_topk
+
+    def next_ranked(cfg, params, x):
+        if x.shape[0] != 8:
+            return real_topk(cfg, params, x)
+        k = cfg.num_active_routed_experts
+        vals, ids = torch.sort(router_logits(params, x), dim=-1, descending=True, stable=True)
+        return ids[:, k:2 * k], torch.softmax(vals[:, k:2 * k], -1)
+
+    faults = {
+        "k9_next_expert": ("grouped_matmul_quant",
+                           lambda x, sq, te, used: real_k9(x, sq, (te + 1) % e, used)),
+        "router_next_ranked": ("router_topk", next_ranked),
+    }
+    prompts = [prompt_tokens(n, GPTOSS["vocab_size"]).tolist() for n in (2, 5, 17, 129)]
+    out = {}
+    for name, (attr, fault) in faults.items():
+        eng = PagedBatchEngine(lm, batch_size=8, decode_chunk=8, num_pages=8,
+                               stop_token_ids=[])
+        real = getattr(moe, attr)
+        setattr(moe, attr, fault)
+        try:
+            reqs, _, _, routes = run_paged_routed(torch, eng, prompts, CONTROL_TOKENS)
+        finally:
+            setattr(moe, attr, real)
+        readings = stream_readings(torch, lm, prompts, [r.tokens for r in reqs], routes)
+        caught = []
+        for check in (check_streams, check_routing):
+            try:
+                check(readings)
+            except AssertionError as err:
+                caught.append(str(err))
+        out[name] = dict(stream_summary(readings), caught=caught)
+        del eng
+    info["control_moe"] = dict(prompt_tokens=[len(p) for p in prompts], tokens=CONTROL_TOKENS,
+                               faults=out)
+    log("CONTROL_MOE " + json.dumps(info["control_moe"]))
+    missed = [name for name, r in out.items() if not r["caught"]]
+    if missed:
+        raise AssertionError(f"the routed stream check passed planted faults: {missed}")
+
+
+def whole_path_check(torch, lm, layers: int, vocab: int, key: str, info: dict) -> None:
+    """Teacher-forced logits of the first `layers` layers of `lm` for a
+    32-token prompt, on the card and through the port's plain path on the
+    host CPU. For an MoE model the CPU pass takes the card's expert
+    choices (each a near-tie of its own router, check_routing; a flipped
+    expert would move its row far past the tolerance), and the free CPU
+    pass is reported beside it."""
+    import uzu_tpu_torch.models.moe as moe
     from uzu_tpu_torch.engine.engine import LanguageModel
     from uzu_tpu_torch.models.decoder import decoder_forward
 
-    cfg = lm16.config
+    cfg = lm.config
     tcfg = cfg.decoder_config.transformer_config
     dcfg = dataclasses.replace(cfg.decoder_config, transformer_config=dataclasses.replace(
-        tcfg, layer_configs=tcfg.layer_configs[:2]))
+        tcfg, layer_configs=tcfg.layer_configs[:layers]))
     cfg2 = dataclasses.replace(cfg, decoder_config=dcfg)
-    params2 = dict(lm16.params, layers=lm16.params["layers"][:2])
-    toks = prompt_tokens(32, FLAGSHIP["vocab_size"])
-    logits = {}
-    for dev in ("cuda", "cpu"):
-        lm = LanguageModel(cfg2, params2, device=dev, max_context=1024)
+    params2 = dict(lm.params, layers=lm.params["layers"][:layers])
+    toks = prompt_tokens(32, vocab)
+    card_routes = []
+    real = moe.router_topk
+
+    def forward(dev, router):
+        lm2 = LanguageModel(cfg2, params2, device=dev, max_context=1024)
         t = torch.as_tensor(toks, dtype=torch.int64, device=dev)
-        out, _ = decoder_forward(dcfg, lm.params, t, lm.new_state(), last_only=False)
-        logits[dev] = out.float().cpu()
-    rel = ((logits["cuda"] - logits["cpu"]).norm() / logits["cpu"].norm()).item()
-    info["whole_path"] = dict(tokens=len(toks), layers=2, rel_l2=rel, tol=TOL,
-                              finite=bool(torch.isfinite(logits["cuda"]).all()))
-    log("WHOLE_PATH " + json.dumps(info["whole_path"]))
-    if not (rel <= TOL) or not info["whole_path"]["finite"]:
-        raise AssertionError(f"card vs CPU logits: relative L2 {rel:.3e} > {TOL}")
+        moe.router_topk = router
+        try:
+            out, _ = decoder_forward(dcfg, lm2.params, t, lm2.new_state(), last_only=False)
+        finally:
+            moe.router_topk = real
+        return out.float().cpu()
+
+    def recording(c, p, x):
+        out = real(c, p, x)
+        card_routes.append(out[0].cpu())
+        return out
+
+    card = forward("cuda", recording)
+    replay = iter(card_routes)
+    pinned, gaps = pinned_router(torch, lambda x: next(replay))
+    host = forward("cpu", pinned)
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    info[key] = dict(tokens=len(toks), layers=layers, rel_l2=rel(card, host), tol=TOL,
+                     finite=bool(torch.isfinite(card).all()))
+    if card_routes:
+        rg = torch.cat(gaps).double().tolist()
+        info[key].update(routed_rows=len(rg), router_flips=sum(g > 0 for g in rg),
+                         max_router_gap=max(rg),
+                         rel_l2_free_host_routing=rel(card, forward("cpu", real)))
+    log(key.upper() + " " + json.dumps(info[key]))
+    if not (info[key]["rel_l2"] <= TOL) or not info[key]["finite"]:
+        raise AssertionError(f"{key}: card vs CPU logits: relative L2 "
+                             f"{info[key]['rel_l2']:.3e} > {TOL}")
+    if card_routes:
+        check_routing([dict(max_router_gap=info[key]["max_router_gap"])])
 
 
 def kernel_record(rows, info) -> list[dict]:
     """One entry per kernel at its main-path shape (the decode GEMV of the
     up|gate projection for K1/K2, a 256-row prefill chunk over a 1024-slot
     context for K3/K4, 8 slots x 1024 live tokens in 512-token pages for
-    K5/K6), with the launches of the path that runs it; errors are the
-    worst over every shape checked."""
+    K5/K6, one token's 4 experts of gpt-oss's up projection for K7/K8, the
+    paged step's 32 routed rows of it for K9, a 1024-row chunk's 4096 for
+    K10), with the launches of the path that runs it; errors are the worst
+    over every shape checked."""
     spec = {
         "quant_matmul_int4": ("uzu_tpu_torch/csrc/quant_matmul.cu",
                               "uzu_tpu/ops/pallas/quant_matmul.py:183",
@@ -773,6 +1443,18 @@ def kernel_record(rows, info) -> list[dict]:
                                  "uzu_tpu/ops/pallas/paged_attention.py:115",
                                  dict(page=512, lengths="uniform1024", variant="plain"),
                                  "paged_int8"),
+        "moe_gemv_int4": ("uzu_tpu_torch/csrc/moe_gemv.cu",
+                          "uzu_tpu/ops/pallas/moe_gemv.py:68",
+                          dict(weight="up", P=4), "gptoss_int4"),
+        "moe_gemv_int8": ("uzu_tpu_torch/csrc/moe_gemv.cu",
+                          "uzu_tpu/ops/pallas/moe_gemv.py:123",
+                          dict(weight="up", P=4), "gptoss_int8"),
+        "grouped_matmul_int4": ("uzu_tpu_torch/csrc/grouped_matmul.cu",
+                                "uzu_tpu/ops/pallas/grouped_matmul.py:165",
+                                dict(weight="up", T=32), "paged_gptoss"),
+        "grouped_matmul": ("uzu_tpu_torch/csrc/grouped_matmul.cu",
+                           "uzu_tpu/ops/pallas/grouped_matmul.py:67",
+                           dict(weight="up", T=4096), "gptoss_int8"),
     }
     out = []
     for name, (src, replaces, where, path) in spec.items():
@@ -787,7 +1469,8 @@ def kernel_record(rows, info) -> list[dict]:
             bound_by=rep["bound_by"], library_ms=rep["library_ms"],
             shape={k: rep[k] for k in rep if k in ("weight", "N", "K", "M", "S", "H", "G",
                                                     "Dh", "C", "pos0", "variant", "B", "page",
-                                                    "lengths", "live_tokens")}))
+                                                    "lengths", "live_tokens", "E", "P", "T",
+                                                    "Tp", "used_tiles", "distinct_experts")}))
     return out
 
 
@@ -818,7 +1501,7 @@ def main() -> int:
                   "cuda": torch.version.cuda, "phase_seconds": {}}
     log(f"CARD {smi}")
 
-    # phase 1: build the kernels while the flagship is synthesized
+    # phase 1: build the kernels while the models are synthesized
     built: dict = {}
 
     def run_build():
@@ -830,8 +1513,8 @@ def main() -> int:
     th = threading.Thread(target=run_build)
     th.start()
     t0 = time.perf_counter()
-    dir16 = synth_flagship(16, 4, "llama1b_int4")
-    dir8 = synth_flagship(2, 8, "llama1b_int8_2l")
+    with ProcessPoolExecutor(len(MODELS), mp_context=multiprocessing.get_context("spawn")) as ex:
+        dirs = dict(zip(MODELS, ex.map(synth_model, MODELS)))
     info["phase_seconds"]["synthesize"] = time.perf_counter() - t0
     th.join()
     if "error" in built:
@@ -847,29 +1530,34 @@ def main() -> int:
     check_flash_attention(torch, timer, rows)
     check_flash_attention_int8(torch, timer, rows)
     check_paged_attention(torch, timer, rows)
+    check_attention_gptoss(torch, timer, rows)
+    check_moe_gemv(torch, timer, rows)
+    check_grouped_matmul(torch, timer, rows)
     del timer
     torch.cuda.empty_cache()
     info["phase_seconds"]["kernels"] = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
-    lm16, _ = path_int4(torch, dir16, info)
-    path_int4_kv_int8(torch, lm16, info)
-    info["phase_seconds"]["path_int4"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    path_paged_int4(torch, lm16, info)
-    info["phase_seconds"]["paged_int4"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    path_int8(torch, dir8, info)
-    info["phase_seconds"]["path_int8"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    path_paged_int8(torch, dir8, info)
-    info["phase_seconds"]["paged_int8"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    control_planted_faults(torch, lm16, info)
-    info["phase_seconds"]["control"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    whole_path_check(torch, lm16, info)
-    info["phase_seconds"]["whole_path"] = time.perf_counter() - t0
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        info["phase_seconds"][name] = time.perf_counter() - t
+        return out
+
+    lm16 = phase("path_int4", path_int4, torch, dirs["llama1b_int4"], info)
+    phase("path_int4_kv_int8", path_int4_kv_int8, torch, lm16, info)
+    phase("paged_int4", path_paged_int4, torch, lm16, info)
+    phase("path_int8", path_int8, torch, dirs["llama1b_int8_2l"], info)
+    phase("paged_int8", path_paged_int8, torch, dirs["llama1b_int8_2l"], info)
+    lm_oss = phase("gptoss_int4", path_gptoss_int4, torch, dirs["gptoss_int4"], info)
+    phase("paged_gptoss", path_paged_gptoss, torch, lm_oss, info)
+    phase("gptoss_int8", path_gptoss_int8, torch, dirs["gptoss_int8_2l"], info)
+    torch.cuda.empty_cache()
+    phase("control", control_planted_faults, torch, lm16, info)
+    phase("control_moe", control_moe_faults, torch, lm_oss, info)
+    phase("whole_path", whole_path_check, torch, lm16, 2, FLAGSHIP["vocab_size"],
+          "whole_path", info)
+    phase("whole_path_gptoss", whole_path_check, torch, lm_oss, 4, GPTOSS["vocab_size"],
+          "whole_path_gptoss", info)
     info["phase_seconds"]["total"] = time.perf_counter() - t_start
     log("PHASES " + json.dumps(info["phase_seconds"]))
 

@@ -153,6 +153,29 @@ def test_flash_plain_matches_pallas_interpret(variant):
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("variant", ["window", "sinks", "window_sinks"])
+@pytest.mark.parametrize("pos0", [0, 150])
+def test_flash_plain_matches_jax_at_gptoss_heads(variant, pos0):
+    """gpt-oss's attention shape: 8 query heads per KV group (H 16 over G 2
+    here), Dh 64, its window of 128 and sinks. The XLA reference at 1e-4;
+    the Pallas kernel in interpret mode at its own 2e-2 (bf16 q, k, p, v)."""
+    q, k, v, pos = _attn_case(3 + pos0, s=32, h=16, g=2, dh=64, c=256, pos0=pos0)
+    kw = {}
+    if "window" in variant:
+        kw["sliding_window_size"] = 128
+    if "sinks" in variant:
+        kw["sinks"] = np.random.default_rng(pos0).standard_normal(16).astype(np.float32)
+    jkw = {a: jnp.asarray(b) if isinstance(b, np.ndarray) else b for a, b in kw.items()}
+    args = [jnp.asarray(a) for a in (q, k, v, pos)]
+    ref = np.asarray(jax_attention(*args, scale=0.125, **jkw))
+    interp = np.asarray(jax_flash(*args, scale=0.125, interpret=True, **jkw))
+    got = flash_attention(
+        *[torch.from_numpy(a) for a in (q, k, v, pos)], scale=0.125,
+        **{a: torch.from_numpy(b) if isinstance(b, np.ndarray) else b for a, b in kw.items()})
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got.numpy(), interp, rtol=2e-2, atol=2e-2)
+
+
 def test_flash_gate_is_semantic_only():
     kw = dict(is_causal=True, suffix_mask=None, kv_valid_length=None)
     assert supported(16, 8, 2, 32, 100, **kw)  # ragged C and S are fine now

@@ -188,6 +188,24 @@ def test_paged_plain_matches_pallas_interpret(variant, quant):
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("variant", ["sinks", "window_sinks"])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_paged_plain_matches_jax_at_gptoss_heads(variant, quant):
+    """gpt-oss's attention shape: 8 query heads per KV group (H 16 over G
+    2), Dh 64, sinks, and its window of 128 over slots of up to 160
+    tokens. The reference at 1e-5, the interpreted kernels at 2e-2."""
+    jargs, jkw, targs, tkw = _both_args(_pool_case(31 + quant, 32, quant, h=16, dh=64),
+                                        variant)
+    if "sliding_window_size" in jkw:
+        jkw["sliding_window_size"] = tkw["sliding_window_size"] = 128
+    got = paged_decode_attention(*targs, **tkw)
+    assert got.shape == (3, 16, 64)
+    want = np.asarray(paged_attention_reference(*jargs, **jkw))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    interp = np.asarray(jax_paged(*jargs, interpret=True, **jkw))
+    np.testing.assert_allclose(got.numpy(), interp, rtol=2e-2, atol=2e-2)
+
+
 def test_paged_wrapper_launches_nothing_on_cpu_and_checks_shapes(monkeypatch):
     _, _, targs, tkw = _both_args(_pool_case(3, 8, True, dh=64), "plain")
     before = dict(build.LAUNCHES)

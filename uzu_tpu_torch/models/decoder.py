@@ -26,6 +26,7 @@ from ..config.model import (
     AttentionConfig,
     DecoderConfig,
     DenseMLPConfig,
+    MixtureOfExpertsConfig,
     TransformerLayerConfig,
 )
 from ..ops.activation import gated_act_mul
@@ -35,6 +36,7 @@ from ..ops.norm import normalize
 from ..ops.rope import apply_rope, inverse_frequencies, rope_tables
 from ..quant.format import QuantizedTensor, unpack_codes
 from .kv_cache import append as kv_append, is_quantized, read as kv_read, read_quantized
+from .moe import moe_forward
 
 
 # --------------------------------------------------------------------------
@@ -181,6 +183,8 @@ def mlp_forward(cfg, params: dict, x: torch.Tensor) -> torch.Tensor:
         up, gate = fused[:, :half], fused[:, half:]
         hidden = gated_act_mul(cfg.activation, gate, up, cfg.gate_clipping, cfg.up_clipping)
         return linear_apply(params["down"]["w"], hidden, params["down"].get("b"))
+    if isinstance(cfg, MixtureOfExpertsConfig):
+        return moe_forward(cfg, params, x)
     raise NotImplementedError(f"{type(cfg).__name__} MLPs are not ported yet")
 
 

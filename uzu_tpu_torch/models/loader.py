@@ -4,9 +4,9 @@ Counterpart of `uzu_tpu/models/loader.py`, with the same tensor names,
 shapes and dtypes, so model directories written for the JAX package load
 unchanged. The parameters are a nested dict of torch tensors and
 `QuantizedTensor` leaves on one device, shaped like the JAX package's
-pytree; everything static lives in the config objects. MoE, recurrent
-(SSM) mixers, per-layer embeddings and HybridSpec linears wait for later
-slices of the port and raise `NotImplementedError`.
+pytree; everything static lives in the config objects. Recurrent (SSM)
+mixers, per-layer embeddings, HybridSpec linears and shared MoE experts
+wait for later slices of the port and raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from ..config.model import (
 )
 from ..params.safetensors_io import BF16, to_torch
 from ..params.tree import ParameterError, ParameterTree
-from ..quant.format import from_disk_tensors
+from ..quant.format import StackedQuantized, from_disk_tensors
 
 _FLOAT_DTYPES = {
     BF16: torch.bfloat16,
@@ -157,8 +157,58 @@ def load_mlp(tree: ParameterTree, cfg, model_dim: int, hidden_dim: int, device=N
                                 cfg.has_down_biases, device),
         }
     if isinstance(cfg, MixtureOfExpertsConfig):
-        raise NotImplementedError("mixture-of-experts MLPs are not ported yet")
+        return load_moe(tree, cfg, model_dim, device)
     raise ParameterError(f"unsupported mlp config {type(cfg).__name__}")
+
+
+def _load_expert_stack(experts: ParameterTree, role: str, e: int, n: int, kdim: int,
+                       device=None):
+    """One expert weight stack: dense [E, N, K] float, or a
+    `StackedQuantized` when the role carries a symmetric 4- or 8-bit
+    IntSpec. Returns (stack, float dtype of the file)."""
+    sub = experts.subtree(f"{role}.weights")
+    try:
+        spec = experts.subtree(role).spec("weights")
+    except ParameterError:
+        spec = None
+    if spec is None:
+        dt = _weights_dtype(sub, "weights")
+        return to_torch(sub.leaf("weights", (e, n, kdim), dt), device), dt
+    if not (isinstance(spec, IntSpec) and spec.is_symmetric and spec.bits in (4, 8)):
+        raise ParameterError(f"expert stacks support symmetric IntSpec only, got {spec}")
+    pack = 8 // spec.bits
+    kg = -(-kdim // spec.group_size)
+    dt = _weights_dtype(sub, "scales")
+    codes = sub.leaf("weights", (e, n, kdim // pack), np.uint8)
+    scales = sub.leaf("scales", (e, n, kg), dt)
+    return StackedQuantized(
+        codes=to_torch(codes, device), scales=to_torch(scales, device), bits=spec.bits,
+        group_size=spec.group_size, qbias_coeff=-float(1 << (spec.bits - 1))), dt
+
+
+def load_moe(tree: ParameterTree, cfg: MixtureOfExpertsConfig, model_dim: int,
+             device=None) -> dict:
+    """Router, expert stacks and expert biases, named as in the JAX
+    package's `load_moe`. The down stack keeps its d output rows: the JAX
+    loader pads them to a multiple of 128 (a TPU lane rule) and slices the
+    results back; here no path needs the padding."""
+    if cfg.num_shared_experts:
+        raise NotImplementedError("shared MoE experts are not ported yet")
+    e, dff = cfg.num_routed_experts, cfg.expert_hidden_dim
+    out = {"router": load_linear(tree.subtree("router"), model_dim, e,
+                                 cfg.router_has_biases, device)}
+    experts = tree.subtree("experts")
+    w13, dt = _load_expert_stack(experts, "up_projection", e, 2 * dff, model_dim, device)
+    w2, _ = _load_expert_stack(experts, "down_projection", e, model_dim, dff, device)
+    out["up"] = {"w": w13}
+    out["down"] = {"w": w2}
+    if cfg.expert_config.has_up_biases:
+        out["up"]["b"] = to_torch(experts.leaf("up_projection.biases", (e, 2 * dff), dt),
+                                  device)
+    if cfg.expert_config.has_down_biases:
+        out["down"]["b"] = to_torch(experts.leaf("down_projection.biases", (e, model_dim), dt),
+                                    device)
+    return out
 
 
 def load_layer(tree: ParameterTree, layer_cfg, model_dim: int, hidden_dim: int,

@@ -2,8 +2,9 @@
 
 Each source in `uzu_tpu_torch/csrc/` is compiled by `nvcc` for `sm_90a`
 into a shared library with a plain C interface, loaded with ctypes. The
-library name carries a hash of its source, so an edited kernel is rebuilt
-and an unchanged one is reused. Nothing here runs at import: the package
+library name carries a hash of its source and of the shared headers
+(`csrc/*.cuh`), so an edited kernel is rebuilt and an unchanged one is
+reused. Nothing here runs at import: the package
 imports, and its CPU path runs, on a machine without `nvcc`.
 
 `LAUNCHES` counts, per kernel, the launches its wrapper made; a wrapper
@@ -23,7 +24,8 @@ from ...runtime import kernel_build_dir
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
-SOURCES = ("quant_matmul", "flash_attention", "paged_attention")
+SOURCES = ("quant_matmul", "flash_attention", "paged_attention", "moe_gemv",
+           "grouped_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -34,6 +36,10 @@ LAUNCHES: dict[str, int] = {
     "flash_attention_int8": 0,
     "paged_attention": 0,
     "paged_attention_int8": 0,
+    "moe_gemv_int4": 0,
+    "moe_gemv_int8": 0,
+    "grouped_matmul_int4": 0,
+    "grouped_matmul": 0,
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -52,9 +58,12 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(kernel_build_dir(), f"{name}_{digest}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC, f), "rb") as src:
+            h.update(src.read())
+    return os.path.join(kernel_build_dir(), f"{name}_{h.hexdigest()[:16]}.so")
 
 
 def build(names=SOURCES) -> float:

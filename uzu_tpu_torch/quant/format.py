@@ -59,6 +59,51 @@ class QuantizedTensor:
             qbias=None if self.qbias is None else self.qbias.to(device))
 
 
+@dataclasses.dataclass
+class StackedQuantized:
+    """A stack of E symmetric-quantized [N, K] matrices (MoE expert
+    weights): codes uint8 [E, N, K/pack] packed like `QuantizedTensor`'s,
+    scales [E, N, ceil(K/g)], and w = scale * code + qbias_coeff * scale.
+    Decode reads only the routed experts' planes (K7/K8), prefill only the
+    routed tiles' planes (K9)."""
+
+    codes: torch.Tensor  # uint8 [E, N, K // (8//bits)]
+    scales: torch.Tensor  # [E, N, ceil(K/g)]
+    bits: int
+    group_size: int
+    qbias_coeff: float  # symmetric: qbias == qbias_coeff * scales
+
+    @property
+    def shape(self) -> tuple[int, int, int]:
+        e, n, kp = self.codes.shape
+        return (e, n, kp * (8 // self.bits))
+
+    @property
+    def nbytes(self) -> int:
+        return (self.codes.numel() * self.codes.element_size()
+                + self.scales.numel() * self.scales.element_size())
+
+    def expert(self, idx: int) -> QuantizedTensor:
+        """Expert `idx`'s [N, K] plane as a `QuantizedTensor` view."""
+        return QuantizedTensor(codes=self.codes[idx], scales=self.scales[idx], qbias=None,
+                               bits=self.bits, group_size=self.group_size,
+                               qbias_coeff=self.qbias_coeff)
+
+    def to(self, device) -> "StackedQuantized":
+        return dataclasses.replace(self, codes=self.codes.to(device),
+                                   scales=self.scales.to(device))
+
+
+def dequantize_stacked(sq: StackedQuantized, dtype=torch.bfloat16) -> torch.Tensor:
+    """Dense [E, N, K]: (code - 2^(bits-1)) * scale in f32, then cast; the
+    JAX package's `dequantize_stacked` operation for operation."""
+    k = sq.shape[2]
+    codes = unpack_codes(sq.codes, sq.bits).float()
+    mid = float(1 << (sq.bits - 1))
+    sc = torch.repeat_interleave(sq.scales.float(), sq.group_size, dim=-1)[:, :, :k]
+    return ((codes - mid) * sc).to(dtype)
+
+
 def unpack_codes(codes: torch.Tensor, bits: int) -> torch.Tensor:
     """uint8 packed [..., K/pack] -> uint8 unpacked [..., K] (unsigned codes)."""
     if bits == 8:

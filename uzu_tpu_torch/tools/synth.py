@@ -1,13 +1,15 @@
 """Synthesize model directories (config.json + model.safetensors), numpy only.
 
 Counterpart of `uzu_tpu/tools/synth.py` for the decoder shapes the port
-runs (attention mixers, dense MLPs, full-precision / IntSpec / MLXSpec
-weights): with the same seed it draws the same random numbers in the same
-order and writes the same bytes, bf16 included, without `ml_dtypes`.
+runs (attention mixers, dense and mixture-of-experts MLPs, full-precision /
+IntSpec / MLXSpec weights, dense or symmetric-quantized expert stacks):
+with the same seed, fill and specs it draws the same random numbers in the
+same order and writes the same bytes, bf16 included, without `ml_dtypes`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 
@@ -25,9 +27,11 @@ from ..config.model import (
     Layout,
     LinearConfig,
     LlamaRoPEConfig,
+    MixtureOfExpertsConfig,
     MLXSpec,
     NormalizationConfig,
     SiLU,
+    SoftmaxRouting,
     TiedEmbeddingConfig,
     TransformerConfig,
     TransformerLayerConfig,
@@ -49,14 +53,22 @@ def _method(spec) -> str:
 class ModelBuilder:
     """Accumulates tensors + metadata, then writes a model dir."""
 
-    def __init__(self, seed: int = 0, weight_scale: float = 0.02, dtype=BF16):
+    def __init__(self, seed: int = 0, weight_scale: float = 0.02, dtype=BF16,
+                 fill: str = "normal"):
         self.rng = np.random.default_rng(seed)
         self.tensors: dict[str, np.ndarray] = {}
         self.metadata: dict[str, str] = {}
         self.weight_scale = weight_scale
         self.dtype = np.dtype(dtype)
+        self.fill = fill  # "normal" | "fast" (raw random bytes, ~30x faster)
 
     def _random(self, shape, scale: float) -> np.ndarray:
+        """Random weights; fill="fast" draws raw bytes as int8 (uniform,
+        std ~74) instead of normals, for full-width models."""
+        if self.fill == "fast":
+            n = int(np.prod(shape))
+            raw = np.frombuffer(self.rng.bytes(n), np.int8)
+            return raw.astype(np.float32).reshape(shape) * (scale / 74.0)
         return self.rng.standard_normal(shape, dtype=np.float32) * scale
 
     # -- tensor emitters -----------------------------------------------------
@@ -109,7 +121,8 @@ class ModelBuilder:
 
     # -- model assembly --------------------------------------------------
 
-    def build_decoder(self, cfg: DecoderConfig, linear_spec, embedding_spec) -> None:
+    def build_decoder(self, cfg: DecoderConfig, linear_spec, embedding_spec,
+                      expert_spec=None) -> None:
         if cfg.ple_model_config is not None:
             raise NotImplementedError("per-layer embeddings are not ported yet")
         tcfg = cfg.transformer_config
@@ -120,10 +133,12 @@ class ModelBuilder:
             self.embedding("input_embedding", cfg.vocab_size, d, embedding_spec)
             self.embedding("output_embedding", cfg.vocab_size, d, embedding_spec)
         for i, lc in enumerate(tcfg.layer_configs):
-            self.layer_tensors(f"transformer.layers.{i}", lc, d, tcfg.hidden_dim, linear_spec)
+            self.layer_tensors(f"transformer.layers.{i}", lc, d, tcfg.hidden_dim, linear_spec,
+                               expert_spec)
         self.norm_scales("transformer.output_norm", d, tcfg.output_norm_config.has_biases)
 
-    def layer_tensors(self, p: str, lc, d: int, default_hidden: int, linear_spec) -> None:
+    def layer_tensors(self, p: str, lc, d: int, default_hidden: int, linear_spec,
+                      expert_spec=None) -> None:
         m = lc.mixer_config
         if not isinstance(m, AttentionConfig):
             raise NotImplementedError(f"{type(m).__name__} mixers are not ported yet")
@@ -153,10 +168,41 @@ class ModelBuilder:
                                                           self.dtype)
         mlp = lc.mlp_config
         hid = lc.hidden_dim or default_hidden
-        if not isinstance(mlp, DenseMLPConfig):
+        if isinstance(mlp, DenseMLPConfig):
+            self.linear(f"{p}.mlp.up_projection", d, 2 * hid, linear_spec, mlp.has_up_biases)
+            self.linear(f"{p}.mlp.down_projection", hid, d, linear_spec, mlp.has_down_biases)
+        elif isinstance(mlp, MixtureOfExpertsConfig):
+            self.moe_tensors(f"{p}.mlp", mlp, d,
+                             expert_spec if expert_spec is not None else linear_spec)
+        else:
             raise NotImplementedError(f"{type(mlp).__name__} MLPs are not ported yet")
-        self.linear(f"{p}.mlp.up_projection", d, 2 * hid, linear_spec, mlp.has_up_biases)
-        self.linear(f"{p}.mlp.down_projection", hid, d, linear_spec, mlp.has_down_biases)
+
+    def moe_tensors(self, p: str, mlp: MixtureOfExpertsConfig, d: int, e_spec) -> None:
+        """Router and expert stacks. A symmetric IntSpec whose group divides
+        d and dff quantizes the stacks expert by expert; any other spec
+        keeps them dense in the model dtype."""
+        e, dff = mlp.num_routed_experts, mlp.expert_hidden_dim
+        self.linear(f"{p}.router", d, e, FullPrecisionSpec(layout=Layout.OUTPUT_INPUT),
+                    mlp.router_has_biases)
+        quant = (isinstance(e_spec, IntSpec) and e_spec.is_symmetric
+                 and d % e_spec.group_size == 0 and dff % e_spec.group_size == 0)
+        for role, shape in (("up_projection", (e, 2 * dff, d)),
+                            ("down_projection", (e, d, dff))):
+            prefix = f"{p}.experts.{role}.weights"
+            if quant:
+                self.metadata[f"{prefix}.spec"] = config_dumps(e_spec)
+                parts = [quantize_reference(self._random(shape[1:], self.weight_scale),
+                                            e_spec.bits, e_spec.group_size,
+                                            "scale_symmetric", dtype=self.dtype)
+                         for _ in range(e)]
+                self.tensors[f"{prefix}.weights"] = np.stack([q["weights"] for q in parts])
+                self.tensors[f"{prefix}.scales"] = np.stack([q["scales"] for q in parts])
+            else:
+                self.dense(f"{prefix}.weights", shape)
+        if mlp.expert_config.has_up_biases:
+            self.dense(f"{p}.experts.up_projection.biases", (e, 2 * dff))
+        if mlp.expert_config.has_down_biases:
+            self.dense(f"{p}.experts.down_projection.biases", (e, d))
 
     def write(self, out_dir: str, cfg: LanguageModelConfig) -> str:
         os.makedirs(out_dir, exist_ok=True)
@@ -172,11 +218,14 @@ class ModelBuilder:
 
 
 def synthesize(cfg: LanguageModelConfig, out_dir: str, *, seed: int = 0, linear_spec=None,
-               embedding_spec=None, dtype=BF16) -> str:
+               embedding_spec=None, expert_spec=None, dtype=BF16, fill: str = "normal") -> str:
+    """expert_spec: the spec of MoE expert stacks only (default
+    linear_spec); gpt-oss pairs full-precision linears with quantized
+    experts."""
     linear_spec = linear_spec or FullPrecisionSpec(layout=Layout.OUTPUT_INPUT)
     embedding_spec = embedding_spec or FullPrecisionSpec(layout=Layout.INPUT_OUTPUT)
-    b = ModelBuilder(seed=seed, dtype=dtype)
-    b.build_decoder(cfg.decoder_config, linear_spec, embedding_spec)
+    b = ModelBuilder(seed=seed, dtype=dtype, fill=fill)
+    b.build_decoder(cfg.decoder_config, linear_spec, embedding_spec, expert_spec)
     return b.write(out_dir, cfg)
 
 
@@ -286,3 +335,95 @@ def llama_config(
             suffix_repetition_length=None,
         ),
     )
+
+
+def _with_mlp(base: LanguageModelConfig, layers, hidden_dim: int) -> LanguageModelConfig:
+    dc = base.decoder_config
+    decoder = DecoderConfig(
+        embedding_config=dc.embedding_config,
+        transformer_config=TransformerConfig(
+            layer_configs=tuple(layers),
+            output_norm_config=dc.transformer_config.output_norm_config,
+            model_dim=dc.transformer_config.model_dim,
+            hidden_dim=hidden_dim,
+        ),
+        vocab_size=dc.vocab_size,
+        ple_model_config=None,
+    )
+    return LanguageModelConfig(decoder_config=decoder, generation_config=base.generation_config)
+
+
+def _moe(expert: DenseMLPConfig, num_experts: int, num_active: int, expert_hidden_dim: int,
+         router_biases: bool) -> MixtureOfExpertsConfig:
+    return MixtureOfExpertsConfig(
+        expert_config=expert,
+        router_config=LinearConfig(),
+        routing_function=SoftmaxRouting(),
+        num_routed_experts=num_experts,
+        num_active_routed_experts=num_active,
+        router_has_biases=router_biases,
+        num_shared_experts=0,
+        expert_hidden_dim=expert_hidden_dim,
+        gate_config=None,
+    )
+
+
+def moe_config(
+    *, num_layers: int = 2, model_dim: int = 64, hidden_dim: int = 128,
+    vocab_size: int = 512, num_experts: int = 8, num_active: int = 2,
+    expert_hidden_dim: int = 96, with_biases: bool = True,
+    attn_heads: int = 4, attn_groups: int = 2, attn_head_dim: int = 16,
+) -> LanguageModelConfig:
+    """gpt-oss-style MoE decoder (every layer MoE, softmax routing)."""
+    base = llama_config(
+        num_layers=num_layers, model_dim=model_dim, hidden_dim=hidden_dim,
+        num_heads=attn_heads, num_groups=attn_groups, head_dim=attn_head_dim,
+        vocab_size=vocab_size,
+    )
+    expert = DenseMLPConfig(
+        linear_config=LinearConfig(),
+        activation=SiLU(alpha=1.0),
+        has_up_biases=with_biases,
+        has_down_biases=with_biases,
+        gate_clipping=None,
+        up_clipping=None,
+    )
+    moe = _moe(expert, num_experts, num_active, expert_hidden_dim, with_biases)
+    layers = [dataclasses.replace(lc, mlp_config=moe)
+              for lc in base.decoder_config.transformer_config.layer_configs]
+    return _with_mlp(base, layers, hidden_dim)
+
+
+def gptoss_config(
+    *, num_layers: int = 2, model_dim: int = 64, num_heads: int = 4,
+    num_groups: int = 2, head_dim: int = 16, vocab_size: int = 512,
+    num_experts: int = 8, num_active: int = 2, expert_hidden_dim: int = 96,
+    sliding_window: int = 24, max_seq: int = 2048, rope_base: float = 150000.0,
+) -> LanguageModelConfig:
+    """gpt-oss-style decoder: every layer MoE with softmax-after-top-k
+    routing and biased routers and experts, attention sinks on every layer,
+    sliding and full attention alternating (sliding first), qkv and out
+    biases, untied embeddings. The expert activation is SiLU(1.702) with
+    gate clipped to (-inf, 7] and up to [-6, 8]: the published formula's
+    "+1" on up is folded into the up bias, so converters add 1 to it."""
+    base = llama_config(
+        num_layers=num_layers, model_dim=model_dim, hidden_dim=expert_hidden_dim,
+        num_heads=num_heads, num_groups=num_groups, head_dim=head_dim,
+        vocab_size=vocab_size, max_seq=max_seq, rope_base=rope_base, tied=False,
+    )
+    expert = DenseMLPConfig(
+        linear_config=LinearConfig(),
+        activation=SiLU(alpha=1.702),
+        has_up_biases=True,
+        has_down_biases=True,
+        gate_clipping=(None, 7.0),
+        up_clipping=(-6.0, 8.0),
+    )
+    moe = _moe(expert, num_experts, num_active, expert_hidden_dim, True)
+    layers = [
+        dataclasses.replace(lc, mlp_config=moe, mixer_config=dataclasses.replace(
+            lc.mixer_config, has_sinks=True, has_qkv_biases=True, has_out_biases=True,
+            sliding_window_size=sliding_window if (i + 1) % 2 else None))
+        for i, lc in enumerate(base.decoder_config.transformer_config.layer_configs)
+    ]
+    return _with_mlp(base, layers, expert_hidden_dim)
