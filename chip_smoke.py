@@ -15,7 +15,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    FLOPs over the bf16 peak): K1/K2 quant matmul, K3/K4 flash attention
    (bf16 / INT8 cache), K5/K6 paged decode attention (bf16 / INT8 pools),
    K3/K5 again at gpt-oss's heads (8 per KV group, window 128, sinks),
-   K7/K8 expert-gather GEMV, K9/K10 grouped expert matmul.
+   K7/K8 expert-gather GEMV, K9/K10 grouped expert matmul, and P1, the
+   bisect probe's zero-padded scale-block copy (bitwise equal).
 3. path INT4: the Llama-1B-shaped INT4 flagship (16 layers, d 2048, vocab
    128256, random weights from a seed) loaded with `LanguageModel.from_dir`
    on the card; greedy generation of 64 tokens after a 128-token prompt,
@@ -58,6 +59,18 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     the 2-layer INT4 flagship and through the 4-layer INT4 gpt-oss model,
     on the card and on the host CPU (for gpt-oss, the CPU pass takes the
     card's expert choices, each a router near-tie where they differ).
+11. tools (`uzu_tpu_torch/tools/`), on the INT4 flagship: a profiler
+    capture of its first prefill and decode chunk (UZU_TPU_PROFILE; the
+    traces go to `.port_cache/traces/`), which must hold K1 and, in
+    prefill, K3 kernel events, read for the top device ops and the
+    decode window's device-busy share; `kernel_micros` (every time
+    positive, K5 launched); the step breakdown of a decode step (M=1) and
+    a 256-row prefill chunk; teacher-forced NLL and per-layer activation
+    traces of a 256-token corpus sequence through the first 2 layers, on
+    the card and on the host CPU (|dNLL| <= 1e-2 nats, each trace within
+    2e-2 relative L2); and the quant-matmul bisect probe (P1's block read
+    exact, K1 at a small group count and with zero-padded scale rows
+    within its limits).
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Full per-shape numbers also go to
@@ -116,6 +129,15 @@ GREEDY_FLOOR = 0.9
 ROUTER_MARGIN = 0.125
 PAGED_TOKENS = 64
 CONTROL_TOKENS = 16
+NLL_TOL = 1e-2  # |NLL card - NLL host| in nats over a 256-token sequence
+# the bisect probe's cells, each held to max abs error over RMS(oracle):
+# the f32 GEMV at M=1 is f32 throughout; at M=64 the tile rounds x and the
+# weight to bf16; the bf16-scale cell is held to an f32-scale oracle
+BISECT_LIMITS = {"prod_kg16": 1e-4, "prod_pad128": 1e-4, "prod_pad64": 1e-4,
+                 "prod_pad32": 1e-4, "pad128_m64": 2e-2, "pad128_bf16": 2e-2}
+# kernel names (csrc/) that a profiler trace must hold, per phase
+TRACE_KERNELS = {"prefill": {"K1": ("qmm_gemv", "qmm_mma"), "K3": ("flash_fwd",)},
+                 "decode": {"K1": ("qmm_gemv",)}}
 
 
 def log(msg: str) -> None:
@@ -629,6 +651,32 @@ def check_attention_gptoss(torch, timer, rows) -> None:
                        library_ms=None, bound_ms=b_ms, bound_by=b_by)
             rows.append(row)
             log("KERNEL " + json.dumps(row))
+
+
+def check_block_copy(torch, timer, rows) -> None:
+    """P1 at the bisect probe's shape, [256, 16] -> [256, 128] f32; the
+    copy must equal its plain version bit for bit."""
+    import torch.nn.functional as F
+
+    from uzu_tpu_torch.ops.cuda.block_copy import scale_block_copy, scale_block_copy_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    r, kg, width = 256, 16, 128
+    s = torch.rand((r, kg), device="cuda", generator=gen) * 0.02 + 0.01
+    got = scale_block_copy(s, width)
+    want = scale_block_copy_plain(s, width)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("scale_block_copy differs from its plain version")
+    abs_err, err = rel_err(got, want)
+    b_ms, b_by = bound((r * kg + r * width) * 4, 0.0)
+    row = dict(kernel="scale_block_copy", R=r, kg=kg, width=width, max_abs_err=abs_err,
+               err_over_rms=err, tol=0.0, ms=timer.ms(lambda: scale_block_copy(s, width)),
+               plain_ms=timer.ms(lambda: scale_block_copy_plain(s, width), 3),
+               library_ms=timer.ms(lambda: F.pad(s, (0, width - kg))),
+               bound_ms=b_ms, bound_by=b_by)
+    rows.append(row)
+    log("KERNEL " + json.dumps(row))
 
 
 # -- phases 3-10: the port's main paths -----------------------------------------
@@ -1356,6 +1404,21 @@ def control_moe_faults(torch, lm, info: dict) -> None:
         raise AssertionError(f"the routed stream check passed planted faults: {missed}")
 
 
+def first_layers(lm, layers: int, device: str):
+    """`lm` cut to its first `layers` layers, as a LanguageModel on
+    `device` with 1024 slots of context (its parameters shared where the
+    device is the same)."""
+    from uzu_tpu_torch.engine.engine import LanguageModel
+
+    cfg = lm.config
+    tcfg = cfg.decoder_config.transformer_config
+    dcfg = dataclasses.replace(cfg.decoder_config, transformer_config=dataclasses.replace(
+        tcfg, layer_configs=tcfg.layer_configs[:layers]))
+    return LanguageModel(dataclasses.replace(cfg, decoder_config=dcfg),
+                         dict(lm.params, layers=lm.params["layers"][:layers]),
+                         device=device, max_context=1024)
+
+
 def whole_path_check(torch, lm, layers: int, vocab: int, key: str, info: dict) -> None:
     """Teacher-forced logits of the first `layers` layers of `lm` for a
     32-token prompt, on the card and through the port's plain path on the
@@ -1364,25 +1427,19 @@ def whole_path_check(torch, lm, layers: int, vocab: int, key: str, info: dict) -
     expert would move its row far past the tolerance), and the free CPU
     pass is reported beside it."""
     import uzu_tpu_torch.models.moe as moe
-    from uzu_tpu_torch.engine.engine import LanguageModel
     from uzu_tpu_torch.models.decoder import decoder_forward
 
-    cfg = lm.config
-    tcfg = cfg.decoder_config.transformer_config
-    dcfg = dataclasses.replace(cfg.decoder_config, transformer_config=dataclasses.replace(
-        tcfg, layer_configs=tcfg.layer_configs[:layers]))
-    cfg2 = dataclasses.replace(cfg, decoder_config=dcfg)
-    params2 = dict(lm.params, layers=lm.params["layers"][:layers])
     toks = prompt_tokens(32, vocab)
     card_routes = []
     real = moe.router_topk
 
     def forward(dev, router):
-        lm2 = LanguageModel(cfg2, params2, device=dev, max_context=1024)
+        lm2 = first_layers(lm, layers, dev)
         t = torch.as_tensor(toks, dtype=torch.int64, device=dev)
         moe.router_topk = router
         try:
-            out, _ = decoder_forward(dcfg, lm2.params, t, lm2.new_state(), last_only=False)
+            out, _ = decoder_forward(lm2.decoder_config, lm2.params, t, lm2.new_state(),
+                                     last_only=False)
         finally:
             moe.router_topk = real
         return out.float().cpu()
@@ -1415,14 +1472,167 @@ def whole_path_check(torch, lm, layers: int, vocab: int, key: str, info: dict) -
         check_routing([dict(max_router_gap=info[key]["max_router_gap"])])
 
 
+# -- phase 11: the measurement tools -----------------------------------------------
+
+
+def trace_device_time(path: str) -> tuple[dict, float, float]:
+    """Read a torch.profiler Chrome trace: ({kernel name: [launches, summed
+    ms]}, device-busy ms (the union of the kernel, memcpy and memset
+    intervals), window ms (from the first host op to the last event of the
+    host or the device))."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    host = [e for e in events if e.get("cat") in ("cpu_op", "cuda_runtime", "cuda_driver")]
+    if not device or not host:
+        raise AssertionError(f"{path}: {len(device)} device and {len(host)} host events")
+    kernels: dict = {}
+    for e in device:
+        if e["cat"] == "kernel":
+            k = kernels.setdefault(e["name"], [0, 0.0])
+            k[0] += 1
+            k[1] += e["dur"] / 1e3
+    busy, end = 0.0, float("-inf")
+    for e in sorted(device, key=lambda e: e["ts"]):
+        t0, t1 = float(e["ts"]), float(e["ts"]) + e["dur"]
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    start = min(float(e["ts"]) for e in host)
+    stop = max(float(e["ts"]) + e["dur"] for e in host + device)
+    return kernels, busy / 1e3, (stop - start) / 1e3
+
+
+def tools_profile(torch, lm16, info: dict) -> None:
+    """One greedy generation of GEN_TOKENS after a GEN_PROMPT-token prompt
+    with the prefill and decode captures armed: each phase must leave one
+    trace that holds the kernels TRACE_KERNELS names."""
+    import shutil
+
+    from uzu_tpu_torch.tools import profile
+
+    out_dir = os.path.join(REPO, ".port_cache", "traces")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.environ.update(UZU_TPU_PROFILE="prefill,decode", UZU_TPU_PROFILE_DIR=out_dir)
+    profile.reset()
+    try:
+        lm16.generate_list(prompt_tokens(GEN_PROMPT, FLAGSHIP["vocab_size"]), GEN_TOKENS,
+                           stop_token_ids=[])
+    finally:
+        del os.environ["UZU_TPU_PROFILE"], os.environ["UZU_TPU_PROFILE_DIR"]
+        profile.reset()
+    out = {}
+    for phase, wanted in TRACE_KERNELS.items():
+        found = [d for d in os.listdir(out_dir) if d.startswith(phase + "_")]
+        if len(found) != 1:
+            raise AssertionError(f"expected one {phase} trace in {out_dir}, found {found}")
+        path = os.path.join(out_dir, found[0], "trace.json")
+        kernels, busy_ms, window_ms = trace_device_time(path)
+        for label, names in wanted.items():
+            if not any(n in k for k in kernels for n in names):
+                raise AssertionError(f"the {phase} trace holds no {label} kernel ({names})")
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
+        out[phase] = dict(
+            trace=os.path.relpath(path, REPO), trace_bytes=os.path.getsize(path),
+            kernel_launches=sum(c for c, _ in kernels.values()),
+            kernel_ms=sum(t for _, t in kernels.values()), device_busy_ms=busy_ms,
+            window_ms=window_ms, device_busy_share=busy_ms / window_ms,
+            top_device_ops=[dict(name=name[:100], launches=c, ms=t) for name, (c, t) in top])
+    info["tools_profile"] = out
+    log("TOOLS_PROFILE " + json.dumps(out))
+
+
+def tools_microbench(torch, lm16, info: dict) -> None:
+    """`kernel_micros` on the flagship: every time positive, K5 launched."""
+    from uzu_tpu_torch.ops.cuda.build import LAUNCHES, reset_launches
+    from uzu_tpu_torch.tools.microbench import kernel_micros
+
+    reset_launches()
+    micros = kernel_micros(lm16)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    info["tools_microbench"] = dict(ms=micros, launches=launches)
+    log("TOOLS_MICROBENCH " + json.dumps(info["tools_microbench"]))
+    bad = [k for k, v in micros.items() if not v > 0]
+    if bad:
+        raise AssertionError(f"microbench probes without a positive time: {bad}")
+    if not launches.get("paged_attention"):
+        raise AssertionError("paged_attention_micro did not launch K5")
+
+
+def tools_step_breakdown(torch, model_dir: str, info: dict) -> None:
+    """The step breakdown of the flagship's decode step (M=1) and of a
+    256-row prefill chunk."""
+    from uzu_tpu_torch.tools import exp_step_breakdown as sb
+
+    info["tools_step_breakdown"] = dict(decode=sb.main(model_dir, 1, "cuda"),
+                                        prefill=sb.prefill_main(model_dir, 256, "cuda"))
+    log("TOOLS_STEP_BREAKDOWN " + json.dumps(info["tools_step_breakdown"]))
+
+
+def tools_quality(torch, lm16, info: dict) -> None:
+    """Teacher-forced NLL and the activation trace of a 256-token corpus
+    sequence through the flagship's first 2 layers, on the card and on the
+    host CPU: |dNLL| <= NLL_TOL, every trace entry within TOL relative L2."""
+    import numpy as np
+
+    from uzu_tpu_torch.tools import corpus, quality
+
+    toks = corpus.generate_tokens(256, seed=0)
+    nll, traces = {}, {}
+    for dev in ("cuda", "cpu"):
+        lm = first_layers(lm16, 2, dev)
+        nll[dev] = quality.sequence_nll(lm, toks)
+        traces[dev] = quality.capture_trace(lm, toks)
+        del lm
+    rel = {k: float(np.linalg.norm(traces["cuda"][k] - v) / np.linalg.norm(v))
+           for k, v in traces["cpu"].items()}
+    finite = all(bool(np.isfinite(v).all()) for v in traces["cuda"].values())
+    info["tools_quality"] = dict(tokens=len(toks), layers=2, nll=nll,
+                                 nll_delta=nll["cuda"]["nll"] - nll["cpu"]["nll"],
+                                 nll_tol=NLL_TOL, trace_rel_l2=rel, tol=TOL, finite=finite)
+    log("TOOLS_QUALITY " + json.dumps(info["tools_quality"]))
+    if not abs(info["tools_quality"]["nll_delta"]) <= NLL_TOL:
+        raise AssertionError(f"NLL on the card and the host differ by "
+                             f"{info['tools_quality']['nll_delta']:.3e} nats > {NLL_TOL}")
+    bad = {k: v for k, v in rel.items() if not v <= TOL}
+    if bad or not finite:
+        raise AssertionError(f"activation traces, card against host: {bad} > {TOL} "
+                             f"(finite: {finite})")
+
+
+def tools_bisect(torch, info: dict) -> None:
+    """The quant-matmul bisect probe on the card: P1's block read exact,
+    each K1 cell within BISECT_LIMITS of RMS of its numpy oracle."""
+    from uzu_tpu_torch.ops.cuda.build import LAUNCHES, reset_launches
+    from uzu_tpu_torch.tools import exp_qmm_bisect
+
+    reset_launches()
+    cells = exp_qmm_bisect.main("cuda")
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    info["bisect"] = dict(cells=cells, limits=BISECT_LIMITS, launches=launches)
+    log("TOOLS_BISECT " + json.dumps(info["bisect"]))
+    if cells["blockread_kg16_err"]["value"] != 0.0:
+        raise AssertionError(f"P1 read the scale block back with error "
+                             f"{cells['blockread_kg16_err']['value']}")
+    bad = {c: cells[c]["err_over_rms"] for c, lim in BISECT_LIMITS.items()
+           if not cells[c]["err_over_rms"] <= lim}
+    if bad:
+        raise AssertionError(f"bisect cells past their limits {BISECT_LIMITS}: {bad}")
+    if launches["scale_block_copy"] != 1 or launches["quant_matmul_int4"] != 6:
+        raise AssertionError(f"the bisect probe launched {launches}, expected P1 once and "
+                             "K1 six times")
+
+
 def kernel_record(rows, info) -> list[dict]:
     """One entry per kernel at its main-path shape (the decode GEMV of the
     up|gate projection for K1/K2, a 256-row prefill chunk over a 1024-slot
     context for K3/K4, 8 slots x 1024 live tokens in 512-token pages for
     K5/K6, one token's 4 experts of gpt-oss's up projection for K7/K8, the
     paged step's 32 routed rows of it for K9, a 1024-row chunk's 4096 for
-    K10), with the launches of the path that runs it; errors are the worst
-    over every shape checked."""
+    K10, the bisect probe's [256, 16] block for P1), with the launches of
+    the path that runs it; errors are the worst over every shape checked."""
     spec = {
         "quant_matmul_int4": ("uzu_tpu_torch/csrc/quant_matmul.cu",
                               "uzu_tpu/ops/pallas/quant_matmul.py:183",
@@ -1455,6 +1665,8 @@ def kernel_record(rows, info) -> list[dict]:
         "grouped_matmul": ("uzu_tpu_torch/csrc/grouped_matmul.cu",
                            "uzu_tpu/ops/pallas/grouped_matmul.py:67",
                            dict(weight="up", T=4096), "gptoss_int8"),
+        "scale_block_copy": ("uzu_tpu_torch/csrc/block_copy.cu", "tools/exp_qmm_bisect.py:78",
+                             dict(R=256, kg=16), "bisect"),
     }
     out = []
     for name, (src, replaces, where, path) in spec.items():
@@ -1464,13 +1676,14 @@ def kernel_record(rows, info) -> list[dict]:
             name=name, route="cuda", source=src, replaces=replaces,
             launches=info[path]["launches"][name],
             max_abs_err=max(r["max_abs_err"] for r in mine),
-            err_over_rms=max(r["err_over_rms"] for r in mine), tol=TOL,
+            err_over_rms=max(r["err_over_rms"] for r in mine), tol=rep["tol"],
             ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
             bound_by=rep["bound_by"], library_ms=rep["library_ms"],
             shape={k: rep[k] for k in rep if k in ("weight", "N", "K", "M", "S", "H", "G",
                                                     "Dh", "C", "pos0", "variant", "B", "page",
                                                     "lengths", "live_tokens", "E", "P", "T",
-                                                    "Tp", "used_tiles", "distinct_experts")}))
+                                                    "Tp", "used_tiles", "distinct_experts",
+                                                    "R", "kg", "width")}))
     return out
 
 
@@ -1533,6 +1746,7 @@ def main() -> int:
     check_attention_gptoss(torch, timer, rows)
     check_moe_gemv(torch, timer, rows)
     check_grouped_matmul(torch, timer, rows)
+    check_block_copy(torch, timer, rows)
     del timer
     torch.cuda.empty_cache()
     info["phase_seconds"]["kernels"] = time.perf_counter() - t0
@@ -1558,6 +1772,13 @@ def main() -> int:
           "whole_path", info)
     phase("whole_path_gptoss", whole_path_check, torch, lm_oss, 4, GPTOSS["vocab_size"],
           "whole_path_gptoss", info)
+    del lm_oss
+    torch.cuda.empty_cache()
+    phase("tools_profile", tools_profile, torch, lm16, info)
+    phase("tools_microbench", tools_microbench, torch, lm16, info)
+    phase("tools_step_breakdown", tools_step_breakdown, torch, dirs["llama1b_int4"], info)
+    phase("tools_quality", tools_quality, torch, lm16, info)
+    phase("tools_bisect", tools_bisect, torch, info)
     info["phase_seconds"]["total"] = time.perf_counter() - t_start
     log("PHASES " + json.dumps(info["phase_seconds"]))
 

@@ -480,11 +480,127 @@ def test_moe_decoder_prefill_equals_decode(models):
     np.testing.assert_allclose(one.numpy(), step.numpy(), rtol=1e-4, atol=1e-4)
 
 
-def test_shared_experts_are_not_ported(models):
-    lm = _port_lm(models, "int4")
-    cfg = dataclasses.replace(_mlp_cfg(), num_shared_experts=1)
-    from uzu_tpu_torch.models.loader import load_moe
+# -- shared experts ------------------------------------------------------------------------
 
-    with pytest.raises(NotImplementedError, match="shared"):
-        load_moe(None, cfg, 64)
-    assert lm.params["layers"][0]["mlp"].keys() == {"router", "up", "down"}
+def _shared(rng, d, width, scale=0.1):
+    """A "shared" subtree (up [2*width, d], down [d, width]) as numpy f32."""
+    return {"up": {"w": (rng.standard_normal((2 * width, d)) * scale).astype(np.float32)},
+            "down": {"w": (rng.standard_normal((d, width)) * scale).astype(np.float32)}}
+
+
+@pytest.mark.parametrize("branch", list(BRANCHES))
+@pytest.mark.parametrize("name", ["int4", "int8", "dense"])
+@pytest.mark.parametrize("shared", [1, 2])
+def test_moe_forward_with_shared_experts_matches_jax(models, jax_models, name, branch, shared,
+                                                      monkeypatch):
+    """The JAX `_finish_moe` term on every branch (gather, the chunk: K9
+    for INT4, the dequantized INT8 stack's masked loop, the dense masked
+    loop; grouped at GROUPED_PATH_MIN_TOKENS lowered to 16), against the
+    JAX Pallas mode with its K10 branch interpreted: within 1e-5 of RMS
+    (f32 throughout)."""
+    jlm = _jax_lm(jax_models, models, name, "pallas", monkeypatch)
+    lm = _port_lm(models, name)
+    monkeypatch.setattr(jmoe, "GROUPED_PATH_MIN_TOKENS", 16)
+    monkeypatch.setattr(tmoe, "GROUPED_PATH_MIN_TOKENS", 16)
+    monkeypatch.setattr(jmoe, "_grouped_forward",
+                        functools.partial(jmoe._grouped_forward, interpret=True))
+    rng = np.random.default_rng(shared * 10 + BRANCHES[branch])
+    sh = _shared(rng, 64, 128 * shared)
+    cfg = dataclasses.replace(_mlp_cfg(), num_shared_experts=shared)
+    jcfg = dataclasses.replace(_mlp_cfg(jlm.config), num_shared_experts=shared)
+    jparams = dict(jlm.params["layers"][1]["mlp"], shared=jax.tree.map(jnp.asarray, sh))
+    params = dict(lm.params["layers"][1]["mlp"], shared=jax.tree.map(torch.from_numpy, sh))
+    s = BRANCHES[branch]
+    x = rng.standard_normal((s, 64)).astype(np.float32)
+    want = np.asarray(jmoe.moe_forward(jcfg, jparams, jnp.asarray(x)))
+    got = tmoe.moe_forward(cfg, params, torch.from_numpy(x)).numpy()
+    without = tmoe.moe_forward(cfg, lm.params["layers"][1]["mlp"], torch.from_numpy(x)).numpy()
+    rms = np.sqrt(np.mean(want.astype(np.float64) ** 2))
+    assert np.max(np.abs(got - want)) <= 1e-5 * rms
+    assert np.max(np.abs(got - without)) > 0.1 * rms  # the shared term is no rounding error
+
+
+def _with_shared_experts(src: str, dst: str, spec: IntSpec | None = None) -> str:
+    """Copy a model directory, adding one shared expert (dff wide) to every
+    MoE layer, written with the port's safetensors_io: full precision, or
+    quantized per `spec`."""
+    import json
+
+    from uzu_tpu_torch.config import dumps as config_dumps
+    from uzu_tpu_torch.params.safetensors_io import SafetensorsFile, save_file
+    from uzu_tpu_torch.quant.format import quantize_reference
+
+    os.makedirs(dst)
+    f = SafetensorsFile(os.path.join(src, "model.safetensors"))
+    tensors = {k: f.read(k) for k in f.keys()}
+    metadata = dict(f.metadata)
+    with open(os.path.join(src, "config.json")) as fc:
+        cfg = json.load(fc)
+
+    def set_shared(node):
+        if isinstance(node, dict):
+            if "num_shared_experts" in node:
+                node["num_shared_experts"] = 1
+            for v in node.values():
+                set_shared(v)
+        elif isinstance(node, list):
+            for v in node:
+                set_shared(v)
+
+    set_shared(cfg)
+    rng = np.random.default_rng(21)
+    layers = {k.split(".")[2] for k in tensors if k.startswith("transformer.layers.")}
+    for i in sorted(layers):
+        p = f"transformer.layers.{i}.mlp"
+        for role, shape in (("up_projection", (256, 64)), ("down_projection", (64, 128))):
+            prefix = f"{p}.shared_experts.{role}.weights"
+            w = (rng.standard_normal(shape) * 0.1).astype(np.float32)
+            if spec is None:
+                metadata[f"{prefix}.spec"] = metadata[f"{p}.router.weights.spec"]
+                tensors[f"{prefix}.weights"] = w
+            else:
+                metadata[f"{prefix}.spec"] = config_dumps(spec)
+                for leaf, arr in quantize_reference(w, spec.bits, spec.group_size,
+                                                    dtype=np.float32).items():
+                    tensors[f"{prefix}.{leaf}"] = arr
+    save_file(os.path.join(dst, "model.safetensors"), tensors, metadata)
+    with open(os.path.join(dst, "config.json"), "w") as fc:
+        json.dump(cfg, fc)
+    return dst
+
+
+@pytest.mark.parametrize("name", ["dense", "int4"])
+def test_model_with_shared_experts_loads_and_matches_jax(models, tmp_path, name):
+    """`load_moe` reads `shared_experts.*` written with the port's
+    safetensors_io; the tree equals the JAX package's converted one, and
+    teacher-forced logits match the JAX default mode's at 1e-4 (dense) or
+    2e-2 (INT4: the JAX default mode multiplies its chunk by a
+    bf16-materialized stack)."""
+    d = _with_shared_experts(models[name], str(tmp_path / "shared"))
+    lm = LanguageModel.from_dir(d, device="cpu", max_context=128, prefill_buckets=(16,))
+    jlm = JaxLM.from_dir(d, max_context=128, prefill_buckets=(16,))
+    mlp = lm.params["layers"][0]["mlp"]
+    assert mlp["shared"]["up"]["w"].shape == (256, 64)
+    assert mlp["shared"]["down"]["w"].shape == (64, 128)
+    converted = from_numpy_tree(jax.tree.map(np.asarray, jlm.params))
+    for i, layer in enumerate(lm.params["layers"]):
+        for role in ("up", "down"):
+            assert torch.equal(converted["layers"][i]["mlp"]["shared"][role]["w"],
+                               layer["mlp"]["shared"][role]["w"])
+    want, _ = jax_forward(jlm.decoder_config, jlm.params, jnp.asarray(PROMPT, jnp.int32),
+                          jlm.new_state(), last_only=False)
+    got, _ = decoder_forward(lm.decoder_config, lm.params, torch.as_tensor(PROMPT),
+                             lm.new_state(), last_only=False)
+    tol = 1e-4 if name == "dense" else 2e-2
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol, atol=tol)
+
+
+def test_quantized_shared_experts_are_refused(models, tmp_path):
+    """The JAX package multiplies shared experts as dense arrays, so the
+    port serves no quantized one either: the loader says so."""
+    from uzu_tpu_torch.params.tree import ParameterError
+
+    spec = IntSpec(bits=4, group_size=32, is_symmetric=True, layout=Layout.OUTPUT_INPUT)
+    d = _with_shared_experts(models["dense"], str(tmp_path / "shared_q"), spec)
+    with pytest.raises(ParameterError, match="full-precision"):
+        LanguageModel.from_dir(d, device="cpu", max_context=128)

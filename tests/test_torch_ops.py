@@ -298,6 +298,10 @@ def test_port_sources_import_no_jax():
 def test_import_loads_no_jax_module():
     code = ("import sys, uzu_tpu_torch, uzu_tpu_torch.convert, uzu_tpu_torch.tools.synth; "
             "import uzu_tpu_torch.ops.cuda.build, uzu_tpu_torch.engine.paged_batch; "
+            "import uzu_tpu_torch.tools.quality, uzu_tpu_torch.tools.profile; "
+            "import uzu_tpu_torch.tools.microbench, uzu_tpu_torch.tools.exp_step_breakdown; "
+            "import uzu_tpu_torch.tools.exp_qmm_bisect, uzu_tpu_torch.tools.telemetry; "
+            "import uzu_tpu_torch.tools.logs, uzu_tpu_torch.tools.corpus; "
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]; "
             "print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -10,6 +10,8 @@ on an expert stack), never by importing the JAX package. bf16 arrays
 (numpy dtype named "bfloat16") keep their bits. The JAX loader pads an
 MoE down stack's output rows (and its biases) to a multiple of 128, a TPU
 lane rule; the port keeps the model's d rows, so the padding is cut here.
+An MoE block's shared experts (`"shared"`) are plain linears, unpadded in
+both packages, and convert as such.
 """
 
 from __future__ import annotations

@@ -52,8 +52,9 @@ struct QuantWeights {
   __device__ __forceinline__ void stage(Tile& ws, int e, int n0, int N, int K, int k0,
                                         int tid) const {
     const size_t plane = static_cast<size_t>(e) * N;
-    stage_quant<4, ST>(ws, codes + plane * (K / 8), scales + plane * ((K + G - 1) / G),
-                       nullptr, coeff, n0, N, K, G, k0, tid);
+    const int kg = (K + G - 1) / G;
+    stage_quant<4, ST>(ws, codes + plane * (K / 8), scales + plane * kg, nullptr, coeff, n0,
+                       N, K, G, kg, k0, tid);
   }
 };
 

@@ -209,17 +209,18 @@ __device__ __forceinline__ void stage_dense(Tile& tile, const T* __restrict__ a,
 }
 
 // Rows [n0, n0 + 64) x columns [k0, k0 + 64) of a quantized [N, K] matrix
-// (codes, scales, qbias as in dequant_word) into `tile`, dequantized in
-// f32, then rounded to bf16.
+// (codes, scales, qbias as in dequant_word; scale and qbias rows SK >=
+// ceil(K/G) elements apart) into `tile`, dequantized in f32, then rounded
+// to bf16.
 template <int BITS, typename ST>
 __device__ __forceinline__ void stage_quant(Tile& tile, const uint32_t* __restrict__ codes,
                                             const ST* __restrict__ scales,
                                             const ST* __restrict__ qbias, float coeff,
-                                            int n0, int N, int K, int G, int k0, int tid) {
+                                            int n0, int N, int K, int G, int SK, int k0,
+                                            int tid) {
   constexpr int VPW = 32 / BITS;
   constexpr int WPR = MM_K / VPW;  // code words per W row per chunk
   const int words = K / VPW;
-  const int kg = (K + G - 1) / G;
   for (int i = tid; i < MM_N * WPR; i += MM_THREADS) {
     const int r = i / WPR;
     const int wc = i % WPR;
@@ -227,8 +228,8 @@ __device__ __forceinline__ void stage_quant(Tile& tile, const uint32_t* __restri
     const int kw = k0 / VPW + wc;
     float wf[VPW];
     if (n < N && kw < words) {
-      const ST* srow = scales + static_cast<size_t>(n) * kg;
-      const ST* brow = qbias != nullptr ? qbias + static_cast<size_t>(n) * kg : nullptr;
+      const ST* srow = scales + static_cast<size_t>(n) * SK;
+      const ST* brow = qbias != nullptr ? qbias + static_cast<size_t>(n) * SK : nullptr;
       dequant_word<BITS, ST>(__ldg(codes + static_cast<size_t>(n) * words + kw),
                              kw * VPW, G, srow, brow, coeff, wf);
     } else {

@@ -10,7 +10,9 @@ Counterpart of `uzu_tpu/engine/engine.py` (`LanguageModel`,
   device, and the host reads the chunk's K tokens with one sync at its end
   (the JAX package fuses the same K steps into one `lax.scan` dispatch);
 - attention reads only the smallest power-of-two context bucket covering
-  the current position (CTX_BUCKET_MIN upward).
+  the current position (CTX_BUCKET_MIN upward);
+- the first prefill chunk and the first decode chunk can be captured by
+  the profiler (`tools/profile.py`, armed by UZU_TPU_PROFILE).
 
 The model runs on the card unless the caller passes `device="cpu"`.
 """
@@ -30,6 +32,7 @@ from ..models.loader import load_decoder
 from ..models.state import init_state
 from ..params.tree import ParameterLoader
 from ..runtime import resolve_device
+from ..tools.profile import profiled
 from .sampling import SamplingParams, push_ring, sample
 
 DEFAULT_PREFILL_BUCKETS = (16, 64, 256)
@@ -170,9 +173,9 @@ class LanguageModel:
             chunk = np.zeros(bucket, np.int64)
             chunk[:take] = tokens[i:i + take]
             ring = state.get("ring")
-            logits, state, _ = self._forward(
-                torch.from_numpy(chunk).to(self.device), state, take,
-                self._ctx_bucket(pos + i + bucket))
+            logits, state, _ = profiled(
+                "prefill", self._forward, torch.from_numpy(chunk).to(self.device), state,
+                take, self._ctx_bucket(pos + i + bucket))
             if ring is not None:
                 state["ring"] = _ring_push_chunk(ring, chunk[:take])
             i += take
@@ -223,9 +226,10 @@ class LanguageModel:
                 k //= 2
             chunk_idx += 1
             ctx = self._ctx_bucket(len(prompt_tokens) + produced + k)
-            state, toks, halted = self._decode_chunk(
-                state, token, halted, torch.tensor(rem, dtype=torch.int32, device=dev),
-                k, sampling, stop_ids, ctx, gen)
+            state, toks, halted = profiled(
+                "decode", self._decode_chunk, state, token, halted,
+                torch.tensor(rem, dtype=torch.int32, device=dev), k, sampling, stop_ids, ctx,
+                gen)
             token = toks[-1]
             if metrics is not None:
                 metrics.num_forward_passes += k

@@ -5,8 +5,8 @@ shapes and dtypes, so model directories written for the JAX package load
 unchanged. The parameters are a nested dict of torch tensors and
 `QuantizedTensor` leaves on one device, shaped like the JAX package's
 pytree; everything static lives in the config objects. Recurrent (SSM)
-mixers, per-layer embeddings, HybridSpec linears and shared MoE experts
-wait for later slices of the port and raise `NotImplementedError`.
+mixers, per-layer embeddings and HybridSpec linears wait for later slices
+of the port and raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -188,12 +188,12 @@ def _load_expert_stack(experts: ParameterTree, role: str, e: int, n: int, kdim: 
 
 def load_moe(tree: ParameterTree, cfg: MixtureOfExpertsConfig, model_dim: int,
              device=None) -> dict:
-    """Router, expert stacks and expert biases, named as in the JAX
-    package's `load_moe`. The down stack keeps its d output rows: the JAX
-    loader pads them to a multiple of 128 (a TPU lane rule) and slices the
-    results back; here no path needs the padding."""
-    if cfg.num_shared_experts:
-        raise NotImplementedError("shared MoE experts are not ported yet")
+    """Router, expert stacks, expert biases and shared experts, named as in
+    the JAX package's `load_moe`. The down stack keeps its d output rows:
+    the JAX loader pads them to a multiple of 128 (a TPU lane rule) and
+    slices the results back; here no path needs the padding. Shared experts
+    must be full-precision linears: the JAX package multiplies them as dense
+    arrays, so it serves no quantized one either."""
     e, dff = cfg.num_routed_experts, cfg.expert_hidden_dim
     out = {"router": load_linear(tree.subtree("router"), model_dim, e,
                                  cfg.router_has_biases, device)}
@@ -208,6 +208,17 @@ def load_moe(tree: ParameterTree, cfg: MixtureOfExpertsConfig, model_dim: int,
     if cfg.expert_config.has_down_biases:
         out["down"]["b"] = to_torch(experts.leaf("down_projection.biases", (e, model_dim), dt),
                                     device)
+    if cfg.num_shared_experts:
+        shared = tree.subtree("shared_experts")
+        width = dff * cfg.num_shared_experts
+        out["shared"] = {
+            "up": load_linear(shared.subtree("up_projection"), model_dim, 2 * width, False,
+                              device),
+            "down": load_linear(shared.subtree("down_projection"), width, model_dim, False,
+                                device),
+        }
+        if not all(isinstance(lin["w"], torch.Tensor) for lin in out["shared"].values()):
+            raise ParameterError("shared experts must be full-precision linears")
     return out
 
 

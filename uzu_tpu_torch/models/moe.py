@@ -4,7 +4,9 @@ Semantics: router logits = x @ Wrᵀ + br; top-k with ties to the lower
 expert id; softmax over the k selected logits (SoftmaxRouting, else the
 raw logits) as combine weights; expert e computes
 down_e(act(clip(gate)) * clip(up)) with [up | gate] = up_e(x) + bias; the
-block returns sum_k prob_k * expert_k(x).
+block returns sum_k prob_k * expert_k(x), plus, where the model has
+shared experts (DeepSeek-style), their dense output for every row, in
+plain f32 ops as the JAX package computes it outside any kernel.
 
 Which path a forward of S rows takes follows the JAX package's Pallas
 mode, decided on S and on the stack's type alone (the port's kernels take
@@ -56,7 +58,7 @@ def router_topk(cfg: MixtureOfExpertsConfig, params: dict, x: torch.Tensor):
 def _expert_hidden(cfg: MixtureOfExpertsConfig, up_out: torch.Tensor) -> torch.Tensor:
     """up_out [..., 2*dff] (biases added) -> f32 hidden [..., dff]."""
     ecfg = cfg.expert_config
-    dff = cfg.expert_hidden_dim
+    dff = up_out.shape[-1] // 2
     return gated_act_mul(ecfg.activation, up_out[..., dff:].float(), up_out[..., :dff].float(),
                          ecfg.gate_clipping, ecfg.up_clipping)
 
@@ -127,22 +129,29 @@ def _masked_forward(cfg, params, xf, ids, probs):
     return torch.einsum("sed,se->sd", out, weight)
 
 
-def moe_forward(cfg: MixtureOfExpertsConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
-    """x [S, D] -> [S, D] in x's dtype."""
+def _routed_forward(cfg, params, x, ids, probs):
+    """The routed experts' combine, f32 [S, D], on the branch of the table
+    in the module docstring."""
     s = x.shape[0]
-    ids, probs = router_topk(cfg, params, x)
-    xf = x.float()
     w13 = params["up"]["w"]
     if isinstance(w13, StackedQuantized) and s > GATHER_PATH_MAX_TOKENS:
         if w13.bits == 4 and params["down"]["w"].bits == 4:
-            return _grouped_forward(cfg, params, x, ids, probs).to(x.dtype)
+            return _grouped_forward(cfg, params, x, ids, probs)
         # INT8: the chunk runs over dense bf16 stacks, made once per call
         params = {**params, "up": {**params["up"], "w": dequantize_stacked(w13)},
                   "down": {**params["down"], "w": dequantize_stacked(params["down"]["w"])}}
     if s >= GROUPED_PATH_MIN_TOKENS:
-        y = _grouped_forward(cfg, params, x, ids, probs)
-    elif s <= GATHER_PATH_MAX_TOKENS:
-        y = _gather_forward(cfg, params, xf, ids, probs)
-    else:
-        y = _masked_forward(cfg, params, xf, ids, probs)
+        return _grouped_forward(cfg, params, x, ids, probs)
+    if s <= GATHER_PATH_MAX_TOKENS:
+        return _gather_forward(cfg, params, x.float(), ids, probs)
+    return _masked_forward(cfg, params, x.float(), ids, probs)
+
+
+def moe_forward(cfg: MixtureOfExpertsConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """x [S, D] -> [S, D] in x's dtype."""
+    ids, probs = router_topk(cfg, params, x)
+    y = _routed_forward(cfg, params, x, ids, probs)
+    if "shared" in params:
+        fused = x.float() @ params["shared"]["up"]["w"].float().t()
+        y = y + _expert_hidden(cfg, fused) @ params["shared"]["down"]["w"].float().t()
     return y.to(x.dtype)

@@ -25,7 +25,7 @@ from ...runtime import kernel_build_dir
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 SOURCES = ("quant_matmul", "flash_attention", "paged_attention", "moe_gemv",
-           "grouped_matmul")
+           "grouped_matmul", "block_copy")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -40,6 +40,7 @@ LAUNCHES: dict[str, int] = {
     "moe_gemv_int8": 0,
     "grouped_matmul_int4": 0,
     "grouped_matmul": 0,
+    "scale_block_copy": 0,
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

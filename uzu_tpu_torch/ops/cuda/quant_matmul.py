@@ -3,7 +3,9 @@
 Wrapper and plain PyTorch version of `csrc/quant_matmul.cu`, which
 replaces `uzu_tpu/ops/pallas/quant_matmul.py::_int4_kernel` (K1) and
 `::_int8_kernel` (K2). A CPU tensor takes `quant_matmul_plain`; a CUDA
-tensor launches the kernel or raises.
+tensor launches the kernel or raises. Scale (and stored qbias) rows may
+be wider than the weight's ceil(K/g) groups, zero-padded past them, as
+the JAX kernel takes them; only the first ceil(K/g) are read.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from .build import LAUNCHES, check, library
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P, _I, _P, _P, _P, _I, ctypes.c_float, _P, _I, _I, _I, _I, _I, _I, _P]
+_ARGTYPES = [_P, _I, _P, _P, _P, _I, ctypes.c_float, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 
 
 def quant_matmul_plain(w: QuantizedTensor, x2: torch.Tensor) -> torch.Tensor:
@@ -63,9 +65,10 @@ def quant_matmul(w: QuantizedTensor, x2: torch.Tensor) -> torch.Tensor:
     if w.scales.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"quant_matmul kernel takes bf16 or f32 scales, not {w.scales.dtype}")
     kg = -(-k // g)
-    if tuple(w.scales.shape) != (n, kg) or (
-            w.qbias is not None and tuple(w.qbias.shape) != (n, kg)):
-        raise ValueError(f"scales/qbias must be [{n}, {kg}] for codes {tuple(w.codes.shape)}")
+    if w.scales.dim() != 2 or w.scales.shape[0] != n or w.scales.shape[1] < kg or (
+            w.qbias is not None and w.qbias.shape != w.scales.shape):
+        raise ValueError(f"scales/qbias must be [{n}, >= {kg}] and of one shape for codes "
+                         f"{tuple(w.codes.shape)}")
     if w.qbias is not None and w.qbias.dtype != w.scales.dtype:
         raise ValueError("qbias and scales must share a dtype")
     if w.codes.dtype != torch.uint8:
@@ -84,7 +87,7 @@ def quant_matmul(w: QuantizedTensor, x2: torch.Tensor) -> torch.Tensor:
             x2.data_ptr(), int(x2.dtype == torch.bfloat16), w.codes.data_ptr(),
             w.scales.data_ptr(), None if w.qbias is None else w.qbias.data_ptr(),
             int(w.scales.dtype == torch.bfloat16),
-            float(w.qbias_coeff or 0.0), out.data_ptr(), m, n, k, g, w.bits,
+            float(w.qbias_coeff or 0.0), out.data_ptr(), m, n, k, g, w.scales.shape[1], w.bits,
             int(row_bytes % 16 == 0), torch.cuda.current_stream().cuda_stream)
     check(rc, "quant_matmul")
     LAUNCHES["quant_matmul_int4" if w.bits == 4 else "quant_matmul_int8"] += 1
