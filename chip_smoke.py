@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`uzu_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --flash-only   # K3/K4's rows of phase 2 alone
 
 Phases, each of which ends the run with a non-zero exit if it fails:
 
@@ -13,7 +14,11 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    accumulation), with its time, the plain version's time, one PyTorch
    library call as a yardstick, and the bound (bytes over the HBM rate or
    FLOPs over the bf16 peak): K1/K2 quant matmul, K3/K4 flash attention
-   (bf16 / INT8 cache), K5/K6 paged decode attention (bf16 / INT8 pools),
+   (bf16 / INT8 cache; at the end of the cache, the main path's first
+   chunk, the split-KV shapes S=16/64 over 4096 slots, Dh 128, f32 q; each
+   row with its split count and the kernel's ptxas registers and spills,
+   and the kernel and yardstick timed again as device time alone),
+   K5/K6 paged decode attention (bf16 / INT8 pools),
    K3/K5 again at gpt-oss's heads (8 per KV group, window 128, sinks),
    K7/K8 expert-gather GEMV, K9/K10 grouped expert matmul, and P1, the
    bisect probe's zero-padded scale-block copy (bitwise equal).
@@ -138,6 +143,8 @@ BISECT_LIMITS = {"prod_kg16": 1e-4, "prod_pad128": 1e-4, "prod_pad64": 1e-4,
 # kernel names (csrc/) that a profiler trace must hold, per phase
 TRACE_KERNELS = {"prefill": {"K1": ("qmm_gemv", "qmm_mma"), "K3": ("flash_fwd",)},
                  "decode": {"K1": ("qmm_gemv",)}}
+# kernel names whose launches and summed device ms each trace reports
+TRACED_PORT_KERNELS = ("qmm_gemv", "qmm_mma", "flash_fwd", "flash_combine")
 
 
 def log(msg: str) -> None:
@@ -145,19 +152,27 @@ def log(msg: str) -> None:
 
 
 class Timer:
-    """Median device time of `fn` over REPS launches, each after an L2
-    flush (the weights of a decode step do not stay in the 50 MB L2)."""
+    """Median time of `fn` between two events over REPS launches, each
+    after an L2 flush (the weights of a decode step do not stay in the 50 MB
+    L2). Where the host takes longer to enqueue `fn` than the card takes to
+    flush, the card waits between the events and that wait is counted. With
+    `spin`, the card also spins SPIN_CYCLES after the flush, so the host has
+    enqueued `fn` before the start event fires: device time alone."""
+
+    SPIN_CYCLES = 200_000  # ~0.1 ms at the H100's clock
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
-    def ms(self, fn, reps: int = REPS) -> float:
+    def ms(self, fn, reps: int = REPS, spin: bool = False) -> float:
         torch = self.torch
         fn()
         events = []
         for _ in range(reps):
             self.flush.zero_()
+            if spin:
+                torch.cuda._sleep(self.SPIN_CYCLES)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -229,129 +244,164 @@ def check_quant_matmul(torch, timer, rows) -> None:
                 del wd
 
 
-def check_flash_attention(torch, timer, rows) -> None:
+FLASH_VARIANTS = ("plain", "window", "softcap", "sinks")
+
+
+def flash_kwargs(variant: str, sinks) -> dict:
+    return {"plain": {}, "window": {"sliding_window_size": 512},
+            "softcap": {"logit_soft_cap": 30.0}, "sinks": {"sinks": sinks}}[variant]
+
+
+def flash_usage(log: str) -> dict:
+    """ptxas's registers and spills of each flash_fwd / flash_combine
+    instantiation ("bf16/int8/64", "combine/64", ...) from the build log,
+    names demangled with c++filt."""
+    import re
+
+    from uzu_tpu_torch.ops.cuda.build import ptxas_usage
+
+    usage = ptxas_usage(log)
+    names = list(usage)
+    try:
+        plain = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                               text=True, check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        plain = names
+    short = {"__nv_bfloat16": "bf16", "float": "f32", "signed char": "int8"}
+    out = {}
+    for name, dem in zip(names, plain):
+        m = re.search(r"flash_fwd<([^,]+), ([^,]+), (\d+)>", dem)
+        c = re.search(r"flash_combine<(\d+)>", dem)
+        if m:
+            out["/".join((short.get(m[1], m[1]), short.get(m[2], m[2]), m[3]))] = usage[name]
+        elif c:
+            out["combine/" + c[1]] = usage[name]
+    return out
+
+
+def flash_row(torch, timer, rows, usage, q, kc, vc, pos0: int, variant: str, kw: dict,
+              library: bool = True) -> None:
+    """One K3/K4 case (K4 where kw holds scales): the kernel against its
+    plain version (err/RMS <= TOL), its time, the plain version's, masked
+    SDPA over the same cache (dequantized, in q's type) as the yardstick
+    where `library` and no sinks or soft cap, the bound, the split plan and
+    the instantiation's registers and spills. The kernel and the yardstick
+    are timed as every row is (`ms`, `library_ms`) and again with the
+    timer's spin (`device_ms`, `library_device_ms`)."""
     import torch.nn.functional as F
 
-    from uzu_tpu_torch.ops.cuda.flash_attention import flash_attention, flash_attention_plain
+    from uzu_tpu_torch.models.kv_cache import dequantize_rows
+    from uzu_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+        split_plan,
+    )
 
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    h, g, dh = 32, 8, 64
+    s, h, dh = q.shape
+    c, g, _ = kc.shape
     rep = h // g
+    quant = "k_scales" in kw
+    kernel = "flash_attention_int8" if quant else "flash_attention"
+    qname = "bf16" if q.dtype == torch.bfloat16 else "f32"
     scale = dh ** -0.5
+    qpos = torch.arange(s, device="cuda", dtype=torch.int32) + pos0
+    got = flash_attention(q, kc, vc, qpos, scale=scale, **kw)
+    want = flash_attention_plain(q, kc, vc, qpos, scale=scale, **kw)
+    torch.cuda.synchronize()
+    abs_err, err = rel_err(got, want)
+    if not (err <= TOL):
+        raise AssertionError(f"{kernel} S={s} H={h} Dh={dh} C={c} pos0={pos0} q {qname} "
+                             f"{variant}: error {err:.3e} of RMS > {TOL}")
+    # visible keys per query row: what this run's data needs
+    window = kw.get("sliding_window_size")
+    qp = pos0 + torch.arange(s)
+    lo = (qp - window + 1).clamp(min=0) if window else torch.zeros_like(qp)
+    visible = int((qp + 1 - lo).sum())
+    kv_rows = int(qp[-1] + 1 - lo[0])
+    # int8 codes + one f32 scale per (slot, group), for K and V
+    row_bytes = g * (dh + 4) if quant else g * dh * kc.element_size()
+    nbytes = q.numel() * q.element_size() + 2 * kv_rows * row_bytes + s * h * dh * 4
+    b_ms, b_by = bound(nbytes, 4.0 * visible * h * dh)
+    lib_ms = lib_dev_ms = None
+    if library and "sinks" not in kw and "logit_soft_cap" not in kw:
+        kpos = torch.arange(c, device="cuda")
+        qpd = qpos.long()[:, None]
+        mask = kpos[None, :] <= qpd
+        if window:
+            mask &= kpos[None, :] > qpd - window
+        kt, vt = ((dequantize_rows(kc, kw["k_scales"]), dequantize_rows(vc, kw["v_scales"]))
+                  if quant else (kc, vc))
+        qt = q.transpose(0, 1)[None]
+        kt = kt.to(q.dtype).transpose(0, 1)[None].repeat_interleave(rep, dim=1)
+        vt = vt.to(q.dtype).transpose(0, 1)[None].repeat_interleave(rep, dim=1)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=mask, scale=scale)
+        lib_ms, lib_dev_ms = timer.ms(lib), timer.ms(lib, spin=True)
+        del kt, vt, lib
+    splits, _ = split_plan(s, h, g, c, torch.cuda.get_device_properties(0).multi_processor_count)
+    kv_name = "int8" if quant else qname
+    run = lambda: flash_attention(q, kc, vc, qpos, scale=scale, **kw)  # noqa: E731
+    row = dict(kernel=kernel, S=s, H=h, G=g, Dh=dh, C=c, pos0=pos0, q=qname, variant=variant,
+               splits=splits, ptxas=usage.get(f"{qname}/{kv_name}/{dh}"),
+               max_abs_err=abs_err, err_over_rms=err, tol=TOL,
+               ms=timer.ms(run), device_ms=timer.ms(run, spin=True),
+               plain_ms=timer.ms(lambda: flash_attention_plain(
+                   q, kc, vc, qpos, scale=scale, **kw), 3),
+               library_ms=lib_ms, library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by)
+    rows.append(row)
+    log("KERNEL " + json.dumps(row))
+
+
+def check_flash_attention(torch, timer, rows, usage) -> None:
+    """K3 at the flagship's heads (32 over 8 groups): S 16 and 256 over C
+    1024 and 4096 at the end of the cache in every variant; the main path's
+    first chunk (S=256 at pos0=0 over its 1024-slot context bucket); S=64
+    at C=4096 (split route); Dh=128; f32 q, k and v."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    h, g = 32, 8
+    sinks = torch.randn((h,), device="cuda", generator=gen)
+
+    def case(s, c, pos0, variants, dh=64, dtype=torch.bfloat16):
+        q, kc, vc = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
+                     for shape in ((s, h, dh), (c, g, dh), (c, g, dh)))
+        for variant in variants:
+            flash_row(torch, timer, rows, usage, q, kc, vc, pos0, variant,
+                      flash_kwargs(variant, sinks))
+
     for s in (16, 256):
         for c in (1024, 4096):
-            pos0 = c - s - 3
-            q = torch.randn((s, h, dh), device="cuda", generator=gen).to(torch.bfloat16)
-            kc = torch.randn((c, g, dh), device="cuda", generator=gen).to(torch.bfloat16)
-            vc = torch.randn((c, g, dh), device="cuda", generator=gen).to(torch.bfloat16)
-            qpos = torch.arange(s, device="cuda", dtype=torch.int32) + pos0
-            sinks = torch.randn((h,), device="cuda", generator=gen)
-            for variant in ("plain", "window", "softcap", "sinks"):
-                kw = {}
-                if variant == "window":
-                    kw["sliding_window_size"] = 512
-                elif variant == "softcap":
-                    kw["logit_soft_cap"] = 30.0
-                elif variant == "sinks":
-                    kw["sinks"] = sinks
-                got = flash_attention(q, kc, vc, qpos, scale=scale, **kw)
-                want = flash_attention_plain(q, kc, vc, qpos, scale=scale, **kw)
-                torch.cuda.synchronize()
-                abs_err, err = rel_err(got, want)
-                if not (err <= TOL):
-                    raise AssertionError(f"flash_attention S={s} C={c} {variant}: "
-                                         f"error {err:.3e} of RMS > {TOL}")
-                # visible keys per query row: what this run's data needs
-                qp = pos0 + torch.arange(s)
-                lo = (qp - kw["sliding_window_size"] + 1).clamp(min=0) if variant == "window" \
-                    else torch.zeros_like(qp)
-                visible = int((qp + 1 - lo).sum())
-                kv_rows = int(qp[-1] + 1 - lo[0])
-                nbytes = q.numel() * 2 + 2 * kv_rows * g * dh * 2 + s * h * dh * 4
-                b_ms, b_by = bound(nbytes, 4.0 * visible * h * dh)
-                lib_ms = None
-                if variant in ("plain", "window"):
-                    kpos = torch.arange(c, device="cuda")
-                    qpd = qpos.long()[:, None]
-                    mask = kpos[None, :] <= qpd
-                    if variant == "window":
-                        mask &= kpos[None, :] > qpd - kw["sliding_window_size"]
-                    qt = q.transpose(0, 1)[None]
-                    kt = kc.transpose(0, 1)[None].repeat_interleave(rep, dim=1)
-                    vt = vc.transpose(0, 1)[None].repeat_interleave(rep, dim=1)
-                    lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, attn_mask=mask, scale=scale))
-                row = dict(kernel="flash_attention", S=s, H=h, G=g, Dh=dh, C=c, pos0=pos0,
-                           variant=variant, max_abs_err=abs_err, err_over_rms=err, tol=TOL,
-                           ms=timer.ms(lambda: flash_attention(q, kc, vc, qpos, scale=scale, **kw)),
-                           plain_ms=timer.ms(lambda: flash_attention_plain(
-                               q, kc, vc, qpos, scale=scale, **kw), 3),
-                           library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
-                rows.append(row)
-                log("KERNEL " + json.dumps(row))
+            case(s, c, c - s - 3, FLASH_VARIANTS)
+    case(256, 1024, 0, ("plain",))
+    case(64, 4096, 4096 - 67, ("plain", "window"))
+    case(256, 1024, 765, ("plain", "sinks"), dh=128)
+    case(16, 4096, 4096 - 19, ("plain", "sinks"), dh=128)
+    case(256, 1024, 765, ("plain", "softcap"), dtype=torch.float32)
 
 
-def check_flash_attention_int8(torch, timer, rows) -> None:
-    """K4 against its plain version at the flagship's prefill shapes."""
-    import torch.nn.functional as F
-
-    from uzu_tpu_torch.models.kv_cache import dequantize_rows, quantize_rows
-    from uzu_tpu_torch.ops.cuda.flash_attention import flash_attention, flash_attention_plain
+def check_flash_attention_int8(torch, timer, rows, usage) -> None:
+    """K4 at the flagship's prefill shapes: S=256 over C 1024 and 4096 in
+    every variant, the main path's first chunk, S=16 at C=4096 (split
+    route), Dh=128, and f32 q."""
+    from uzu_tpu_torch.models.kv_cache import quantize_rows
 
     gen = torch.Generator(device="cuda").manual_seed(4)
-    h, g, dh, s = 32, 8, 64, 256
-    rep = h // g
-    scale = dh ** -0.5
-    for c in (1024, 4096):
-        pos0 = c - s - 3
-        q = torch.randn((s, h, dh), device="cuda", generator=gen).to(torch.bfloat16)
+    h, g = 32, 8
+    sinks = torch.randn((h,), device="cuda", generator=gen)
+
+    def case(s, c, pos0, variants, dh=64, dtype=torch.bfloat16):
+        q = torch.randn((s, h, dh), device="cuda", generator=gen).to(dtype)
         kq, ks = quantize_rows(torch.randn((c, g, dh), device="cuda", generator=gen))
         vq, vs = quantize_rows(torch.randn((c, g, dh), device="cuda", generator=gen))
-        qpos = torch.arange(s, device="cuda", dtype=torch.int32) + pos0
-        sinks = torch.randn((h,), device="cuda", generator=gen)
-        for variant in ("plain", "window", "softcap", "sinks"):
-            kw = dict(k_scales=ks, v_scales=vs)
-            if variant == "window":
-                kw["sliding_window_size"] = 512
-            elif variant == "softcap":
-                kw["logit_soft_cap"] = 30.0
-            elif variant == "sinks":
-                kw["sinks"] = sinks
-            got = flash_attention(q, kq, vq, qpos, scale=scale, **kw)
-            want = flash_attention_plain(q, kq, vq, qpos, scale=scale, **kw)
-            torch.cuda.synchronize()
-            abs_err, err = rel_err(got, want)
-            if not (err <= TOL):
-                raise AssertionError(f"flash_attention_int8 S={s} C={c} {variant}: "
-                                     f"error {err:.3e} of RMS > {TOL}")
-            qp = pos0 + torch.arange(s)
-            lo = (qp - 511).clamp(min=0) if variant == "window" else torch.zeros_like(qp)
-            visible = int((qp + 1 - lo).sum())
-            kv_rows = int(qp[-1] + 1 - lo[0])
-            # int8 codes + one f32 scale per (slot, group), for K and V
-            nbytes = q.numel() * 2 + 2 * kv_rows * g * (dh + 4) + s * h * dh * 4
-            b_ms, b_by = bound(nbytes, 4.0 * visible * h * dh)
-            lib_ms = None
-            if variant in ("plain", "window"):
-                kpos = torch.arange(c, device="cuda")
-                mask = kpos[None, :] <= qpos.long()[:, None]
-                if variant == "window":
-                    mask &= kpos[None, :] > qpos.long()[:, None] - 512
-                qt = q.transpose(0, 1)[None]
-                kt = dequantize_rows(kq, ks).to(torch.bfloat16).transpose(0, 1)[None]
-                vt = dequantize_rows(vq, vs).to(torch.bfloat16).transpose(0, 1)[None]
-                kt = kt.repeat_interleave(rep, dim=1)
-                vt = vt.repeat_interleave(rep, dim=1)
-                lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask, scale=scale))
-            row = dict(kernel="flash_attention_int8", S=s, H=h, G=g, Dh=dh, C=c, pos0=pos0,
-                       variant=variant, max_abs_err=abs_err, err_over_rms=err, tol=TOL,
-                       ms=timer.ms(lambda: flash_attention(q, kq, vq, qpos, scale=scale, **kw)),
-                       plain_ms=timer.ms(lambda: flash_attention_plain(
-                           q, kq, vq, qpos, scale=scale, **kw), 3),
-                       library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
-            rows.append(row)
-            log("KERNEL " + json.dumps(row))
+        for variant in variants:
+            flash_row(torch, timer, rows, usage, q, kq, vq, pos0, variant,
+                      dict(flash_kwargs(variant, sinks), k_scales=ks, v_scales=vs))
+
+    for c in (1024, 4096):
+        case(256, c, c - 256 - 3, FLASH_VARIANTS)
+    case(256, 1024, 0, ("plain",))
+    case(16, 4096, 4096 - 19, ("plain", "sinks"))
+    case(256, 1024, 765, ("plain",), dh=128)
+    case(256, 1024, 765, ("plain",), dtype=torch.float32)
 
 
 def check_paged_attention(torch, timer, rows) -> None:
@@ -572,11 +622,11 @@ def check_grouped_matmul(torch, timer, rows) -> None:
         del dense
 
 
-def check_attention_gptoss(torch, timer, rows) -> None:
-    """K3 and K5 at gpt-oss's heads: 64 query heads over 8 KV groups (8 per
-    group), Dh 64, its sliding window of 128 with sinks, and sinks alone
-    (the full-attention layers)."""
-    from uzu_tpu_torch.ops.cuda.flash_attention import flash_attention, flash_attention_plain
+def check_attention_gptoss(torch, timer, rows, usage, paged: bool = True) -> None:
+    """K3 and (where `paged`) K5 at gpt-oss's heads: 64 query heads over 8
+    KV groups (8 per group), Dh 64, its sliding window of 128 with sinks,
+    and sinks alone (the full-attention layers); K3 also at S=16 over
+    C=4096 (split route), with a yardstick in its plain variant."""
     from uzu_tpu_torch.ops.cuda.paged_attention import (
         paged_attention_plain,
         paged_decode_attention,
@@ -587,35 +637,17 @@ def check_attention_gptoss(torch, timer, rows) -> None:
     win = GPTOSS["sliding_window"]
     scale = dh ** -0.5
     sinks = torch.randn((h,), device="cuda", generator=gen)
-    for s, c in ((16, 1024), (256, 1024)):
-        pos0 = c - s - 3
-        q = torch.randn((s, h, dh), device="cuda", generator=gen).to(torch.bfloat16)
-        kc = torch.randn((c, g, dh), device="cuda", generator=gen).to(torch.bfloat16)
-        vc = torch.randn((c, g, dh), device="cuda", generator=gen).to(torch.bfloat16)
-        qpos = torch.arange(s, device="cuda", dtype=torch.int32) + pos0
-        for variant, kw in (("gptoss_window_sinks", dict(sliding_window_size=win, sinks=sinks)),
-                            ("gptoss_sinks", dict(sinks=sinks))):
-            got = flash_attention(q, kc, vc, qpos, scale=scale, **kw)
-            want = flash_attention_plain(q, kc, vc, qpos, scale=scale, **kw)
-            torch.cuda.synchronize()
-            abs_err, err = rel_err(got, want)
-            if not (err <= TOL):
-                raise AssertionError(f"flash_attention S={s} C={c} {variant}: "
-                                     f"error {err:.3e} of RMS > {TOL}")
-            qp = pos0 + torch.arange(s)
-            lo = (qp - win + 1).clamp(min=0) if "window" in variant else torch.zeros_like(qp)
-            visible = int((qp + 1 - lo).sum())
-            kv_rows = int(qp[-1] + 1 - lo[0])
-            nbytes = q.numel() * 2 + 2 * kv_rows * g * dh * 2 + s * h * dh * 4
-            b_ms, b_by = bound(nbytes, 4.0 * visible * h * dh)
-            row = dict(kernel="flash_attention", S=s, H=h, G=g, Dh=dh, C=c, pos0=pos0,
-                       variant=variant, max_abs_err=abs_err, err_over_rms=err, tol=TOL,
-                       ms=timer.ms(lambda: flash_attention(q, kc, vc, qpos, scale=scale, **kw)),
-                       plain_ms=timer.ms(lambda: flash_attention_plain(
-                           q, kc, vc, qpos, scale=scale, **kw), 3),
-                       library_ms=None, bound_ms=b_ms, bound_by=b_by)
-            rows.append(row)
-            log("KERNEL " + json.dumps(row))
+    for s, c, variants in ((16, 1024, ("gptoss_window_sinks", "gptoss_sinks")),
+                           (256, 1024, ("gptoss_window_sinks", "gptoss_sinks")),
+                           (16, 4096, ("gptoss_sinks", "plain"))):
+        q, kc, vc = (torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+                     for shape in ((s, h, dh), (c, g, dh), (c, g, dh)))
+        for variant in variants:
+            kw = {"gptoss_window_sinks": dict(sliding_window_size=win, sinks=sinks),
+                  "gptoss_sinks": dict(sinks=sinks), "plain": {}}[variant]
+            flash_row(torch, timer, rows, usage, q, kc, vc, c - s - 3, variant, kw)
+    if not paged:
+        return
     b, page = 8, 512
     maxp = 4096 // page
     p_total = b * maxp + 1
@@ -1537,7 +1569,10 @@ def tools_profile(torch, lm16, info: dict) -> None:
             kernel_launches=sum(c for c, _ in kernels.values()),
             kernel_ms=sum(t for _, t in kernels.values()), device_busy_ms=busy_ms,
             window_ms=window_ms, device_busy_share=busy_ms / window_ms,
-            top_device_ops=[dict(name=name[:100], launches=c, ms=t) for name, (c, t) in top])
+            top_device_ops=[dict(name=name[:100], launches=c, ms=t) for name, (c, t) in top],
+            port_kernels={n: [sum(c for k, (c, _) in kernels.items() if n in k),
+                              sum(t for k, (_, t) in kernels.items() if n in k)]
+                          for n in TRACED_PORT_KERNELS})
     info["tools_profile"] = out
     log("TOOLS_PROFILE " + json.dumps(out))
 
@@ -1642,10 +1677,12 @@ def kernel_record(rows, info) -> list[dict]:
                               dict(weight="up|gate", M=1, variant="symmetric"), "int8_path"),
         "flash_attention": ("uzu_tpu_torch/csrc/flash_attention.cu",
                             "uzu_tpu/ops/pallas/flash_attention.py:111",
-                            dict(S=256, C=1024, variant="plain"), "int4_path"),
+                            dict(S=256, C=1024, pos0=765, Dh=64, q="bf16", variant="plain"),
+                            "int4_path"),
         "flash_attention_int8": ("uzu_tpu_torch/csrc/flash_attention.cu",
                                  "uzu_tpu/ops/pallas/flash_attention.py:132",
-                                 dict(S=256, C=1024, variant="plain"), "paged_int8"),
+                                 dict(S=256, C=1024, pos0=765, Dh=64, q="bf16",
+                                      variant="plain"), "paged_int8"),
         "paged_attention": ("uzu_tpu_torch/csrc/paged_attention.cu",
                             "uzu_tpu/ops/pallas/paged_attention.py:76",
                             dict(page=512, lengths="uniform1024", variant="plain"), "paged_int4"),
@@ -1680,7 +1717,8 @@ def kernel_record(rows, info) -> list[dict]:
             ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
             bound_by=rep["bound_by"], library_ms=rep["library_ms"],
             shape={k: rep[k] for k in rep if k in ("weight", "N", "K", "M", "S", "H", "G",
-                                                    "Dh", "C", "pos0", "variant", "B", "page",
+                                                    "Dh", "C", "pos0", "q", "splits", "variant",
+                                                    "B", "page",
                                                     "lengths", "live_tokens", "E", "P", "T",
                                                     "Tp", "used_tiles", "distinct_experts",
                                                     "R", "kg", "width")}))
@@ -1714,6 +1752,19 @@ def main() -> int:
                   "cuda": torch.version.cuda, "phase_seconds": {}}
     log(f"CARD {smi}")
 
+    if "--flash-only" in sys.argv[1:]:
+        # K3/K4's rows of phase 2 alone; run it in two checkouts in turns
+        # (A, B, B, A) to compare two versions of the kernel on one card
+        log(f"BUILD flash_attention built in {kbuild.build(('flash_attention',)):.1f} s")
+        usage = flash_usage(kbuild.BUILD_LOGS.get("flash_attention", ""))
+        log("FLASH_PTXAS " + json.dumps(usage))
+        timer, rows = Timer(torch), []
+        check_flash_attention(torch, timer, rows, usage)
+        check_flash_attention_int8(torch, timer, rows, usage)
+        check_attention_gptoss(torch, timer, rows, usage, paged=False)
+        log(f"FLASH_ONLY {len(rows)} rows")
+        return 0
+
     # phase 1: build the kernels while the models are synthesized
     built: dict = {}
 
@@ -1740,10 +1791,13 @@ def main() -> int:
     timer = Timer(torch)
     rows: list = []
     check_quant_matmul(torch, timer, rows)
-    check_flash_attention(torch, timer, rows)
-    check_flash_attention_int8(torch, timer, rows)
+    usage = flash_usage(kbuild.BUILD_LOGS.get("flash_attention", ""))
+    info["flash_ptxas"] = usage
+    log("FLASH_PTXAS " + json.dumps(usage))
+    check_flash_attention(torch, timer, rows, usage)
+    check_flash_attention_int8(torch, timer, rows, usage)
     check_paged_attention(torch, timer, rows)
-    check_attention_gptoss(torch, timer, rows)
+    check_attention_gptoss(torch, timer, rows, usage)
     check_moe_gemv(torch, timer, rows)
     check_grouped_matmul(torch, timer, rows)
     check_block_copy(torch, timer, rows)

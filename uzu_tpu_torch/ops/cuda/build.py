@@ -8,7 +8,9 @@ reused. Nothing here runs at import: the package
 imports, and its CPU path runs, on a machine without `nvcc`.
 
 `LAUNCHES` counts, per kernel, the launches its wrapper made; a wrapper
-adds one where it launches its kernel and nowhere else.
+adds one where it launches its kernel and nowhere else. `BUILD_LOGS` keeps
+what nvcc printed for each library built in this process (ptxas's
+registers, shared memory and spills per kernel, from `-Xptxas -v`).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
 SOURCES = ("quant_matmul", "flash_attention", "paged_attention", "moe_gemv",
            "grouped_matmul", "block_copy")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: dict[str, int] = {
     "quant_matmul_int4": 0,
@@ -44,6 +46,7 @@ LAUNCHES: dict[str, int] = {
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+BUILD_LOGS: dict[str, str] = {}
 
 
 def reset_launches() -> None:
@@ -84,6 +87,7 @@ def build(names=SOURCES) -> float:
         errors = []
         for name, lib, tmp, proc in procs:
             log = proc.communicate()[0].decode(errors="replace")
+            BUILD_LOGS[name] = log
             if proc.returncode != 0:
                 errors.append(f"nvcc failed for {name}.cu:\n{log}")
             else:
@@ -101,6 +105,27 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(_library_path(name))
         _LIBS[name] = lib
     return lib
+
+
+def ptxas_usage(log: str) -> dict[str, dict]:
+    """{mangled kernel name: {"registers", "spill_stores", "spill_loads",
+    "stack"}} from ptxas's `-v` lines in an nvcc log."""
+    out: dict[str, dict] = {}
+    name = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            name = line.split("'")[1] if "'" in line else line.split()[-1]
+            out.setdefault(name, {})
+        elif name is not None:
+            words = line.replace(",", " ").split()
+            for i, w in enumerate(words[1:], 1):
+                if w == "registers":
+                    out[name]["registers"] = int(words[i - 1])
+                elif w == "stack" and words[i - 1] == "bytes":
+                    out[name]["stack"] = int(words[i - 2])
+                elif w == "spill" and i + 1 < len(words):
+                    out[name]["spill_" + words[i + 1]] = int(words[i - 2])
+    return out
 
 
 def check(rc: int, what: str) -> None:
