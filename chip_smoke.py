@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --flash-only   # K3/K4's rows of phase 2 alone
+    python3 chip_smoke.py --paged-only   # K5/K6's rows of phase 2 alone
 
 Phases, each of which ends the run with a non-zero exit if it fails:
 
@@ -13,12 +14,16 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    the shapes its path gives it (bf16 inputs or INT8 codes, f32
    accumulation), with its time, the plain version's time, one PyTorch
    library call as a yardstick, and the bound (bytes over the HBM rate or
-   FLOPs over the bf16 peak): K1/K2 quant matmul, K3/K4 flash attention
-   (bf16 / INT8 cache; at the end of the cache, the main path's first
-   chunk, the split-KV shapes S=16/64 over 4096 slots, Dh 128, f32 q; each
-   row with its split count and the kernel's ptxas registers and spills,
-   and the kernel and yardstick timed again as device time alone),
-   K5/K6 paged decode attention (bf16 / INT8 pools),
+   FLOPs over the bf16 peak); the kernel and the yardstick are timed twice,
+   as the time between two events (`ms`) and as device time alone
+   (`device_ms`, the timer's spin): K1/K2 quant matmul, K3/K4 flash
+   attention (bf16 / INT8 cache; at the end of the cache, the main path's
+   first chunk, the split-KV shapes S=16/64 over 4096 slots, Dh 128, f32 q;
+   each row with its split count and the kernel's ptxas registers and
+   spills), K5/K6 paged decode attention (bf16 / INT8 pools of 16-512-token
+   pages, uniform and ragged lengths up to 4096, window, soft cap, sinks,
+   Dh 128, f32 q and pools; each row with its split count, ptxas registers
+   and spills, dynamic shared memory and ring stages),
    K3/K5 again at gpt-oss's heads (8 per KV group, window 128, sinks),
    K7/K8 expert-gather GEMV, K9/K10 grouped expert matmul, and P1, the
    bisect probe's zero-padded scale-block copy (bitwise equal).
@@ -182,6 +187,10 @@ class Timer:
         torch.cuda.synchronize()
         return statistics.median(a.elapsed_time(b) for a, b in events)
 
+    def both(self, fn) -> tuple[float, float]:
+        """(ms, device ms) of `fn`: without and with the spin."""
+        return self.ms(fn), self.ms(fn, spin=True)
+
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     tb, tf = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
@@ -233,11 +242,13 @@ def check_quant_matmul(torch, timer, rows) -> None:
                               + (qbias.numel() * 2 if w.qbias is not None else 0)
                               + m * n * 4)
                     b_ms, b_by = bound(nbytes, 2.0 * m * n * k)
+                    ms, dev_ms = timer.both(lambda: quant_matmul(w, x))
+                    lib_ms, lib_dev_ms = timer.both(lambda: torch.matmul(x, wd.t()))
                     row = dict(kernel=f"quant_matmul_int{bits}", weight=wname, N=n, K=k,
                                M=m, variant=variant, max_abs_err=abs_err, err_over_rms=err,
-                               tol=TOL, ms=timer.ms(lambda: quant_matmul(w, x)),
+                               tol=TOL, ms=ms, device_ms=dev_ms,
                                plain_ms=timer.ms(lambda: quant_matmul_plain(w, x), 3),
-                               library_ms=timer.ms(lambda: torch.matmul(x, wd.t())),
+                               library_ms=lib_ms, library_device_ms=lib_dev_ms,
                                bound_ms=b_ms, bound_by=b_by)
                     rows.append(row)
                     log("KERNEL " + json.dumps(row))
@@ -252,10 +263,10 @@ def flash_kwargs(variant: str, sinks) -> dict:
             "softcap": {"logit_soft_cap": 30.0}, "sinks": {"sinks": sinks}}[variant]
 
 
-def flash_usage(log: str) -> dict:
-    """ptxas's registers and spills of each flash_fwd / flash_combine
-    instantiation ("bf16/int8/64", "combine/64", ...) from the build log,
-    names demangled with c++filt."""
+def kernel_usage(log: str, kernel: str) -> dict:
+    """ptxas's registers and spills of each `kernel<TQ, TKV, DH>` (flash_fwd,
+    paged_decode) and flash_combine instantiation ("bf16/int8/64",
+    "combine/64", ...) from a build log, names demangled with c++filt."""
     import re
 
     from uzu_tpu_torch.ops.cuda.build import ptxas_usage
@@ -270,7 +281,7 @@ def flash_usage(log: str) -> dict:
     short = {"__nv_bfloat16": "bf16", "float": "f32", "signed char": "int8"}
     out = {}
     for name, dem in zip(names, plain):
-        m = re.search(r"flash_fwd<([^,]+), ([^,]+), (\d+)>", dem)
+        m = re.search(kernel + r"<([^,]+), ([^,]+), (\d+)>", dem)
         c = re.search(r"flash_combine<(\d+)>", dem)
         if m:
             out["/".join((short.get(m[1], m[1]), short.get(m[2], m[2]), m[3]))] = usage[name]
@@ -336,15 +347,16 @@ def flash_row(torch, timer, rows, usage, q, kc, vc, pos0: int, variant: str, kw:
         vt = vt.to(q.dtype).transpose(0, 1)[None].repeat_interleave(rep, dim=1)
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, attn_mask=mask, scale=scale)
-        lib_ms, lib_dev_ms = timer.ms(lib), timer.ms(lib, spin=True)
+        lib_ms, lib_dev_ms = timer.both(lib)
         del kt, vt, lib
     splits, _ = split_plan(s, h, g, c, torch.cuda.get_device_properties(0).multi_processor_count)
     kv_name = "int8" if quant else qname
     run = lambda: flash_attention(q, kc, vc, qpos, scale=scale, **kw)  # noqa: E731
+    ms, dev_ms = timer.both(run)
     row = dict(kernel=kernel, S=s, H=h, G=g, Dh=dh, C=c, pos0=pos0, q=qname, variant=variant,
                splits=splits, ptxas=usage.get(f"{qname}/{kv_name}/{dh}"),
                max_abs_err=abs_err, err_over_rms=err, tol=TOL,
-               ms=timer.ms(run), device_ms=timer.ms(run, spin=True),
+               ms=ms, device_ms=dev_ms,
                plain_ms=timer.ms(lambda: flash_attention_plain(
                    q, kc, vc, qpos, scale=scale, **kw), 3),
                library_ms=lib_ms, library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by)
@@ -404,95 +416,134 @@ def check_flash_attention_int8(torch, timer, rows, usage) -> None:
     case(256, 1024, 765, ("plain",), dtype=torch.float32)
 
 
-def check_paged_attention(torch, timer, rows) -> None:
-    """K5 (bf16 pools) and K6 (INT8 pools) against their plain version:
-    8 slots of the flagship's heads, pages of 16 to 512 tokens, 8 x 1024
-    live tokens (the timed main shape) and ragged lengths up to 4096 with
-    a repeated physical page list (a shared prefix)."""
+def paged_row(torch, timer, rows, usage, q, k, v, table, lengths, lens_name: str,
+              variant: str, kw: dict, library: bool = False) -> None:
+    """One K5/K6 case (K6 where kw holds scales): the kernel against its
+    plain version (err/RMS <= TOL), its time, the plain version's, SDPA
+    over the pre-gathered (for K6 also pre-dequantized) cache as the
+    yardstick where `library` (uniform lengths, no window, soft cap or
+    sinks; the gather not timed), the bound, the split plan and the
+    instantiation's registers, spills, dynamic shared memory and ring
+    stages. The kernel and the yardstick are timed as every row is (`ms`,
+    `library_ms`) and again with the timer's spin (`device_ms`,
+    `library_device_ms`)."""
     import torch.nn.functional as F
 
-    from uzu_tpu_torch.models.kv_cache import dequantize_rows, quantize_rows
+    from uzu_tpu_torch.models.kv_cache import dequantize_rows
     from uzu_tpu_torch.ops.cuda.paged_attention import (
+        kernel_layout,
         paged_attention_plain,
         paged_decode_attention,
+        paged_split_plan,
     )
 
+    b, h, dh = q.shape
+    g, _, page, _ = k.shape
+    maxp = table.shape[1]
+    quant = "k_scales" in kw
+    kernel = "paged_attention_int8" if quant else "paged_attention"
+    qname = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    kw = dict(kw, scale=dh ** -0.5)
+    run = lambda: paged_decode_attention(q, k, v, table, lengths, **kw)  # noqa: E731
+    got = run()
+    want = paged_attention_plain(q, k, v, table, lengths, **kw)
+    torch.cuda.synchronize()
+    abs_err, err = rel_err(got, want)
+    if not (err <= TOL):
+        raise AssertionError(f"{kernel} page={page} H={h} q {qname} {lens_name} {variant}: "
+                             f"error {err:.3e} of RMS > {TOL}")
+    lens = lengths.tolist()
+    window = kw.get("sliding_window_size")
+    live = sum(max(0, min(n, maxp * page) - (max(0, n - window) if window else 0))
+               for n in lens)
+    # each live token's K and V rows once (int8: codes + one f32 scale per
+    # (token, group)), q, the output, the table and lengths
+    per_tok = g * (dh + 4) * 2 if quant else g * dh * k.element_size() * 2
+    nbytes = (q.numel() * q.element_size() + live * per_tok + b * h * dh * 4
+              + table.numel() * 4 + b * 4)
+    b_ms, b_by = bound(nbytes, 4.0 * live * h * dh)
+    lib_ms = lib_dev_ms = None
+    if library:
+        n = lens[0]
+
+        def gathered(pool, sc):
+            t = pool[:, table.long()].transpose(0, 1).reshape(b, g, -1, dh)
+            if sc is not None:
+                s_ = sc[:, table.long()].transpose(0, 1).reshape(b, g, -1)
+                t = dequantize_rows(t, s_).to(q.dtype)
+            return t[:, :, :n].contiguous()
+
+        kt = gathered(k, kw.get("k_scales"))
+        vt = gathered(v, kw.get("v_scales"))
+        qt = q[:, :, None, :]
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, scale=kw["scale"], enable_gqa=True)
+        lib_ms, lib_dev_ms = timer.both(lib)
+        del kt, vt, lib
+    splits, per = paged_split_plan(b, g, maxp * page,
+                                   torch.cuda.get_device_properties(0).multi_processor_count)
+    kv_name = "int8" if quant else qname
+    smem, stages = kernel_layout(q.dtype, quant, dh)
+    ms, dev_ms = timer.both(run)
+    row = dict(kernel=kernel, B=b, H=h, G=g, Dh=dh, page=page, q=qname, lengths=lens_name,
+               variant=variant, live_tokens=live, splits=splits, tiles_per_split=per,
+               ptxas=usage.get(f"{qname}/{kv_name}/{dh}"), smem_bytes=smem,
+               ring_stages=stages, max_abs_err=abs_err, err_over_rms=err, tol=TOL,
+               ms=ms, device_ms=dev_ms,
+               plain_ms=timer.ms(lambda: paged_attention_plain(
+                   q, k, v, table, lengths, **kw), 3),
+               library_ms=lib_ms, library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by)
+    rows.append(row)
+    log("KERNEL " + json.dumps(row))
+
+
+PAGED_VARIANTS = ("plain", "window", "softcap", "sinks")
+
+
+def check_paged_attention(torch, timer, rows, usage) -> None:
+    """K5 (bf16 pools) and K6 (INT8 pools) against their plain version:
+    8 slots of the flagship's heads, pages of 16 to 512 tokens, 8 x 1024
+    live tokens (the timed main shape, with the yardstick) and ragged
+    lengths up to 4096 with a repeated physical page list (a shared
+    prefix), in every variant; K5 with f32 q and pools; Dh 128."""
+    from uzu_tpu_torch.models.kv_cache import quantize_rows
+
     gen = torch.Generator(device="cuda").manual_seed(5)
-    b, h, g, dh = 8, 32, 8, 64
-    scale = dh ** -0.5
+    b, h, g = 8, 32, 8
     sinks = torch.randn((h,), device="cuda", generator=gen)
-    for page in (16, 64, 256, 512):
+
+    def case(page, variants, dh=64, dtype=torch.bfloat16, quants=(False, True)):
         maxp = 4096 // page
         p_total = b * maxp + 1
-        k = torch.randn((g, p_total, page, dh), device="cuda", generator=gen).to(torch.bfloat16)
-        v = torch.randn((g, p_total, page, dh), device="cuda", generator=gen).to(torch.bfloat16)
+        k = torch.randn((g, p_total, page, dh), device="cuda", generator=gen).to(dtype)
+        v = torch.randn((g, p_total, page, dh), device="cuda", generator=gen).to(dtype)
         kq, ks = quantize_rows(k)
         vq, vs = quantize_rows(v)
         table = torch.randperm(p_total - 1, device="cuda", generator=gen)[: b * maxp]
         table = table.reshape(b, maxp).to(torch.int32)
         table[3] = table[0]
-        q = torch.randn((b, h, dh), device="cuda", generator=gen).to(torch.bfloat16)
+        q = torch.randn((b, h, dh), device="cuda", generator=gen).to(dtype)
         lens_cases = {"uniform1024": [1024] * b,
                       "ragged": [1, page, 777, 1024, 4096, 2 * page + 1, 3000, 4095]}
         for lens_name, lens in lens_cases.items():
             lengths = torch.tensor(lens, device="cuda", dtype=torch.int32)
-            variants = ("plain",) if lens_name == "uniform1024" else (
-                "plain", "window", "softcap", "sinks")
-            for variant in variants:
-                for quant in (False, True):
-                    kw = dict(scale=scale)
-                    if variant == "window":
-                        kw["sliding_window_size"] = 512
-                    elif variant == "softcap":
-                        kw["logit_soft_cap"] = 30.0
-                    elif variant == "sinks":
-                        kw["sinks"] = sinks
+            uniform = lens_name == "uniform1024"
+            for variant in (("plain",) if uniform else variants):
+                for quant in quants:
+                    kw = {"plain": {}, "window": {"sliding_window_size": 512},
+                          "softcap": {"logit_soft_cap": 30.0},
+                          "sinks": {"sinks": sinks}}[variant]
                     if quant:
-                        kw.update(k_scales=ks, v_scales=vs)
-                    kk, vv = (kq, vq) if quant else (k, v)
-                    got = paged_decode_attention(q, kk, vv, table, lengths, **kw)
-                    want = paged_attention_plain(q, kk, vv, table, lengths, **kw)
-                    torch.cuda.synchronize()
-                    abs_err, err = rel_err(got, want)
-                    name = "paged_attention_int8" if quant else "paged_attention"
-                    if not (err <= TOL):
-                        raise AssertionError(f"{name} page={page} {lens_name} {variant}: "
-                                             f"error {err:.3e} of RMS > {TOL}")
-                    window = kw.get("sliding_window_size")
-                    live = sum(min(n, maxp * page) - (max(0, n - window) if window else 0)
-                               for n in lens)
-                    # each live token's K and V rows once (int8: codes + one
-                    # f32 scale per (token, group)), q, the output, tables
-                    per_tok = g * (dh + 4) * 2 if quant else g * dh * 2 * 2
-                    nbytes = (q.numel() * 2 + live * per_tok + b * h * dh * 4
-                              + table.numel() * 4 + b * 4)
-                    b_ms, b_by = bound(nbytes, 4.0 * live * h * dh)
-                    lib_ms = None
-                    if lens_name == "uniform1024":
-                        # yardstick: SDPA over the pre-gathered (for K6 also
-                        # pre-dequantized) cache, the gather not timed
-                        def gathered(pool, sc):
-                            t = pool[:, table.long()].transpose(0, 1).reshape(b, g, -1, dh)
-                            if sc is not None:
-                                s_ = sc[:, table.long()].transpose(0, 1).reshape(b, g, -1)
-                                t = dequantize_rows(t, s_).to(torch.bfloat16)
-                            return t[:, :, :1024].contiguous()
-                        kt = gathered(kk, ks if quant else None)
-                        vt = gathered(vv, vs if quant else None)
-                        qt = q[:, :, None, :]
-                        lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(
-                            qt, kt, vt, scale=scale, enable_gqa=True))
-                    row = dict(kernel=name, B=b, H=h, G=g, Dh=dh, page=page, lengths=lens_name,
-                               variant=variant, live_tokens=live, max_abs_err=abs_err,
-                               err_over_rms=err, tol=TOL,
-                               ms=timer.ms(lambda: paged_decode_attention(
-                                   q, kk, vv, table, lengths, **kw)),
-                               plain_ms=timer.ms(lambda: paged_attention_plain(
-                                   q, kk, vv, table, lengths, **kw), 3),
-                               library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
-                    rows.append(row)
-                    log("KERNEL " + json.dumps(row))
+                        kw = dict(kw, k_scales=ks, v_scales=vs)
+                    paged_row(torch, timer, rows, usage, q, kq if quant else k,
+                              vq if quant else v, table, lengths, lens_name, variant, kw,
+                              library=uniform)
         del k, v, kq, vq, ks, vs
+
+    for page in (16, 64, 256, 512):
+        case(page, PAGED_VARIANTS)
+    case(512, ("plain", "sinks"), dh=128)
+    case(512, ("plain", "softcap"), dtype=torch.float32, quants=(False,))
 
 
 def _routing(torch, gen, tokens: int, experts: int, active: int):
@@ -544,11 +595,13 @@ def check_moe_gemv(torch, timer, rows) -> None:
                 # bf16 planes (the gather not timed)
                 wg = dequantize_stacked(gather_experts(sq, ids), torch.bfloat16)
                 xb = x.to(torch.bfloat16)[:, None, :]
+                ms, dev_ms = timer.both(lambda: moe_expert_gemv(sq, x, ids))
+                lib_ms, lib_dev_ms = timer.both(lambda: torch.bmm(xb, wg.transpose(1, 2)))
                 row = dict(kernel=name, weight=wname, N=n, K=k, E=e, P=p,
                            distinct_experts=distinct, max_abs_err=abs_err, err_over_rms=err,
-                           tol=TOL, ms=timer.ms(lambda: moe_expert_gemv(sq, x, ids)),
+                           tol=TOL, ms=ms, device_ms=dev_ms,
                            plain_ms=timer.ms(lambda: moe_expert_gemv_plain(sq, x, ids), 3),
-                           library_ms=timer.ms(lambda: torch.bmm(xb, wg.transpose(1, 2))),
+                           library_ms=lib_ms, library_device_ms=lib_dev_ms,
                            bound_ms=b_ms, bound_by=b_by)
                 rows.append(row)
                 log("KERNEL " + json.dumps(row))
@@ -611,31 +664,27 @@ def check_grouped_matmul(torch, timer, rows) -> None:
             wt = (dequantize_stacked(gather_experts(sq, tiles), torch.bfloat16) if quant
                   else dense[tiles.long()])
             xt = x_pad[: n_used * 64].to(torch.bfloat16).reshape(n_used, 64, k)
+            ms, dev_ms = timer.both(run)
+            lib_ms, lib_dev_ms = timer.both(lambda: torch.bmm(xt, wt.transpose(1, 2)))
             row = dict(kernel=name, weight=wname, N=n, K=k, E=e, T=t, Tp=x_pad.shape[0],
                        used_tiles=n_used, distinct_experts=distinct, max_abs_err=abs_err,
-                       err_over_rms=err, tol=TOL, ms=timer.ms(run), plain_ms=timer.ms(plain, 3),
-                       library_ms=timer.ms(lambda: torch.bmm(xt, wt.transpose(1, 2))),
-                       bound_ms=b_ms, bound_by=b_by)
+                       err_over_rms=err, tol=TOL, ms=ms, device_ms=dev_ms,
+                       plain_ms=timer.ms(plain, 3), library_ms=lib_ms,
+                       library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by)
             rows.append(row)
             log("KERNEL " + json.dumps(row))
             del wt, xt
         del dense
 
 
-def check_attention_gptoss(torch, timer, rows, usage, paged: bool = True) -> None:
-    """K3 and (where `paged`) K5 at gpt-oss's heads: 64 query heads over 8
-    KV groups (8 per group), Dh 64, its sliding window of 128 with sinks,
-    and sinks alone (the full-attention layers); K3 also at S=16 over
-    C=4096 (split route), with a yardstick in its plain variant."""
-    from uzu_tpu_torch.ops.cuda.paged_attention import (
-        paged_attention_plain,
-        paged_decode_attention,
-    )
-
+def check_attention_gptoss(torch, timer, rows, usage) -> None:
+    """K3 at gpt-oss's heads: 64 query heads over 8 KV groups (8 per group),
+    Dh 64, its sliding window of 128 with sinks, and sinks alone (the
+    full-attention layers); also at S=16 over C=4096 (split route), with a
+    yardstick in its plain variant."""
     gen = torch.Generator(device="cuda").manual_seed(9)
     h, g, dh = GPTOSS["num_heads"], GPTOSS["num_groups"], GPTOSS["head_dim"]
     win = GPTOSS["sliding_window"]
-    scale = dh ** -0.5
     sinks = torch.randn((h,), device="cuda", generator=gen)
     for s, c, variants in ((16, 1024, ("gptoss_window_sinks", "gptoss_sinks")),
                            (256, 1024, ("gptoss_window_sinks", "gptoss_sinks")),
@@ -646,8 +695,16 @@ def check_attention_gptoss(torch, timer, rows, usage, paged: bool = True) -> Non
             kw = {"gptoss_window_sinks": dict(sliding_window_size=win, sinks=sinks),
                   "gptoss_sinks": dict(sinks=sinks), "plain": {}}[variant]
             flash_row(torch, timer, rows, usage, q, kc, vc, c - s - 3, variant, kw)
-    if not paged:
-        return
+
+
+def check_paged_gptoss(torch, timer, rows, usage) -> None:
+    """K5 at gpt-oss's heads (8 per KV group, Dh 64, bf16 pools of 512-token
+    pages): its window of 128 with sinks, and sinks alone, over 8 x 1024
+    live tokens and ragged lengths."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    h, g, dh = GPTOSS["num_heads"], GPTOSS["num_groups"], GPTOSS["head_dim"]
+    win = GPTOSS["sliding_window"]
+    sinks = torch.randn((h,), device="cuda", generator=gen)
     b, page = 8, 512
     maxp = 4096 // page
     p_total = b * maxp + 1
@@ -661,28 +718,8 @@ def check_attention_gptoss(torch, timer, rows, usage, paged: bool = True) -> Non
         lengths = torch.tensor(lens, device="cuda", dtype=torch.int32)
         for variant, kw in (("gptoss_window_sinks", dict(sliding_window_size=win, sinks=sinks)),
                             ("gptoss_sinks", dict(sinks=sinks))):
-            got = paged_decode_attention(q, k, v, table, lengths, scale=scale, **kw)
-            want = paged_attention_plain(q, k, v, table, lengths, scale=scale, **kw)
-            torch.cuda.synchronize()
-            abs_err, err = rel_err(got, want)
-            if not (err <= TOL):
-                raise AssertionError(f"paged_attention {lens_name} {variant}: "
-                                     f"error {err:.3e} of RMS > {TOL}")
-            window = kw.get("sliding_window_size")
-            live = sum(n - (max(0, n - window) if window else 0) for n in lens)
-            nbytes = (q.numel() * 2 + live * g * dh * 2 * 2 + b * h * dh * 4
-                      + table.numel() * 4 + b * 4)
-            b_ms, b_by = bound(nbytes, 4.0 * live * h * dh)
-            row = dict(kernel="paged_attention", B=b, H=h, G=g, Dh=dh, page=page,
-                       lengths=lens_name, variant=variant, live_tokens=live,
-                       max_abs_err=abs_err, err_over_rms=err, tol=TOL,
-                       ms=timer.ms(lambda: paged_decode_attention(
-                           q, k, v, table, lengths, scale=scale, **kw)),
-                       plain_ms=timer.ms(lambda: paged_attention_plain(
-                           q, k, v, table, lengths, scale=scale, **kw), 3),
-                       library_ms=None, bound_ms=b_ms, bound_by=b_by)
-            rows.append(row)
-            log("KERNEL " + json.dumps(row))
+            paged_row(torch, timer, rows, usage, q, k, v, table, lengths, lens_name, variant,
+                      kw)
 
 
 def check_block_copy(torch, timer, rows) -> None:
@@ -702,11 +739,12 @@ def check_block_copy(torch, timer, rows) -> None:
         raise AssertionError("scale_block_copy differs from its plain version")
     abs_err, err = rel_err(got, want)
     b_ms, b_by = bound((r * kg + r * width) * 4, 0.0)
+    ms, dev_ms = timer.both(lambda: scale_block_copy(s, width))
+    lib_ms, lib_dev_ms = timer.both(lambda: F.pad(s, (0, width - kg)))
     row = dict(kernel="scale_block_copy", R=r, kg=kg, width=width, max_abs_err=abs_err,
-               err_over_rms=err, tol=0.0, ms=timer.ms(lambda: scale_block_copy(s, width)),
+               err_over_rms=err, tol=0.0, ms=ms, device_ms=dev_ms,
                plain_ms=timer.ms(lambda: scale_block_copy_plain(s, width), 3),
-               library_ms=timer.ms(lambda: F.pad(s, (0, width - kg))),
-               bound_ms=b_ms, bound_by=b_by)
+               library_ms=lib_ms, library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by)
     rows.append(row)
     log("KERNEL " + json.dumps(row))
 
@@ -1685,11 +1723,12 @@ def kernel_record(rows, info) -> list[dict]:
                                       variant="plain"), "paged_int8"),
         "paged_attention": ("uzu_tpu_torch/csrc/paged_attention.cu",
                             "uzu_tpu/ops/pallas/paged_attention.py:76",
-                            dict(page=512, lengths="uniform1024", variant="plain"), "paged_int4"),
+                            dict(page=512, H=32, Dh=64, q="bf16", lengths="uniform1024",
+                                 variant="plain"), "paged_int4"),
         "paged_attention_int8": ("uzu_tpu_torch/csrc/paged_attention.cu",
                                  "uzu_tpu/ops/pallas/paged_attention.py:115",
-                                 dict(page=512, lengths="uniform1024", variant="plain"),
-                                 "paged_int8"),
+                                 dict(page=512, Dh=64, q="bf16", lengths="uniform1024",
+                                      variant="plain"), "paged_int8"),
         "moe_gemv_int4": ("uzu_tpu_torch/csrc/moe_gemv.cu",
                           "uzu_tpu/ops/pallas/moe_gemv.py:68",
                           dict(weight="up", P=4), "gptoss_int4"),
@@ -1714,8 +1753,9 @@ def kernel_record(rows, info) -> list[dict]:
             launches=info[path]["launches"][name],
             max_abs_err=max(r["max_abs_err"] for r in mine),
             err_over_rms=max(r["err_over_rms"] for r in mine), tol=rep["tol"],
-            ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
-            bound_by=rep["bound_by"], library_ms=rep["library_ms"],
+            ms=rep["ms"], device_ms=rep["device_ms"], plain_ms=rep["plain_ms"],
+            bound_ms=rep["bound_ms"], bound_by=rep["bound_by"], library_ms=rep["library_ms"],
+            library_device_ms=rep["library_device_ms"],
             shape={k: rep[k] for k in rep if k in ("weight", "N", "K", "M", "S", "H", "G",
                                                     "Dh", "C", "pos0", "q", "splits", "variant",
                                                     "B", "page",
@@ -1752,17 +1792,26 @@ def main() -> int:
                   "cuda": torch.version.cuda, "phase_seconds": {}}
     log(f"CARD {smi}")
 
-    if "--flash-only" in sys.argv[1:]:
-        # K3/K4's rows of phase 2 alone; run it in two checkouts in turns
-        # (A, B, B, A) to compare two versions of the kernel on one card
-        log(f"BUILD flash_attention built in {kbuild.build(('flash_attention',)):.1f} s")
-        usage = flash_usage(kbuild.BUILD_LOGS.get("flash_attention", ""))
-        log("FLASH_PTXAS " + json.dumps(usage))
+    only = {"--flash-only": "flash_attention", "--paged-only": "paged_attention"}
+    for flag, source in only.items():
+        if flag not in sys.argv[1:]:
+            continue
+        # one kernel's rows of phase 2 alone; run it in two checkouts in
+        # turns (A, B, B, A) to compare two versions of the kernel on one card
+        log(f"BUILD {source} built in {kbuild.build((source,)):.1f} s")
         timer, rows = Timer(torch), []
-        check_flash_attention(torch, timer, rows, usage)
-        check_flash_attention_int8(torch, timer, rows, usage)
-        check_attention_gptoss(torch, timer, rows, usage, paged=False)
-        log(f"FLASH_ONLY {len(rows)} rows")
+        if source == "flash_attention":
+            usage = kernel_usage(kbuild.BUILD_LOGS.get(source, ""), "flash_fwd")
+            log("FLASH_PTXAS " + json.dumps(usage))
+            check_flash_attention(torch, timer, rows, usage)
+            check_flash_attention_int8(torch, timer, rows, usage)
+            check_attention_gptoss(torch, timer, rows, usage)
+        else:
+            usage = kernel_usage(kbuild.BUILD_LOGS.get(source, ""), "paged_decode")
+            log("PAGED_PTXAS " + json.dumps(usage))
+            check_paged_attention(torch, timer, rows, usage)
+            check_paged_gptoss(torch, timer, rows, usage)
+        log(f"{flag[2:].replace('-', '_').upper()} {len(rows)} rows")
         return 0
 
     # phase 1: build the kernels while the models are synthesized
@@ -1791,13 +1840,17 @@ def main() -> int:
     timer = Timer(torch)
     rows: list = []
     check_quant_matmul(torch, timer, rows)
-    usage = flash_usage(kbuild.BUILD_LOGS.get("flash_attention", ""))
+    usage = kernel_usage(kbuild.BUILD_LOGS.get("flash_attention", ""), "flash_fwd")
     info["flash_ptxas"] = usage
     log("FLASH_PTXAS " + json.dumps(usage))
     check_flash_attention(torch, timer, rows, usage)
     check_flash_attention_int8(torch, timer, rows, usage)
-    check_paged_attention(torch, timer, rows)
     check_attention_gptoss(torch, timer, rows, usage)
+    paged_usage = kernel_usage(kbuild.BUILD_LOGS.get("paged_attention", ""), "paged_decode")
+    info["paged_ptxas"] = paged_usage
+    log("PAGED_PTXAS " + json.dumps(paged_usage))
+    check_paged_attention(torch, timer, rows, paged_usage)
+    check_paged_gptoss(torch, timer, rows, paged_usage)
     check_moe_gemv(torch, timer, rows)
     check_grouped_matmul(torch, timer, rows)
     check_block_copy(torch, timer, rows)

@@ -49,9 +49,10 @@
 //   the tiles [0, C) into `splits` equal ranges of whole tiles (a plan from
 //   S, H, G, C and the SM count only, never from q_positions). Each block
 //   (grid.z = range) intersects its range with its own visible keys and
-//   writes unnormalized (m, l, acc) to f32 scratch; flash_combine merges the
-//   ranges in a fixed order (no atomics: greedy output repeats), folds the
-//   sinks once and normalizes. With one range the main kernel finishes the
+//   writes unnormalized (m, l, acc) to f32 scratch; flash_combine
+//   (split_combine.cuh, shared with K5/K6) merges the ranges in a fixed
+//   order (no atomics: greedy output repeats), folds the sinks once and
+//   normalizes. With one range the main kernel finishes the
 //   rows itself and nothing else launches.
 //
 // Rounding: bf16 q, k and v enter the products as they are, and p is
@@ -86,6 +87,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "split_combine.cuh"
 
 namespace {
 
@@ -684,44 +687,6 @@ flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __rest
   }
 }
 
-// Merge the split ranges of each (s, h) row in a fixed order, fold the
-// sinks once, normalize. One warp per row.
-template <int DH>
-__global__ void __launch_bounds__(256)
-flash_combine(const float* __restrict__ part, const float* __restrict__ sinks,
-              float* __restrict__ out, int S, int H, int splits) {
-  constexpr int PER = DH / 32;
-  const size_t SH = static_cast<size_t>(S) * H;
-  const size_t row = static_cast<size_t>(blockIdx.x) * 8 + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= SH) return;
-  const float* pm = part + static_cast<size_t>(splits) * SH * DH;
-  const float* pl = pm + static_cast<size_t>(splits) * SH;
-  float M = NEG;
-  for (int i = 0; i < splits; ++i) M = fmaxf(M, pm[i * SH + row]);
-  float Lsum = 0.f;
-  float acc[PER];
-#pragma unroll
-  for (int d = 0; d < PER; ++d) acc[d] = 0.f;
-  for (int i = 0; i < splits; ++i) {
-    const float w = expf(pm[i * SH + row] - M);
-    Lsum += pl[i * SH + row] * w;
-    const float* a = part + (i * SH + row) * DH;
-#pragma unroll
-    for (int d = 0; d < PER; ++d) acc[d] += w * a[lane + 32 * d];
-  }
-  float mul = 1.f;
-  if (sinks != nullptr) {
-    const float sk = sinks[row % H];
-    const float m2 = fmaxf(M, sk);
-    mul = expf(M - m2);
-    Lsum = Lsum * mul + expf(sk - m2);
-  }
-  mul /= fmaxf(Lsum, 1e-30f);
-#pragma unroll
-  for (int d = 0; d < PER; ++d) out[row * DH + lane + 32 * d] = acc[d] * mul;
-}
-
 template <typename TQ, typename TKV, int DH>
 int launch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
            const int* qpos, const float* sinks, float* out, float* part, int S, int H, int G,
@@ -750,7 +715,8 @@ int launch(const void* q, const void* k, const void* v, const float* ks, const f
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
     const int rows = S * H;
-    flash_combine<DH><<<(rows + 7) / 8, 256, 0, stream>>>(part, sinks, out, S, H, splits);
+    uz_split::flash_combine<DH><<<(rows + 7) / 8, 256, 0, stream>>>(part, sinks, out, S, H,
+                                                                   splits);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -146,7 +146,8 @@ def flash_combine_plain(m, l, acc, sinks=None) -> torch.Tensor:
     return out / total.clamp_min(1e-30)[..., None]
 
 
-def _num_sms(device: torch.device) -> int:
+def num_sms(device: torch.device) -> int:
+    """The SM count of a CUDA device, read once per device."""
     idx = device.index if device.index is not None else torch.cuda.current_device()
     if idx not in _SMS:
         _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
@@ -206,7 +207,7 @@ def flash_attention(q, k_cache, v_cache, q_positions, *, scale,
     if sinks is not None:
         sk = sinks.to(device=q.device, dtype=torch.float32).contiguous()
     out = torch.empty((s, h, dh), dtype=torch.float32, device=q.device)
-    splits, per = split_plan(s, h, g, c, _num_sms(q.device))
+    splits, per = split_plan(s, h, g, c, num_sms(q.device))
     scratch = None
     if splits > 1:
         scratch = torch.empty(splits * s * h * (dh + 2), dtype=torch.float32, device=q.device)
