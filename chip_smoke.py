@@ -22,8 +22,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    each row with its split count and the kernel's ptxas registers and
    spills), K5/K6 paged decode attention (bf16 / INT8 pools of 16-512-token
    pages, uniform and ragged lengths up to 4096, window, soft cap, sinks,
-   Dh 128, f32 q and pools; each row with its split count, ptxas registers
-   and spills, dynamic shared memory and ring stages),
+   the paged engine's 1536-token table, Dh 128, f32 q and pools; each row
+   with its split count and ptxas registers and spills),
    K3/K5 again at gpt-oss's heads (8 per KV group, window 128, sinks),
    K7/K8 expert-gather GEMV, K9/K10 grouped expert matmul, and P1, the
    bisect probe's zero-padded scale-block copy (bitwise equal).
@@ -417,21 +417,26 @@ def check_flash_attention_int8(torch, timer, rows, usage) -> None:
 
 
 def paged_row(torch, timer, rows, usage, q, k, v, table, lengths, lens_name: str,
-              variant: str, kw: dict, library: bool = False) -> None:
+              variant: str, kw: dict, splits: int | None = None) -> None:
     """One K5/K6 case (K6 where kw holds scales): the kernel against its
-    plain version (err/RMS <= TOL), its time, the plain version's, SDPA
-    over the pre-gathered (for K6 also pre-dequantized) cache as the
-    yardstick where `library` (uniform lengths, no window, soft cap or
-    sinks; the gather not timed), the bound, the split plan and the
-    instantiation's registers, spills, dynamic shared memory and ring
-    stages. The kernel and the yardstick are timed as every row is (`ms`,
-    `library_ms`) and again with the timer's spin (`device_ms`,
-    `library_device_ms`)."""
+    plain version (err/RMS <= TOL), its time, the plain version's, the
+    bound, the split plan and the instantiation's registers and spills.
+    With `splits`, the kernel takes that many splits in place of the plan's
+    (1: one launch, no combine).
+    The yardstick, where there are no sinks or soft cap: SDPA over the
+    pre-gathered (for K6 also pre-dequantized) cache, the gather not timed;
+    cut to the live tokens where every slot holds the same number and no
+    window, else over the table's width with a boolean mask of each slot's
+    [max(0, length - window), length). The kernel and the yardstick are
+    timed as every row is (`ms`, `library_ms`) and again with the timer's
+    spin (`device_ms`, `library_device_ms`)."""
+    from unittest import mock
+
     import torch.nn.functional as F
 
     from uzu_tpu_torch.models.kv_cache import dequantize_rows
+    from uzu_tpu_torch.ops.cuda import paged_attention as pa
     from uzu_tpu_torch.ops.cuda.paged_attention import (
-        kernel_layout,
         paged_attention_plain,
         paged_decode_attention,
         paged_split_plan,
@@ -444,7 +449,21 @@ def paged_row(torch, timer, rows, usage, q, k, v, table, lengths, lens_name: str
     kernel = "paged_attention_int8" if quant else "paged_attention"
     qname = "bf16" if q.dtype == torch.bfloat16 else "f32"
     kw = dict(kw, scale=dh ** -0.5)
-    run = lambda: paged_decode_attention(q, k, v, table, lengths, **kw)  # noqa: E731
+    plan = paged_split_plan(b, g, maxp * page,
+                            torch.cuda.get_device_properties(0).multi_processor_count)
+
+    def run():
+        return paged_decode_attention(q, k, v, table, lengths, **kw)
+
+    if splits is not None:
+        tiles = -(-maxp * page // pa.TILE)
+        plan = (splits, -(-tiles // splits))
+        forced = run
+
+        def run():
+            with mock.patch.object(pa, "paged_split_plan", lambda *_: plan):
+                return forced()
+
     got = run()
     want = paged_attention_plain(q, k, v, table, lengths, **kw)
     torch.cuda.synchronize()
@@ -463,8 +482,9 @@ def paged_row(torch, timer, rows, usage, q, k, v, table, lengths, lens_name: str
               + table.numel() * 4 + b * 4)
     b_ms, b_by = bound(nbytes, 4.0 * live * h * dh)
     lib_ms = lib_dev_ms = None
-    if library:
-        n = lens[0]
+    if "sinks" not in kw and "logit_soft_cap" not in kw:
+        uniform = len(set(lens)) == 1 and not window
+        n = lens[0] if uniform else maxp * page
 
         def gathered(pool, sc):
             t = pool[:, table.long()].transpose(0, 1).reshape(b, g, -1, dh)
@@ -476,19 +496,25 @@ def paged_row(torch, timer, rows, usage, q, k, v, table, lengths, lens_name: str
         kt = gathered(k, kw.get("k_scales"))
         vt = gathered(v, kw.get("v_scales"))
         qt = q[:, :, None, :]
+        mask = None
+        if not uniform:
+            pos = torch.arange(n, device="cuda")[None, :]
+            length = lengths.long()[:, None]
+            keep = pos < length
+            if window:
+                keep &= pos >= length - window
+            mask = keep[:, None, None, :]
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, scale=kw["scale"], enable_gqa=True)
+            qt, kt, vt, attn_mask=mask, scale=kw["scale"], enable_gqa=True)
         lib_ms, lib_dev_ms = timer.both(lib)
-        del kt, vt, lib
-    splits, per = paged_split_plan(b, g, maxp * page,
-                                   torch.cuda.get_device_properties(0).multi_processor_count)
+        del kt, vt, mask, lib
+    splits, per = plan
     kv_name = "int8" if quant else qname
-    smem, stages = kernel_layout(q.dtype, quant, dh)
     ms, dev_ms = timer.both(run)
-    row = dict(kernel=kernel, B=b, H=h, G=g, Dh=dh, page=page, q=qname, lengths=lens_name,
-               variant=variant, live_tokens=live, splits=splits, tiles_per_split=per,
-               ptxas=usage.get(f"{qname}/{kv_name}/{dh}"), smem_bytes=smem,
-               ring_stages=stages, max_abs_err=abs_err, err_over_rms=err, tol=TOL,
+    row = dict(kernel=kernel, B=b, H=h, G=g, Dh=dh, page=page, width=maxp * page, q=qname,
+               lengths=lens_name, variant=variant, live_tokens=live, splits=splits,
+               tiles_per_split=per, ptxas=usage.get(f"{qname}/{kv_name}/{dh}"),
+               max_abs_err=abs_err, err_over_rms=err, tol=TOL,
                ms=ms, device_ms=dev_ms,
                plain_ms=timer.ms(lambda: paged_attention_plain(
                    q, k, v, table, lengths, **kw), 3),
@@ -505,14 +531,19 @@ def check_paged_attention(torch, timer, rows, usage) -> None:
     8 slots of the flagship's heads, pages of 16 to 512 tokens, 8 x 1024
     live tokens (the timed main shape, with the yardstick) and ragged
     lengths up to 4096 with a repeated physical page list (a shared
-    prefix), in every variant; K5 with f32 q and pools; Dh 128."""
+    prefix), in every variant; the table the paged engine builds for 8
+    slots of 1000 tokens at 512-token pages (its 1024-token context
+    bucket's 2 pages and a trash column: 1536 tokens wide); at those two
+    uniform shapes also with one split (one launch, no combine) beside the
+    plan's; K5 with f32 q and pools; Dh 128."""
     from uzu_tpu_torch.models.kv_cache import quantize_rows
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     b, h, g = 8, 32, 8
     sinks = torch.randn((h,), device="cuda", generator=gen)
 
-    def case(page, variants, dh=64, dtype=torch.bfloat16, quants=(False, True)):
+    def case(page, variants, dh=64, dtype=torch.bfloat16, quants=(False, True),
+             engine=False):
         maxp = 4096 // page
         p_total = b * maxp + 1
         k = torch.randn((g, p_total, page, dh), device="cuda", generator=gen).to(dtype)
@@ -523,25 +554,29 @@ def check_paged_attention(torch, timer, rows, usage) -> None:
         table = table.reshape(b, maxp).to(torch.int32)
         table[3] = table[0]
         q = torch.randn((b, h, dh), device="cuda", generator=gen).to(dtype)
-        lens_cases = {"uniform1024": [1024] * b,
-                      "ragged": [1, page, 777, 1024, 4096, 2 * page + 1, 3000, 4095]}
-        for lens_name, lens in lens_cases.items():
+        lens_cases = {"uniform1024": ([1024] * b, table),
+                      "ragged": ([1, page, 777, 1024, 4096, 2 * page + 1, 3000, 4095], table)}
+        if engine:
+            lens_cases["uniform1000"] = ([1000] * b, table[:, :3].contiguous())
+        for lens_name, (lens, tbl) in lens_cases.items():
             lengths = torch.tensor(lens, device="cuda", dtype=torch.int32)
-            uniform = lens_name == "uniform1024"
-            for variant in (("plain",) if uniform else variants):
+            uniform = lens_name != "ragged"
+            uniform_variants = ("plain", "one_split") if engine else ("plain",)
+            for variant in (uniform_variants if uniform else variants):
                 for quant in quants:
-                    kw = {"plain": {}, "window": {"sliding_window_size": 512},
+                    kw = {"plain": {}, "one_split": {}, "window": {"sliding_window_size": 512},
                           "softcap": {"logit_soft_cap": 30.0},
                           "sinks": {"sinks": sinks}}[variant]
                     if quant:
                         kw = dict(kw, k_scales=ks, v_scales=vs)
                     paged_row(torch, timer, rows, usage, q, kq if quant else k,
-                              vq if quant else v, table, lengths, lens_name, variant, kw,
-                              library=uniform)
+                              vq if quant else v, tbl, lengths, lens_name, variant, kw,
+                              splits=1 if variant == "one_split" else None)
         del k, v, kq, vq, ks, vs
 
-    for page in (16, 64, 256, 512):
+    for page in (16, 64, 256):
         case(page, PAGED_VARIANTS)
+    case(512, PAGED_VARIANTS, engine=True)
     case(512, ("plain", "sinks"), dh=128)
     case(512, ("plain", "softcap"), dtype=torch.float32, quants=(False,))
 
@@ -677,20 +712,34 @@ def check_grouped_matmul(torch, timer, rows) -> None:
         del dense
 
 
+GPTOSS_K3_CASES = ((16, 1024, ("gptoss_window_sinks", "gptoss_sinks")),
+                   (256, 1024, ("gptoss_window_sinks", "gptoss_sinks")),
+                   (16, 4096, ("gptoss_sinks", "plain")))
+
+
+def gptoss_attention_inputs(torch):
+    """The seeded inputs of the rows at gpt-oss's heads: (generator, sinks,
+    [(S, C, variants, q, k, v)] of K3's cases), drawn in one order, so that
+    K5's rows, which draw next from the same generator, see the same data
+    whether or not K3's rows run."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    h, g, dh = GPTOSS["num_heads"], GPTOSS["num_groups"], GPTOSS["head_dim"]
+    sinks = torch.randn((h,), device="cuda", generator=gen)
+    cases = [(s, c, variants, *(torch.randn(shape, device="cuda", generator=gen)
+                                .to(torch.bfloat16)
+                                for shape in ((s, h, dh), (c, g, dh), (c, g, dh))))
+             for s, c, variants in GPTOSS_K3_CASES]
+    return gen, sinks, cases
+
+
 def check_attention_gptoss(torch, timer, rows, usage) -> None:
     """K3 at gpt-oss's heads: 64 query heads over 8 KV groups (8 per group),
     Dh 64, its sliding window of 128 with sinks, and sinks alone (the
     full-attention layers); also at S=16 over C=4096 (split route), with a
     yardstick in its plain variant."""
-    gen = torch.Generator(device="cuda").manual_seed(9)
-    h, g, dh = GPTOSS["num_heads"], GPTOSS["num_groups"], GPTOSS["head_dim"]
     win = GPTOSS["sliding_window"]
-    sinks = torch.randn((h,), device="cuda", generator=gen)
-    for s, c, variants in ((16, 1024, ("gptoss_window_sinks", "gptoss_sinks")),
-                           (256, 1024, ("gptoss_window_sinks", "gptoss_sinks")),
-                           (16, 4096, ("gptoss_sinks", "plain"))):
-        q, kc, vc = (torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
-                     for shape in ((s, h, dh), (c, g, dh), (c, g, dh)))
+    _, sinks, cases = gptoss_attention_inputs(torch)
+    for s, c, variants, q, kc, vc in cases:
         for variant in variants:
             kw = {"gptoss_window_sinks": dict(sliding_window_size=win, sinks=sinks),
                   "gptoss_sinks": dict(sinks=sinks), "plain": {}}[variant]
@@ -701,10 +750,10 @@ def check_paged_gptoss(torch, timer, rows, usage) -> None:
     """K5 at gpt-oss's heads (8 per KV group, Dh 64, bf16 pools of 512-token
     pages): its window of 128 with sinks, and sinks alone, over 8 x 1024
     live tokens and ragged lengths."""
-    gen = torch.Generator(device="cuda").manual_seed(12)
     h, g, dh = GPTOSS["num_heads"], GPTOSS["num_groups"], GPTOSS["head_dim"]
     win = GPTOSS["sliding_window"]
-    sinks = torch.randn((h,), device="cuda", generator=gen)
+    gen, sinks, cases = gptoss_attention_inputs(torch)
+    del cases
     b, page = 8, 512
     maxp = 4096 // page
     p_total = b * maxp + 1

@@ -820,30 +820,3 @@ extern "C" int uz_paged_attention(const void* q, const void* k, const void* v,
   return dispatch<float, float>(DH, q, k, v, ks, vs, t, len, sk, o, part, B, H, G, P, page,
                                 maxp, scale, soft_cap, window, splits, s);
 }
-
-// The dynamic shared memory a block of the kernel takes, in bytes, and its
-// ring's depth through *stages, for the same kv_kind, q_is_bf16 and DH as
-// uz_paged_attention; -1 for a case it does not take.
-extern "C" int uz_paged_attention_layout(int kv_kind, int q_is_bf16, int DH, int* stages) {
-#define UZ_LAYOUT(TQ, TKV)                                          \
-  if (DH == 64) {                                                   \
-    *stages = Layout<TQ, TKV, 64>::STAGES;                          \
-    return Layout<TQ, TKV, 64>::BYTES;                              \
-  }                                                                 \
-  if (DH == 128) {                                                  \
-    *stages = Layout<TQ, TKV, 128>::STAGES;                         \
-    return Layout<TQ, TKV, 128>::BYTES;                             \
-  }                                                                 \
-  return -1;
-  if (q_is_bf16 && kv_kind == 1) {
-    UZ_LAYOUT(__nv_bfloat16, int8_t)
-  }
-  if (q_is_bf16) {
-    UZ_LAYOUT(__nv_bfloat16, __nv_bfloat16)
-  }
-  if (kv_kind == 1) {
-    UZ_LAYOUT(float, int8_t)
-  }
-  UZ_LAYOUT(float, float)
-#undef UZ_LAYOUT
-}

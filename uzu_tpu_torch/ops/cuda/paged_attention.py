@@ -150,21 +150,6 @@ def _lib():
     return fn
 
 
-def kernel_layout(q_dtype, quantized: bool, dh: int) -> tuple[int, int]:
-    """(dynamic shared-memory bytes per block, ring stages) of the kernel's
-    instantiation for q of `q_dtype` over bf16/f32 pools of that dtype or
-    INT8 pools: what ptxas's report does not show. For the kernel rows of
-    chip_smoke.py; the wrapper does not need it."""
-    fn = library("paged_attention").uz_paged_attention_layout
-    fn.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
-    fn.restype = _I
-    stages = _I(0)
-    nbytes = fn(int(quantized), int(q_dtype == torch.bfloat16), dh, ctypes.byref(stages))
-    if nbytes < 0:
-        raise ValueError(f"paged attention kernel has no case for Dh={dh}")
-    return nbytes, stages.value
-
-
 def paged_decode_attention(q, k_pool, v_pool, page_table, lengths, *, scale,
                            logit_soft_cap=None, sliding_window_size=None,
                            sinks=None, k_scales=None, v_scales=None) -> torch.Tensor:
