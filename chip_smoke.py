@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --flash-only   # K3/K4's rows of phase 2 alone
     python3 chip_smoke.py --paged-only   # K5/K6's rows of phase 2 alone
+    python3 chip_smoke.py --qmm-only     # K1/K2's rows with K7-K10's (one header)
 
 Phases, each of which ends the run with a non-zero exit if it fails:
 
@@ -16,7 +17,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    library call as a yardstick, and the bound (bytes over the HBM rate or
    FLOPs over the bf16 peak); the kernel and the yardstick are timed twice,
    as the time between two events (`ms`) and as device time alone
-   (`device_ms`, the timer's spin): K1/K2 quant matmul, K3/K4 flash
+   (`device_ms`, the timer's spin): K1/K2 quant matmul (each row with its
+   launch plan; ptxas's registers and spills of every instantiation; and a
+   row-consistency check: for M = 2, 4, 8 each row of the product is
+   bitwise the M=1 product of that row, bits 4 and 8), K3/K4 flash
    attention (bf16 / INT8 cache; at the end of the cache, the main path's
    first chunk, the split-KV shapes S=16/64 over 4096 slots, Dh 128, f32 q;
    each row with its split count and the kernel's ptxas registers and
@@ -146,10 +150,13 @@ NLL_TOL = 1e-2  # |NLL card - NLL host| in nats over a 256-token sequence
 BISECT_LIMITS = {"prod_kg16": 1e-4, "prod_pad128": 1e-4, "prod_pad64": 1e-4,
                  "prod_pad32": 1e-4, "pad128_m64": 2e-2, "pad128_bf16": 2e-2}
 # kernel names (csrc/) that a profiler trace must hold, per phase
-TRACE_KERNELS = {"prefill": {"K1": ("qmm_gemv", "qmm_mma"), "K3": ("flash_fwd",)},
-                 "decode": {"K1": ("qmm_gemv",)}}
+TRACE_KERNELS = {"prefill": {"K1": ("qmm_small", "qmm_tile"), "K3": ("flash_fwd",)},
+                 "decode": {"K1": ("qmm_small",)}}
 # kernel names whose launches and summed device ms each trace reports
-TRACED_PORT_KERNELS = ("qmm_gemv", "qmm_mma", "flash_fwd", "flash_combine")
+TRACED_PORT_KERNELS = ("qmm_small", "qmm_tile", "qmm_split_sum", "flash_fwd",
+                       "flash_combine")
+# rows of the product that the row-consistency check holds to the M=1 rows
+ROW_CHECK_M = (2, 4, 8)
 
 
 def log(msg: str) -> None:
@@ -207,7 +214,13 @@ def rel_err(got, want) -> tuple[float, float]:
 
 
 def check_quant_matmul(torch, timer, rows) -> None:
-    from uzu_tpu_torch.ops.cuda.quant_matmul import quant_matmul, quant_matmul_plain
+    from uzu_tpu_torch.ops.cuda.flash_attention import num_sms
+    from uzu_tpu_torch.ops.cuda.quant_matmul import (
+        plan_blocks,
+        qmm_plan,
+        quant_matmul,
+        quant_matmul_plain,
+    )
     from uzu_tpu_torch.quant.format import QuantizedTensor, dequantize
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -244,8 +257,11 @@ def check_quant_matmul(torch, timer, rows) -> None:
                     b_ms, b_by = bound(nbytes, 2.0 * m * n * k)
                     ms, dev_ms = timer.both(lambda: quant_matmul(w, x))
                     lib_ms, lib_dev_ms = timer.both(lambda: torch.matmul(x, wd.t()))
+                    plan = qmm_plan(m, n, k, bits, num_sms(x.device))
                     row = dict(kernel=f"quant_matmul_int{bits}", weight=wname, N=n, K=k,
-                               M=m, variant=variant, max_abs_err=abs_err, err_over_rms=err,
+                               M=m, variant=variant, plan=plan._asdict(),
+                               blocks=plan_blocks(plan, m, n), max_abs_err=abs_err,
+                               err_over_rms=err,
                                tol=TOL, ms=ms, device_ms=dev_ms,
                                plain_ms=timer.ms(lambda: quant_matmul_plain(w, x), 3),
                                library_ms=lib_ms, library_device_ms=lib_dev_ms,
@@ -253,6 +269,54 @@ def check_quant_matmul(torch, timer, rows) -> None:
                     rows.append(row)
                     log("KERNEL " + json.dumps(row))
                 del wd
+
+
+def check_qmm_rows(torch, info: dict) -> None:
+    """K1/K2's small-M route sums every row as the one-row product does: for
+    M in ROW_CHECK_M each row of the product equals, bit for bit, the M=1
+    product of that row (up|gate and a ragged shape, bits 4 and 8, both
+    qbias forms)."""
+    from uzu_tpu_torch.ops.cuda.quant_matmul import quant_matmul
+    from uzu_tpu_torch.quant.format import QuantizedTensor
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    out = []
+    for bits in (4, 8):
+        for n, k in ((16384, 2048), (300, 2880)):
+            codes = torch.randint(0, 256, (n, k * bits // 8), dtype=torch.uint8, device="cuda",
+                                  generator=gen)
+            scales = (torch.rand((n, k // 32), device="cuda", generator=gen) * 0.01
+                      + 0.001).to(torch.bfloat16)
+            qbias = (torch.randn((n, k // 32), device="cuda", generator=gen) * 0.01
+                     ).to(torch.bfloat16)
+            for w in (QuantizedTensor(codes, scales, None, bits, 32, -float(1 << (bits - 1))),
+                      QuantizedTensor(codes, scales, qbias, bits, 32)):
+                x = torch.randn((max(ROW_CHECK_M), k), device="cuda", generator=gen
+                                ).to(torch.bfloat16)
+                ones = torch.cat([quant_matmul(w, x[i:i + 1]) for i in range(x.shape[0])])
+                for m in ROW_CHECK_M:
+                    same = bool(torch.equal(quant_matmul(w, x[:m]), ones[:m]))
+                    out.append(dict(bits=bits, N=n, K=k, M=m, stored_qbias=w.qbias is not None,
+                                    bitwise=same))
+    info["qmm_rows"] = out
+    log("QMM_ROWS " + json.dumps(out))
+    bad = [r for r in out if not r["bitwise"]]
+    if bad:
+        raise AssertionError(f"rows of an M-row product differ from the M=1 rows: {bad}")
+
+
+def qmm_usage(log_text: str) -> dict:
+    """ptxas's registers and spills of each K1/K2 instantiation
+    ("qmm_tile<4, bf16, 2, 2, 4>", "qmm_small<8, f32, 1>", ...) from a build
+    log."""
+    import re
+
+    out = {}
+    for dem, use in demangled_usage(log_text).items():
+        m = re.search(r"(qmm_\w+)(<[^>]*>)?", dem)
+        if m:
+            out[(m[1] + (m[2] or "")).replace("__nv_bfloat16", "bf16").replace("float", "f32")] = use
+    return out
 
 
 FLASH_VARIANTS = ("plain", "window", "softcap", "sinks")
@@ -263,30 +327,36 @@ def flash_kwargs(variant: str, sinks) -> dict:
             "softcap": {"logit_soft_cap": 30.0}, "sinks": {"sinks": sinks}}[variant]
 
 
-def kernel_usage(log: str, kernel: str) -> dict:
-    """ptxas's registers and spills of each `kernel<TQ, TKV, DH>` (flash_fwd,
-    paged_decode) and flash_combine instantiation ("bf16/int8/64",
-    "combine/64", ...) from a build log, names demangled with c++filt."""
-    import re
-
+def demangled_usage(log_text: str) -> dict:
+    """ptxas's registers and spills per kernel from a build log, keyed by the
+    demangled name (the mangled one where c++filt is missing)."""
     from uzu_tpu_torch.ops.cuda.build import ptxas_usage
 
-    usage = ptxas_usage(log)
+    usage = ptxas_usage(log_text)
     names = list(usage)
     try:
         plain = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
                                text=True, check=True).stdout.splitlines()
     except (OSError, subprocess.CalledProcessError):
         plain = names
+    return {dem: usage[name] for name, dem in zip(names, plain)}
+
+
+def kernel_usage(log: str, kernel: str) -> dict:
+    """ptxas's registers and spills of each `kernel<TQ, TKV, DH>` (flash_fwd,
+    paged_decode) and flash_combine instantiation ("bf16/int8/64",
+    "combine/64", ...) from a build log."""
+    import re
+
     short = {"__nv_bfloat16": "bf16", "float": "f32", "signed char": "int8"}
     out = {}
-    for name, dem in zip(names, plain):
+    for dem, use in demangled_usage(log).items():
         m = re.search(kernel + r"<([^,]+), ([^,]+), (\d+)>", dem)
         c = re.search(r"flash_combine<(\d+)>", dem)
         if m:
-            out["/".join((short.get(m[1], m[1]), short.get(m[2], m[2]), m[3]))] = usage[name]
+            out["/".join((short.get(m[1], m[1]), short.get(m[2], m[2]), m[3]))] = use
         elif c:
-            out["combine/" + c[1]] = usage[name]
+            out["combine/" + c[1]] = use
     return out
 
 
@@ -1841,15 +1911,23 @@ def main() -> int:
                   "cuda": torch.version.cuda, "phase_seconds": {}}
     log(f"CARD {smi}")
 
-    only = {"--flash-only": "flash_attention", "--paged-only": "paged_attention"}
-    for flag, source in only.items():
+    only = {"--flash-only": ("flash_attention",), "--paged-only": ("paged_attention",),
+            "--qmm-only": ("quant_matmul", "moe_gemv", "grouped_matmul")}
+    for flag, sources in only.items():
         if flag not in sys.argv[1:]:
             continue
         # one kernel's rows of phase 2 alone; run it in two checkouts in
         # turns (A, B, B, A) to compare two versions of the kernel on one card
-        log(f"BUILD {source} built in {kbuild.build((source,)):.1f} s")
+        source = sources[0]
+        log(f"BUILD {', '.join(sources)} built in {kbuild.build(sources):.1f} s")
         timer, rows = Timer(torch), []
-        if source == "flash_attention":
+        if source == "quant_matmul":
+            log("QMM_PTXAS " + json.dumps(qmm_usage(kbuild.BUILD_LOGS.get(source, ""))))
+            check_quant_matmul(torch, timer, rows)
+            check_qmm_rows(torch, {})
+            check_moe_gemv(torch, timer, rows)
+            check_grouped_matmul(torch, timer, rows)
+        elif source == "flash_attention":
             usage = kernel_usage(kbuild.BUILD_LOGS.get(source, ""), "flash_fwd")
             log("FLASH_PTXAS " + json.dumps(usage))
             check_flash_attention(torch, timer, rows, usage)
@@ -1888,7 +1966,10 @@ def main() -> int:
     t0 = time.perf_counter()
     timer = Timer(torch)
     rows: list = []
+    info["qmm_ptxas"] = qmm_usage(kbuild.BUILD_LOGS.get("quant_matmul", ""))
+    log("QMM_PTXAS " + json.dumps(info["qmm_ptxas"]))
     check_quant_matmul(torch, timer, rows)
+    check_qmm_rows(torch, info)
     usage = kernel_usage(kbuild.BUILD_LOGS.get("flash_attention", ""), "flash_fwd")
     info["flash_ptxas"] = usage
     log("FLASH_PTXAS " + json.dumps(usage))
