@@ -4,7 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --flash-only   # K3/K4's rows of phase 2 alone
     python3 chip_smoke.py --paged-only   # K5/K6's rows of phase 2 alone
-    python3 chip_smoke.py --qmm-only     # K1/K2's rows with K7-K10's (one header)
+    python3 chip_smoke.py --qmm-only     # K1/K2's rows with K7-K10's (shared headers)
+    python3 chip_smoke.py --grouped-only # K7-K10's rows alone, BN / kw sweeps, ptxas, row check
 
 Phases, each of which ends the run with a non-zero exit if it fails:
 
@@ -29,8 +30,13 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    the paged engine's 1536-token table, Dh 128, f32 q and pools; each row
    with its split count and ptxas registers and spills),
    K3/K5 again at gpt-oss's heads (8 per KV group, window 128, sinks),
-   K7/K8 expert-gather GEMV, K9/K10 grouped expert matmul, and P1, the
-   bisect probe's zero-padded scale-block copy (bitwise equal).
+   K7/K8 expert-gather GEMV, K9/K10 grouped expert matmul (each row at its
+   launch plan's layout, bm and geometry, through the wrappers; with
+   --grouped-only also tile rows timed at every BN and small rows at every kw;
+   ptxas's registers and spills of every instantiation; and a row check:
+   at bm 8 each routed row's K9 output is bitwise the same whether its
+   tile holds 1 or 8 rows), and P1, the bisect probe's zero-padded
+   scale-block copy (bitwise equal).
 3. path INT4: the Llama-1B-shaped INT4 flagship (16 layers, d 2048, vocab
    128256, random weights from a seed) loaded with `LanguageModel.from_dir`
    on the card; greedy generation of 64 tokens after a 128-token prompt,
@@ -94,6 +100,7 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import multiprocessing
 import os
@@ -305,17 +312,18 @@ def check_qmm_rows(torch, info: dict) -> None:
         raise AssertionError(f"rows of an M-row product differ from the M=1 rows: {bad}")
 
 
-def qmm_usage(log_text: str) -> dict:
-    """ptxas's registers and spills of each K1/K2 instantiation
-    ("qmm_tile<4, bf16, 2, 2, 4>", "qmm_small<8, f32, 1>", ...) from a build
-    log."""
+def template_usage(log_text: str, stem: str) -> dict:
+    """ptxas's registers and spills of each instantiation of the kernels
+    named `stem`_* ("qmm_tile<4, bf16, 2, 2, 4>", "grouped_small<f32, bf16,
+    1>", ...) from a build log."""
     import re
 
     out = {}
     for dem, use in demangled_usage(log_text).items():
-        m = re.search(r"(qmm_\w+)(<[^>]*>)?", dem)
+        m = re.search(rf"({stem}_\w+)(<[^>]*>)?", dem)
         if m:
-            out[(m[1] + (m[2] or "")).replace("__nv_bfloat16", "bf16").replace("float", "f32")] = use
+            name = m[1] + (m[2] or "")
+            out[name.replace("__nv_bfloat16", "bf16").replace("float", "f32")] = use
     return out
 
 
@@ -713,51 +721,91 @@ def check_moe_gemv(torch, timer, rows) -> None:
                 del wg
 
 
-def check_grouped_matmul(torch, timer, rows) -> None:
-    """K9 over INT4 stacks at the routed rows of a 64- and a 256-row prefill
-    chunk (T = 256, 1024) and of a paged decode step of 8 slots (T = 32);
-    K10 over a dense bf16 stack at a 1024-row chunk (T = 4096). Only the
-    real rows are compared (rows of unused tiles are undefined)."""
-    from uzu_tpu_torch.ops.cuda.grouped_matmul import (
-        grouped_matmul,
-        grouped_matmul_plain,
-        grouped_matmul_quant,
-        grouped_matmul_quant_plain,
-        route_layout,
-    )
+# K9's rows: (T routed rows, bm) at the plan's layout of S = T / 4 rows (the
+# paged step of 8 slots, the 16- and 32-row small chunks, the 64-, 256- and
+# 1024-row prefill chunks), and T = 32 at bm 64, PR 3-7's layout of the
+# paged step; K10's: the same prefill chunks at bm 64. Each T's routing and
+# rows are drawn once and laid out at every bm of that T.
+GROUPED_Q_CASES = ((32, 64), (32, 8), (64, 16), (128, 32), (256, 64), (1024, 64), (4096, 64))
+GROUPED_DENSE_CASES = ((256, 64), (1024, 64), (4096, 64))
+
+
+def check_grouped_matmul(torch, timer, rows, sweep: bool = False) -> None:
+    """K9 over INT4 stacks and K10 over dense bf16 stacks at gpt-oss's
+    expert shapes, at the routed rows of GROUPED_Q_CASES /
+    GROUPED_DENSE_CASES, through the wrappers the main path calls, each row
+    with the launch plan the wrapper launched (held to `launch_plan` of the
+    layout's shapes). With `sweep`, tile rows also time every BN the route
+    offers and small rows every kw (device ms). The yardstick is one bmm
+    over the used tiles' pre-gathered bf16 planes and rows, at the same
+    layout. Only the real rows are compared (rows of unused tiles are
+    undefined)."""
+    from uzu_tpu_torch.ops.cuda import grouped_matmul as gm
+    from uzu_tpu_torch.ops.cuda.flash_attention import num_sms
     from uzu_tpu_torch.ops.cuda.moe_gemv import gather_experts
     from uzu_tpu_torch.quant.format import dequantize_stacked
 
     gen = torch.Generator(device="cuda").manual_seed(8)
     e, active = GPTOSS["num_experts"], GPTOSS["num_active"]
-    cases = [("grouped_matmul_int4", t) for t in (32, 256, 1024)] + [("grouped_matmul", 4096)]
+    sms = num_sms(torch.device("cuda"))
+    cases = [("grouped_matmul_int4", t, bm) for t, bm in GROUPED_Q_CASES] + \
+        [("grouped_matmul", t, bm) for t, bm in GROUPED_DENSE_CASES]
+    routes = {t: _routing(torch, gen, t // active, e, active).reshape(-1)
+              for t in sorted({t for _, t, _ in cases})}
+    launched = []
+
+    def spied(real):
+        def launch(*args):
+            launched.append(args[-1])
+            return real(*args)
+        return launch
+
+    real_q, real_d = gm.launch_grouped_quant, gm.launch_grouped
     for wname, n, k in EXPERT_SHAPES:
         sq = _random_stack(torch, gen, e, n, k, 4)
         dense = dequantize_stacked(_random_stack(torch, gen, e, n, k, 8), torch.bfloat16)
-        for name, t in cases:
+        xs = {t: torch.randn((t, k), device="cuda", generator=gen) for t in routes}
+        for name, t, bm in cases:
             quant = name == "grouped_matmul_int4"
-            flat = _routing(torch, gen, t // active, e, active).reshape(-1)
-            order, dst, te, used, _ = route_layout(flat, e)
+            flat = routes[t]
+            order, dst, te, used, _ = gm.route_layout(flat, e, bm)
             row_dtype = torch.float32 if quant else torch.bfloat16
-            x_pad = torch.zeros((te.shape[0] * 64, k), dtype=row_dtype, device="cuda")
-            x_pad[dst] = torch.randn((t, k), device="cuda", generator=gen).to(row_dtype)
+            x_pad = torch.zeros((te.shape[0] * bm, k), dtype=row_dtype, device="cuda")
+            x_pad[dst] = xs[t].to(row_dtype)
+            plan = gm.launch_plan(te.shape[0], bm, e, n, k, 4 if quant else 16, sms)
             if quant:
                 def run():
-                    return grouped_matmul_quant(x_pad, sq, te, used)
+                    return gm.grouped_matmul_quant(x_pad, sq, te, used)
+
+                def run_plan(p):
+                    return real_q(x_pad, sq, te, used, p)
 
                 def plain():
-                    return grouped_matmul_quant_plain(x_pad, sq, te, used)
+                    return gm.grouped_matmul_quant_plain(x_pad, sq, te, used, bm)
             else:
                 def run():
-                    return grouped_matmul(x_pad, dense, te, used)
+                    return gm.grouped_matmul(x_pad, dense, te, used)
+
+                def run_plan(p):
+                    return real_d(x_pad, dense, te, used, p)
 
                 def plain():
-                    return grouped_matmul_plain(x_pad, dense, te, used)
-            got, want = run(), plain()
+                    return gm.grouped_matmul_plain(x_pad, dense, te, used, bm)
+            launched.clear()
+            gm.launch_grouped_quant, gm.launch_grouped = spied(real_q), spied(real_d)
+            try:
+                got = run()
+            finally:
+                gm.launch_grouped_quant, gm.launch_grouped = real_q, real_d
+            if launched != [plan]:
+                raise AssertionError(f"{name} {wname} T={t} bm={bm}: the wrapper launched "
+                                     f"{launched}, not launch_plan's {plan}")
+            want = plain()
             torch.cuda.synchronize()
             abs_err, err = rel_err(got[dst], want[dst])
             if not (err <= TOL):
-                raise AssertionError(f"{name} {wname} T={t}: error {err:.3e} of RMS > {TOL}")
+                raise AssertionError(f"{name} {wname} T={t} bm={bm} {plan}: error {err:.3e} "
+                                     f"of RMS > {TOL}")
             n_used = int(used[0])
             distinct = len(set(flat.tolist()))
             plane = (sq.codes[0].numel() + sq.scales[0].numel() * 2) if quant \
@@ -768,18 +816,64 @@ def check_grouped_matmul(torch, timer, rows) -> None:
             tiles = te[:n_used]
             wt = (dequantize_stacked(gather_experts(sq, tiles), torch.bfloat16) if quant
                   else dense[tiles.long()])
-            xt = x_pad[: n_used * 64].to(torch.bfloat16).reshape(n_used, 64, k)
+            xt = x_pad[: n_used * bm].to(torch.bfloat16).reshape(n_used, bm, k)
             ms, dev_ms = timer.both(run)
             lib_ms, lib_dev_ms = timer.both(lambda: torch.bmm(xt, wt.transpose(1, 2)))
-            row = dict(kernel=name, weight=wname, N=n, K=k, E=e, T=t, Tp=x_pad.shape[0],
-                       used_tiles=n_used, distinct_experts=distinct, max_abs_err=abs_err,
+            row = dict(kernel=name, weight=wname, N=n, K=k, E=e, T=t, bm=bm, Tp=x_pad.shape[0],
+                       route=plan.route, kw=plan.kw, bn=plan.bn, used_tiles=n_used,
+                       distinct_experts=distinct, max_abs_err=abs_err,
                        err_over_rms=err, tol=TOL, ms=ms, device_ms=dev_ms,
                        plain_ms=timer.ms(plain, 3), library_ms=lib_ms,
                        library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by)
+            if sweep and plan.route == "tile":  # every BN of the route, the plan's included
+                row["bn_device_ms"] = {
+                    bn: timer.ms(functools.partial(run_plan, plan._replace(bn=bn)), spin=True)
+                    for bn in gm.TILE_BNS[4 if quant else 16]}
+            elif sweep:
+                row["kw_device_ms"] = {
+                    kw: timer.ms(functools.partial(run_plan, plan._replace(kw=kw)), spin=True)
+                    for kw in (1, 2, 4, 8)}
             rows.append(row)
             log("KERNEL " + json.dumps(row))
             del wt, xt
         del dense
+
+
+def check_grouped_rows(torch, info: dict) -> None:
+    """K9's small route sums each routed row on its own: at bm = 8, the
+    output of each of a token's 4 routed rows is bitwise the same in the
+    layout of 8 tokens (expert 3 taken by all 8, so its tile holds 8 rows)
+    as in the layout of that token alone (each tile 1 row); up and down."""
+    from uzu_tpu_torch.ops.cuda.grouped_matmul import grouped_matmul_quant, route_layout
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    e, active, bm = GPTOSS["num_experts"], GPTOSS["num_active"], 8
+    out = []
+    for wname, n, k in EXPERT_SHAPES:
+        sq = _random_stack(torch, gen, e, n, k, 4)
+        others = torch.stack([3 + 1 + torch.randperm(e - 1, device="cuda", generator=gen)
+                              [:active - 1] for _ in range(8)]) % e
+        ids = torch.cat([torch.full((8, 1), 3, device="cuda"), others], 1)
+        x = torch.randn((8, k), device="cuda", generator=gen)
+
+        def routed(tok):  # K9 over the tokens' layout -> [tokens, active, N]
+            order, dst, te, used, _ = route_layout(ids[tok].reshape(-1), e, bm)
+            x_pad = torch.zeros((te.shape[0] * bm, k), device="cuda")
+            x_pad[dst] = x[tok][order // active]
+            row_of_pair = torch.empty_like(dst)
+            row_of_pair[order] = dst
+            return grouped_matmul_quant(x_pad, sq, te, used)[row_of_pair].reshape(
+                len(tok), active, n)
+
+        together = routed(list(range(8)))
+        alone = torch.cat([routed([j]) for j in range(8)])
+        out.append(dict(weight=wname, N=n, K=k, bm=bm, rows_in_expert3_tile=8,
+                        bitwise=bool(torch.equal(together, alone))))
+    info["grouped_rows"] = out
+    log("GROUPED_ROWS " + json.dumps(out))
+    bad = [r for r in out if not r["bitwise"]]
+    if bad:
+        raise AssertionError(f"K9 rows at bm 8 depend on the other rows of their tile: {bad}")
 
 
 GPTOSS_K3_CASES = ((16, 1024, ("gptoss_window_sinks", "gptoss_sinks")),
@@ -1856,7 +1950,7 @@ def kernel_record(rows, info) -> list[dict]:
                           dict(weight="up", P=4), "gptoss_int8"),
         "grouped_matmul_int4": ("uzu_tpu_torch/csrc/grouped_matmul.cu",
                                 "uzu_tpu/ops/pallas/grouped_matmul.py:165",
-                                dict(weight="up", T=32), "paged_gptoss"),
+                                dict(weight="up", T=32, bm=8), "paged_gptoss"),
         "grouped_matmul": ("uzu_tpu_torch/csrc/grouped_matmul.cu",
                            "uzu_tpu/ops/pallas/grouped_matmul.py:67",
                            dict(weight="up", T=4096), "gptoss_int8"),
@@ -1879,7 +1973,8 @@ def kernel_record(rows, info) -> list[dict]:
                                                     "Dh", "C", "pos0", "q", "splits", "variant",
                                                     "B", "page",
                                                     "lengths", "live_tokens", "E", "P", "T",
-                                                    "Tp", "used_tiles", "distinct_experts",
+                                                    "Tp", "bm", "route", "kw", "bn",
+                                                    "used_tiles", "distinct_experts",
                                                     "R", "kg", "width")}))
     return out
 
@@ -1912,7 +2007,8 @@ def main() -> int:
     log(f"CARD {smi}")
 
     only = {"--flash-only": ("flash_attention",), "--paged-only": ("paged_attention",),
-            "--qmm-only": ("quant_matmul", "moe_gemv", "grouped_matmul")}
+            "--qmm-only": ("quant_matmul", "moe_gemv", "grouped_matmul"),
+            "--grouped-only": ("grouped_matmul", "moe_gemv")}
     for flag, sources in only.items():
         if flag not in sys.argv[1:]:
             continue
@@ -1922,11 +2018,17 @@ def main() -> int:
         log(f"BUILD {', '.join(sources)} built in {kbuild.build(sources):.1f} s")
         timer, rows = Timer(torch), []
         if source == "quant_matmul":
-            log("QMM_PTXAS " + json.dumps(qmm_usage(kbuild.BUILD_LOGS.get(source, ""))))
+            log("QMM_PTXAS " + json.dumps(template_usage(kbuild.BUILD_LOGS.get(source, ""), "qmm")))
             check_quant_matmul(torch, timer, rows)
             check_qmm_rows(torch, {})
             check_moe_gemv(torch, timer, rows)
             check_grouped_matmul(torch, timer, rows)
+        elif source == "grouped_matmul":
+            log("GROUPED_PTXAS " + json.dumps(template_usage(kbuild.BUILD_LOGS.get(source, ""),
+                                                             "grouped")))
+            check_moe_gemv(torch, timer, rows)
+            check_grouped_matmul(torch, timer, rows, sweep=True)
+            check_grouped_rows(torch, {})
         elif source == "flash_attention":
             usage = kernel_usage(kbuild.BUILD_LOGS.get(source, ""), "flash_fwd")
             log("FLASH_PTXAS " + json.dumps(usage))
@@ -1966,7 +2068,7 @@ def main() -> int:
     t0 = time.perf_counter()
     timer = Timer(torch)
     rows: list = []
-    info["qmm_ptxas"] = qmm_usage(kbuild.BUILD_LOGS.get("quant_matmul", ""))
+    info["qmm_ptxas"] = template_usage(kbuild.BUILD_LOGS.get("quant_matmul", ""), "qmm")
     log("QMM_PTXAS " + json.dumps(info["qmm_ptxas"]))
     check_quant_matmul(torch, timer, rows)
     check_qmm_rows(torch, info)
@@ -1982,7 +2084,10 @@ def main() -> int:
     check_paged_attention(torch, timer, rows, paged_usage)
     check_paged_gptoss(torch, timer, rows, paged_usage)
     check_moe_gemv(torch, timer, rows)
+    info["grouped_ptxas"] = template_usage(kbuild.BUILD_LOGS.get("grouped_matmul", ""), "grouped")
+    log("GROUPED_PTXAS " + json.dumps(info["grouped_ptxas"]))
     check_grouped_matmul(torch, timer, rows)
+    check_grouped_rows(torch, info)
     check_block_copy(torch, timer, rows)
     del timer
     torch.cuda.empty_cache()

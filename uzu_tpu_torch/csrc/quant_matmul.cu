@@ -75,9 +75,7 @@
 // the 0/1 expansion-matrix dot for the group scales, M padding to 8, and
 // the Mosaic tile policy / VMEM budget.
 
-#include <cuda.h>  // CUtensorMap (the encoder is fetched through the runtime)
-
-#include "quant_tiles.cuh"
+#include "qmm_small.cuh"
 
 namespace {
 
@@ -88,421 +86,15 @@ typedef __nv_bfloat16 bf16;
 constexpr int GEMV_MAX_M = 32;  // the small-M route's limit (the wrapper's too)
 
 // ---------------------------------------------------------------------------
-// PTX helpers
+// Small M: qmm_small (qmm_small.cuh's product over one weight).
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// byte offset of 16-byte chunk c (0..7) of row r in a tile of 128-byte rows
-// in the 128-byte swizzle
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return r * 128 + (((c ^ r) & 7) << 4);
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle (layout type 1)
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  constexpr uint32_t lbo = 16, sbo = 1024;  // 8 rows of 128 bytes a core-matrix group
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-// 16-byte copy of which the first `bytes` (0..16) come from src, the rest zeros
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// generic-proxy writes (st.shared, cp.async) made visible to wgmma's reads
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep the compiler from moving accesses of wgmma's accumulators across its
-// issue and its wait
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// mbarriers and TMA (the x tiles of qmm_tile)
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-
-// wait for the phase of `parity` to complete; a copy that never lands traps
-// (a launch error) rather than hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (long long spins = 0; !mbar_try_wait(bar, parity); ++spins) {
-    if (spins > (1ll << 26)) __trap();
-  }
-}
-
-// a 2-D box of `map` at (c0 innermost, c1) into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-#define UZ_D64 \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
-  "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), \
-  "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), \
-  "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
-  "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), \
-  "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), \
-  "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), \
-  "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), \
-  "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), \
-  "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), \
-  "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-
-#define UZ_R64 \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
-  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, " \
-  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, " \
-  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-
-// d[64 x 128] += A[64 x 16] B[16 x 128]; A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " UZ_R64
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : UZ_D64
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// 16 code bytes at p, streamed past the L1 (x lives there)
-__device__ __forceinline__ uint4 ld_stream16(const void* p) {
-  uint4 v;
-  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-      : "l"(p));
-  return v;
-}
-
-__device__ __forceinline__ uint32_t bits_of(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ __nv_bfloat162 bf2_of(uint32_t v) {
-  return *reinterpret_cast<__nv_bfloat162*>(&v);
-}
-
-// ---------------------------------------------------------------------------
-// Dequantization. A group's (scale, qbias) as the operands each path takes.
-
-template <typename ST>
-struct Group;
-
-template <>
-struct Group<bf16> {  // bf16 scales: one bf16x2 FMA per pair of INT4 weights
-  __nv_bfloat162 s2, b2;
-  float s, b;  // the same values in f32, for INT8
-  // sv, and bv where stored, else qbias = coeff * sv (coeff a power of two:
-  // exact in bf16)
-  __device__ __forceinline__ void set(bf16 sv, bf16 bv, bool stored, float coeff) {
-    s = __bfloat162float(sv);
-    const bf16 bq = stored ? bv : __float2bfloat16_rn(coeff * s);
-    b = __bfloat162float(bq);
-    s2 = __bfloat162bfloat162(sv);
-    b2 = __bfloat162bfloat162(bq);
-  }
-};
-
-template <>
-struct Group<float> {
-  float s, b;
-  __device__ __forceinline__ void set(float sv, float bv, bool stored, float coeff) {
-    s = sv;
-    b = stored ? bv : coeff * sv;
-  }
-};
-
-__device__ __forceinline__ float code_f32(uint32_t c) {  // c < 2^23, exact
-  return __uint_as_float(0x4B000000u | c) - 8388608.f;
-}
-
-// The four bf16x2 pairs (n_i, n_i+4), i = 0..3, of one word of 8 INT4 codes
-// (n0 in bits 0-3): 128 + n is built in each half's mantissa, 128 comes off
-// exactly, and one FMA rounds n * scale + qbias once.
-__device__ __forceinline__ void int4_pairs(uint32_t w, const Group<bf16>& g, uint32_t (&p)[4]) {
-  const __nv_bfloat162 k128 = bf2_of(0x43004300u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 v = bf2_of(((w >> (4 * i)) & 0x000F000Fu) | 0x43004300u);
-    p[i] = bits_of(__hfma2(__hsub2(v, k128), g.s2, g.b2));
-  }
-}
-
-// the same pairs with the weight dequantized in f32 and rounded to bf16
-__device__ __forceinline__ void int4_pairs(uint32_t w, const Group<float>& g, uint32_t (&p)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    p[i] = pack_bf16x2(fmaf(code_f32((w >> (4 * i)) & 15u), g.s, g.b),
-                       fmaf(code_f32((w >> (4 * i + 16)) & 15u), g.s, g.b));
-  }
-}
-
-// Two bf16x2 pairs (c0, c1), (c2, c3) of one word of 4 INT8 codes, each
-// dequantized in f32 and rounded to bf16.
-template <typename ST>
-__device__ __forceinline__ void int8_pairs(uint32_t w, const Group<ST>& g, uint32_t (&p)[2]) {
-  float f[4];
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    f[b] = fmaf(__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 | b)) - 8388608.f, g.s, g.b);
-  }
-  p[0] = pack_bf16x2(f[0], f[1]);
-  p[1] = pack_bf16x2(f[2], f[3]);
-}
-
-// ---------------------------------------------------------------------------
-// Small M: qmm_small.
-
-constexpr int SM_WARPS = 8;  // warps per block
-constexpr int SM_UNROLL = 4;  // chunks whose codes are loaded before any is used
-
-template <int BITS>
-struct SmallGeo {
-  static constexpr int CK = 512 / BITS;    // k per chunk: 4 lanes x 16 bytes of codes
-  static constexpr int SPAN = CK / 4;      // k per lane per chunk
-  static constexpr int VPW = 32 / BITS;    // codes per 32-bit word
-  static constexpr int XV = SPAN / 8;      // 16-byte x loads per lane per chunk and row
-};
-
-// 16 bytes of row `row` from byte `off`: one load where the row starts
-// 16-byte aligned and the bytes lie inside it, else word by word; bytes past
-// the row are zeros.
-__device__ __forceinline__ uint4 load_codes(const uint8_t* __restrict__ codes, int row,
-                                            int row_bytes, int off, bool ok, int vec16) {
-  uint4 v = make_uint4(0u, 0u, 0u, 0u);
-  if (!ok) return v;
-  const uint8_t* p = codes + static_cast<size_t>(row) * row_bytes + off;
-  const int left = row_bytes - off;
-  if (vec16 && left >= 16) return ld_stream16(p);
-  const uint32_t* q = reinterpret_cast<const uint32_t*>(p);
-  if (left > 0) v.x = __ldg(q);
-  if (left > 4) v.y = __ldg(q + 1);
-  if (left > 8) v.z = __ldg(q + 2);
-  if (left > 12) v.w = __ldg(q + 3);
-  return v;
-}
-
-// The raw (scale, qbias) of row `row`'s group at k (zeros where !ok or no
-// stored qbias).
-template <typename ST>
-__device__ __forceinline__ void raw_group(const ST* __restrict__ scales,
-                                          const ST* __restrict__ qbias, int row, bool ok,
-                                          int SK, int k, int G, int glast, ST& sv, ST& bv) {
-  const size_t at = static_cast<size_t>(row) * SK + min(k / G, glast);
-  sv = ok ? scales[at] : ST(0.f);
-  bv = ok && qbias != nullptr ? qbias[at] : ST(0.f);
-}
-
-// x[m, kb .. kb + 8 XV) of the rows m = 8 t + gid, zeros past M and K
-template <int NT, int XV>
-__device__ __forceinline__ void load_x(const bf16* __restrict__ x, int M, int K, int gid, int kb,
-                                       uint4 (&xv)[NT][XV]) {
-#pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    const int m = t * 8 + gid;
-#pragma unroll
-    for (int v = 0; v < XV; ++v) {
-      const int k = kb + 8 * v;
-      xv[t][v] = m < M && k < K
-                     ? __ldg(reinterpret_cast<const uint4*>(x + static_cast<size_t>(m) * K + k))
-                     : make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-}
-
-// Warp w of a block: row tile w / kw of the block's 8 / kw, K share kq = w %
-// kw (chunks kq, kq + kw, ... of CK each). NT: n8 tiles of x (M <= 8 * NT).
 template <int BITS, typename ST, int NT>
 __global__ void __launch_bounds__(SM_WARPS * 32)
 qmm_small(const bf16* __restrict__ x, const uint8_t* __restrict__ codes,
           const ST* __restrict__ scales, const ST* __restrict__ qbias, float coeff,
           float* __restrict__ out, int M, int N, int K, int G, int SK, int vec16, int kw) {
-  using Geo = SmallGeo<BITS>;
-  __shared__ float red[SM_WARPS][4 * NT][32];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int gid = lane >> 2;
-  const int tig = lane & 3;
-  const int kq = warp % kw;
-  const int n0 = (blockIdx.x * (SM_WARPS / kw) + warp / kw) * 16;
-  const int rows[2] = {n0 + gid, n0 + gid + 8};
-  const bool rok[2] = {rows[0] < N, rows[1] < N};
-  const int row_bytes = K * BITS / 8;
-  const int nchunks = (K + Geo::CK - 1) / Geo::CK;
-  const int glast = (K - 1) / G;
-  const bool one_group = G % Geo::SPAN == 0;  // a lane's span of a chunk is one group
-  const bool stored = qbias != nullptr;
-
-  float acc[NT][4];
-#pragma unroll
-  for (int t = 0; t < NT; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
-
-  if (n0 < N) {
-    for (int c0 = kq; c0 < nchunks; c0 += SM_UNROLL * kw) {
-      // the batch's codes and group values first, then x a chunk ahead
-      uint4 cw[SM_UNROLL][2];
-      ST sr[SM_UNROLL][2], br[SM_UNROLL][2];
-#pragma unroll
-      for (int u = 0; u < SM_UNROLL; ++u) {
-        const int c = c0 + u * kw;
-        const int kb = c * Geo::CK + tig * Geo::SPAN;
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          cw[u][r] = load_codes(codes, rows[r], row_bytes, kb * BITS / 8, rok[r] && c < nchunks,
-                                vec16);
-          if (one_group) {
-            raw_group<ST>(scales, qbias, rows[r], rok[r], SK, kb, G, glast, sr[u][r],
-                          br[u][r]);
-          }
-        }
-      }
-      uint4 xn[NT][Geo::XV];
-      load_x<NT, Geo::XV>(x, M, K, gid, c0 * Geo::CK + tig * Geo::SPAN, xn);
-#pragma unroll
-      for (int u = 0; u < SM_UNROLL; ++u) {
-        const int c = c0 + u * kw;
-        if (c >= nchunks) break;
-        const int kb = c * Geo::CK + tig * Geo::SPAN;  // this lane's first k
-        uint4 xv[NT][Geo::XV];
-#pragma unroll
-        for (int t = 0; t < NT; ++t)
-#pragma unroll
-          for (int v = 0; v < Geo::XV; ++v) xv[t][v] = xn[t][v];
-        if (u + 1 < SM_UNROLL && c + kw < nchunks) {
-          load_x<NT, Geo::XV>(x, M, K, gid, kb + kw * Geo::CK, xn);
-        }
-        Group<ST> g[2];
-        if (one_group) {
-          g[0].set(sr[u][0], br[u][0], stored, coeff);
-          g[1].set(sr[u][1], br[u][1], stored, coeff);
-        }
-        const uint32_t* w0 = reinterpret_cast<const uint32_t*>(&cw[u][0]);
-        const uint32_t* w1 = reinterpret_cast<const uint32_t*>(&cw[u][1]);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {  // one code word of each row
-          if (!one_group) {
-#pragma unroll
-            for (int r = 0; r < 2; ++r) {
-              ST sv, bv;
-              raw_group<ST>(scales, qbias, rows[r], rok[r], SK, kb + q * Geo::VPW, G, glast,
-                            sv, bv);
-              g[r].set(sv, bv, stored, coeff);
-            }
-          }
-          if constexpr (BITS == 4) {
-            // two k-steps: step h takes the pairs (n_2h, n_2h+4), (n_2h+1, n_2h+5)
-            uint32_t p0[4], p1[4];
-            int4_pairs(w0[q], g[0], p0);
-            int4_pairs(w1[q], g[1], p1);
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const uint32_t a[4] = {p0[2 * h], p1[2 * h], p0[2 * h + 1], p1[2 * h + 1]};
-#pragma unroll
-              for (int t = 0; t < NT; ++t) {
-                // x[8q .. 8q+7] of row t*8+gid: (x_2h, x_2h+4) and (x_2h+1, x_2h+5)
-                const uint32_t* xw = reinterpret_cast<const uint32_t*>(&xv[t][q]);
-                const uint32_t b[2] = {__byte_perm(xw[h], xw[h + 2], 0x5410),
-                                       __byte_perm(xw[h], xw[h + 2], 0x7632)};
-                mma_16816(acc[t], a, b);
-              }
-            }
-          } else {
-            // one k-step: pairs (c0, c1), (c2, c3) in k order
-            uint32_t p0[2], p1[2];
-            int8_pairs<ST>(w0[q], g[0], p0);
-            int8_pairs<ST>(w1[q], g[1], p1);
-            const uint32_t a[4] = {p0[0], p1[0], p0[1], p1[1]};
-#pragma unroll
-            for (int t = 0; t < NT; ++t) {
-              const uint32_t* xw = reinterpret_cast<const uint32_t*>(&xv[t][q >> 1]);
-              const uint32_t b[2] = {xw[2 * (q & 1)], xw[2 * (q & 1) + 1]};
-              mma_16816(acc[t], a, b);
-            }
-          }
-        }
-      }
-    }
-  }
-
-  // the kw warps of a row tile summed in warp order; D[n][m] of each fragment:
-  // e = 0, 1 at row gid, columns 2 tig, 2 tig + 1; e = 2, 3 at row gid + 8
-  if (kw > 1) {
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) red[warp][4 * t + e][lane] = acc[t][e];
-    __syncthreads();
-    if (kq != 0) return;
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float s = red[warp][4 * t + e][lane];
-        for (int j = 1; j < kw; ++j) s += red[warp + j][4 * t + e][lane];
-        acc[t][e] = s;
-      }
-  }
-#pragma unroll
-  for (int t = 0; t < NT; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int n = rows[e >> 1];
-      const int m = t * 8 + 2 * tig + (e & 1);
-      if (n < N && m < M) out[static_cast<size_t>(m) * N + n] = acc[t][e];
-    }
+  small_rows<BITS, ST, NT>(XRows<bf16>{x}, codes, scales, qbias, coeff, out, M, N, K, G, SK,
+                           vec16, kw, blockIdx.x);
 }
 
 // ---------------------------------------------------------------------------
@@ -631,11 +223,7 @@ qmm_tile(const __grid_constant__ CUtensorMap xmap, const uint8_t* __restrict__ c
             raw_group<ST>(scales, qbias, n, n < N, SK, k + 8 * q, G, glast, sv, bv);
             g.set(sv, bv, stored, coeff);
           }
-          uint32_t p[4];  // (n_i, n_i+4)
-          int4_pairs(w[q], g, p);
-          *reinterpret_cast<uint4*>(wt + swz(r, u * 4 + q)) =
-              make_uint4(__byte_perm(p[0], p[1], 0x5410), __byte_perm(p[2], p[3], 0x5410),
-                         __byte_perm(p[0], p[1], 0x7632), __byte_perm(p[2], p[3], 0x7632));
+          *reinterpret_cast<uint4*>(wt + swz(r, u * 4 + q)) = int4_k_order(w[q], g);
         }
       } else {
 #pragma unroll
@@ -853,35 +441,6 @@ int run_small(const Args& a, int kw, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// x [M, K] bf16 as a TMA tensor map of 64 x 64 boxes (128 bytes of k by 64
-// rows) in the 128-byte swizzle; reads past M and K fill zeros
-cudaError_t x_tensor_map(CUtensorMap* map, const void* x, int M, int K) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    cudaDriverEntryPointQueryResult found;
-    void* fn = nullptr;
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (e != cudaSuccess) return e;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(M)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * 2};
-  const cuuint32_t box[2] = {64, 64};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x), dims,
-                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int BITS, typename ST, int NWG, int MW, int S>
 int launch_tile(const Args& a, int splits, int cps, float* scratch, cudaStream_t stream) {
   using L = TileGeo<BITS, NWG, MW, S>;
@@ -899,7 +458,7 @@ int launch_tile(const Args& a, int splits, int cps, float* scratch, cudaStream_t
     if (dev < MAX_DEVICES) attr[dev] = true;
   }
   CUtensorMap xmap;
-  e = x_tensor_map(&xmap, a.x, a.M, a.K);
+  e = bf16_tensor_map(&xmap, a.x, a.M, a.K, 64);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((a.M + L::BM - 1) / L::BM, (a.N + L::BN - 1) / L::BN, splits);
   qmm_tile<BITS, ST, NWG, MW, S><<<grid, L::THREADS, smem, stream>>>(

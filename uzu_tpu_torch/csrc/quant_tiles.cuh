@@ -1,7 +1,8 @@
 // Device building blocks shared by the quantized matmul kernels: the
-// warp-per-row dequant GEMV (K1/K2 in quant_matmul.cu, K7/K8 in
-// moe_gemv.cu) and the 64x64 mma.sync tensor-core tile (K1/K2's prefill
-// kernel, K9/K10 in grouped_matmul.cu).
+// warp-per-row dequant GEMV (K1/K2's f32 route in quant_matmul.cu, K7/K8
+// in moe_gemv.cu) and the 64x64 mma.sync tensor-core tile (K10's mma route
+// in grouped_matmul.cu); the bf16 packing and mma.sync that qmm_small.cuh
+// builds on.
 //
 // Codes are u8 packed little-endian along K (4-bit: low nibble = even k),
 // read as 32-bit words; one word holds 8 INT4 or 4 INT8 values of one
@@ -146,11 +147,11 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // ---------------------------------------------------------------------------
 // 64x64 output tile per 4-warp block on the tensor cores. Each K chunk of
-// 64 stages x and the W rows through shared memory as bf16 (W dequantized
-// in f32 first); each warp runs mma.sync m16n8k16 (bf16 in, f32
-// accumulate) over a 32x32 sub-tile. Rows are padded by 8 elements so the
-// fragment loads of a warp hit 32 distinct banks. Ragged M, N and K are
-// masked while staging (zeros) and at the store.
+// 64 stages x and the W rows through shared memory as bf16; each warp
+// runs mma.sync m16n8k16 (bf16 in, f32 accumulate) over a 32x32 sub-tile.
+// Rows are padded by 8 elements so the fragment loads of a warp hit 32
+// distinct banks. Ragged M, N and K are masked while staging (zeros) and
+// at the store.
 
 constexpr int MM_M = 64;
 constexpr int MM_N = 64;
@@ -205,45 +206,6 @@ __device__ __forceinline__ void stage_dense(Tile& tile, const T* __restrict__ a,
       for (int j = 0; j < 8; ++j) v[j] = 0.f;
     }
     store8(&tile[r][c], v);
-  }
-}
-
-// Rows [n0, n0 + 64) x columns [k0, k0 + 64) of a quantized [N, K] matrix
-// (codes, scales, qbias as in dequant_word; scale and qbias rows SK >=
-// ceil(K/G) elements apart) into `tile`, dequantized in f32, then rounded
-// to bf16.
-template <int BITS, typename ST>
-__device__ __forceinline__ void stage_quant(Tile& tile, const uint32_t* __restrict__ codes,
-                                            const ST* __restrict__ scales,
-                                            const ST* __restrict__ qbias, float coeff,
-                                            int n0, int N, int K, int G, int SK, int k0,
-                                            int tid) {
-  constexpr int VPW = 32 / BITS;
-  constexpr int WPR = MM_K / VPW;  // code words per W row per chunk
-  const int words = K / VPW;
-  for (int i = tid; i < MM_N * WPR; i += MM_THREADS) {
-    const int r = i / WPR;
-    const int wc = i % WPR;
-    const int n = n0 + r;
-    const int kw = k0 / VPW + wc;
-    float wf[VPW];
-    if (n < N && kw < words) {
-      const ST* srow = scales + static_cast<size_t>(n) * SK;
-      const ST* brow = qbias != nullptr ? qbias + static_cast<size_t>(n) * SK : nullptr;
-      dequant_word<BITS, ST>(__ldg(codes + static_cast<size_t>(n) * words + kw),
-                             kw * VPW, G, srow, brow, coeff, wf);
-    } else {
-#pragma unroll
-      for (int j = 0; j < VPW; ++j) wf[j] = 0.f;
-    }
-    if constexpr (VPW == 8) {
-      store8(&tile[r][wc * 8], wf);
-    } else {
-      uint2 p;
-      p.x = pack_bf16x2(wf[0], wf[1]);
-      p.y = pack_bf16x2(wf[2], wf[3]);
-      *reinterpret_cast<uint2*>(&tile[r][wc * 4]) = p;
-    }
   }
 }
 

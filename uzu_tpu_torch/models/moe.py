@@ -31,7 +31,12 @@ import torch.nn.functional as F
 
 from ..config.model import MixtureOfExpertsConfig, SoftmaxRouting
 from ..ops.activation import gated_act_mul
-from ..ops.cuda.grouped_matmul import grouped_matmul, grouped_matmul_quant, route_layout
+from ..ops.cuda.grouped_matmul import (
+    grouped_bm,
+    grouped_matmul,
+    grouped_matmul_quant,
+    route_layout,
+)
 from ..ops.cuda.moe_gemv import moe_expert_gemv
 from ..quant.format import StackedQuantized, dequantize_stacked
 
@@ -92,15 +97,20 @@ def _gather_forward(cfg, params, xf, ids, probs):
 
 
 def _grouped_forward(cfg, params, x, ids, probs):
-    """Rows sorted by expert into 64-row tiles (`route_layout`); both expert
-    matmuls run over the routed rows only: K9 on an INT4 stack (f32 rows,
-    dequantized in the kernel), K10 on a dense one (rows in its dtype)."""
+    """Rows sorted by expert into tiles of the plan's bm rows
+    (`grouped_bm`, `route_layout`: 8-32 for an INT4 chunk of up to 32
+    rows whose staged x fits the kernel's shared memory, else 64); both
+    expert matmuls run over the routed rows only: K9 on an INT4 stack (f32
+    rows, dequantized in the kernel), K10 on a dense one (rows in its
+    dtype)."""
     w13, w2 = params["up"]["w"], params["down"]["w"]
     quant = isinstance(w13, StackedQuantized)
     mm = grouped_matmul_quant if quant else grouped_matmul
     k = cfg.num_active_routed_experts
+    bm = grouped_bm(x.shape[0], w13.bits if quant else 16,
+                    max(w13.shape[2], w2.shape[2]))
     order, dst, tile_expert, used, row_expert = route_layout(
-        ids.reshape(-1), cfg.num_routed_experts)
+        ids.reshape(-1), cfg.num_routed_experts, bm)
     row_dtype = torch.float32 if quant else w13.dtype
     x_pad = x.new_zeros((row_expert.shape[0], x.shape[1]), dtype=row_dtype)
     x_pad[dst] = x[order // k].to(row_dtype)
