@@ -5,7 +5,7 @@
     python3 chip_smoke.py --flash-only   # K3/K4's rows of phase 2 alone
     python3 chip_smoke.py --paged-only   # K5/K6's rows of phase 2 alone
     python3 chip_smoke.py --qmm-only     # K1/K2's rows with K7-K10's (shared headers)
-    python3 chip_smoke.py --grouped-only # K7-K10's rows alone, BN / kw sweeps, ptxas, row check
+    python3 chip_smoke.py --grouped-only # K7-K10's rows alone, BN / kw sweeps, ptxas, row checks
 
 Phases, each of which ends the run with a non-zero exit if it fails:
 
@@ -30,13 +30,17 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    the paged engine's 1536-token table, Dh 128, f32 q and pools; each row
    with its split count and ptxas registers and spills),
    K3/K5 again at gpt-oss's heads (8 per KV group, window 128, sinks),
-   K7/K8 expert-gather GEMV, K9/K10 grouped expert matmul (each row at its
-   launch plan's layout, bm and geometry, through the wrappers; with
-   --grouped-only also tile rows timed at every BN and small rows at every kw;
-   ptxas's registers and spills of every instantiation; and a row check:
-   at bm 8 each routed row's K9 output is bitwise the same whether its
-   tile holds 1 or 8 rows), and P1, the bisect probe's zero-padded
-   scale-block copy (bitwise equal).
+   K7/K8 expert-gather GEMV (each row with the launch plan it ran; with
+   --grouped-only also at every kw and against contiguous dealing; ptxas's
+   registers and spills of every instantiation; and a row check: each
+   pair's row at P = 4 and 16 is bitwise a one-pair launch, and an INT4
+   row is bitwise K9's small-route row at bm 8), K9/K10 grouped expert
+   matmul (each row at its launch plan's layout, bm and geometry, through
+   the wrappers; with --grouped-only also tile rows timed at every BN and
+   small rows at every kw; ptxas's registers and spills of every
+   instantiation; and a row check: at bm 8 each routed row's K9 output is
+   bitwise the same whether its tile holds 1 or 8 rows), and P1, the bisect
+   probe's zero-padded scale-block copy (bitwise equal).
 3. path INT4: the Llama-1B-shaped INT4 flagship (16 layers, d 2048, vocab
    128256, random weights from a seed) loaded with `LanguageModel.from_dir`
    on the card; greedy generation of 64 tokens after a 128-token prompt,
@@ -78,7 +82,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 10. whole-path checks: teacher-forced logits of a 32-token prompt through
     the 2-layer INT4 flagship and through the 4-layer INT4 gpt-oss model,
     on the card and on the host CPU (for gpt-oss, the CPU pass takes the
-    card's expert choices, each a router near-tie where they differ).
+    card's expert choices, each a router near-tie where they differ); a
+    profiler capture of the gpt-oss model's first prefill and decode chunk
+    (traces in `.port_cache/traces_gptoss/`), which must hold K9's tile
+    and K3 in prefill and K7 in decode.
 11. tools (`uzu_tpu_torch/tools/`), on the INT4 flagship: a profiler
     capture of its first prefill and decode chunk (UZU_TPU_PROFILE; the
     traces go to `.port_cache/traces/`), which must hold K1 and, in
@@ -156,12 +163,16 @@ NLL_TOL = 1e-2  # |NLL card - NLL host| in nats over a 256-token sequence
 # weight to bf16; the bf16-scale cell is held to an f32-scale oracle
 BISECT_LIMITS = {"prod_kg16": 1e-4, "prod_pad128": 1e-4, "prod_pad64": 1e-4,
                  "prod_pad32": 1e-4, "pad128_m64": 2e-2, "pad128_bf16": 2e-2}
-# kernel names (csrc/) that a profiler trace must hold, per phase
-TRACE_KERNELS = {"prefill": {"K1": ("qmm_small", "qmm_tile"), "K3": ("flash_fwd",)},
-                 "decode": {"K1": ("qmm_small",)}}
+# kernel names (csrc/) that a profiler trace must hold, per model and phase
+# (gpt-oss: a 128-token prefill takes K9's tile route, decode K7)
+TRACE_KERNELS = {
+    "flagship": {"prefill": {"K1": ("qmm_small", "qmm_tile"), "K3": ("flash_fwd",)},
+                 "decode": {"K1": ("qmm_small",)}},
+    "gptoss": {"prefill": {"K9": ("grouped_tile_q",), "K3": ("flash_fwd",)},
+               "decode": {"K7": ("moe_small",)}}}
 # kernel names whose launches and summed device ms each trace reports
 TRACED_PORT_KERNELS = ("qmm_small", "qmm_tile", "qmm_split_sum", "flash_fwd",
-                       "flash_combine")
+                       "flash_combine", "moe_small", "grouped_small", "grouped_tile_q")
 # rows of the product that the row-consistency check holds to the M=1 rows
 ROW_CHECK_M = (2, 4, 8)
 
@@ -176,7 +187,8 @@ class Timer:
     L2). Where the host takes longer to enqueue `fn` than the card takes to
     flush, the card waits between the events and that wait is counted. With
     `spin`, the card also spins SPIN_CYCLES after the flush, so the host has
-    enqueued `fn` before the start event fires: device time alone."""
+    enqueued `fn` before the start event fires: device time alone. Without
+    `flush`, what the last launch left in L2 stays there."""
 
     SPIN_CYCLES = 200_000  # ~0.1 ms at the H100's clock
 
@@ -184,12 +196,13 @@ class Timer:
         self.torch = torch
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
-    def ms(self, fn, reps: int = REPS, spin: bool = False) -> float:
+    def ms(self, fn, reps: int = REPS, spin: bool = False, flush: bool = True) -> float:
         torch = self.torch
         fn()
         events = []
         for _ in range(reps):
-            self.flush.zero_()
+            if flush:
+                self.flush.zero_()
             if spin:
                 torch.cuda._sleep(self.SPIN_CYCLES)
             a = torch.cuda.Event(enable_timing=True)
@@ -675,18 +688,21 @@ def _random_stack(torch, gen, e: int, n: int, k: int, bits: int, g: int = 32):
     return StackedQuantized(codes, scales, bits, g, -float(1 << (bits - 1)))
 
 
-def check_moe_gemv(torch, timer, rows) -> None:
+def check_moe_gemv(torch, timer, rows, sweep: bool = False) -> None:
     """K7 (INT4) and K8 (INT8) at gpt-oss's expert shapes: P = 4 pairs (one
-    token's 4 experts: single-stream decode) and P = 32 (8 slots)."""
-    from uzu_tpu_torch.ops.cuda.moe_gemv import (
-        gather_experts,
-        moe_expert_gemv,
-        moe_expert_gemv_plain,
-    )
+    token's 4 experts: single-stream decode) and P = 32 (8 slots), through
+    the wrapper the main path calls, each row with the `moe_gemv_plan` it
+    launched. With `sweep`, the P = 4 rows also time the launch with the
+    planes left in L2 by the one before, the plan's dealing at every kw,
+    and the plan against contiguous ranges of ceil(items / 2 SMs) items, in
+    turns (device ms)."""
+    from uzu_tpu_torch.ops.cuda import moe_gemv as mg
+    from uzu_tpu_torch.ops.cuda.flash_attention import num_sms
     from uzu_tpu_torch.quant.format import dequantize_stacked
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     e, active = GPTOSS["num_experts"], GPTOSS["num_active"]
+    sms = num_sms(torch.device("cuda"))
     for bits in (4, 8):
         for wname, n, k in EXPERT_SHAPES:
             sq = _random_stack(torch, gen, e, n, k, bits)
@@ -694,31 +710,87 @@ def check_moe_gemv(torch, timer, rows) -> None:
             for p in (4, 32):
                 ids = _routing(torch, gen, p // active, e, active).reshape(-1)
                 x = torch.randn((p, k), device="cuda", generator=gen)
-                got = moe_expert_gemv(sq, x, ids)
-                want = moe_expert_gemv_plain(sq, x, ids)
+                plan = mg.moe_gemv_plan(p, n, k, bits, sms)
+                got = mg.moe_expert_gemv(sq, x, ids)
+                want = mg.moe_expert_gemv_plain(sq, x, ids)
                 torch.cuda.synchronize()
                 abs_err, err = rel_err(got, want)
                 name = f"moe_gemv_int{bits}"
                 if not (err <= TOL):
-                    raise AssertionError(f"{name} {wname} P={p}: error {err:.3e} of RMS > {TOL}")
+                    raise AssertionError(f"{name} {wname} P={p} {plan}: error {err:.3e} of "
+                                         f"RMS > {TOL}")
                 distinct = len(set(ids.tolist()))
                 nbytes = distinct * plane_bytes + p * k * 4 + p * 4 + p * n * 4
                 b_ms, b_by = bound(nbytes, 2.0 * p * n * k)
                 # yardstick: one bmm over the pairs' pre-gathered, pre-dequantized
                 # bf16 planes (the gather not timed)
-                wg = dequantize_stacked(gather_experts(sq, ids), torch.bfloat16)
+                wg = dequantize_stacked(mg.gather_experts(sq, ids), torch.bfloat16)
                 xb = x.to(torch.bfloat16)[:, None, :]
-                ms, dev_ms = timer.both(lambda: moe_expert_gemv(sq, x, ids))
+                ms, dev_ms = timer.both(lambda: mg.moe_expert_gemv(sq, x, ids))
                 lib_ms, lib_dev_ms = timer.both(lambda: torch.bmm(xb, wg.transpose(1, 2)))
                 row = dict(kernel=name, weight=wname, N=n, K=k, E=e, P=p,
-                           distinct_experts=distinct, max_abs_err=abs_err, err_over_rms=err,
+                           distinct_experts=distinct, plan=plan._asdict(), kw=plan.kw,
+                           items=plan.items, blocks=plan.blocks,
+                           max_abs_err=abs_err, err_over_rms=err,
                            tol=TOL, ms=ms, device_ms=dev_ms,
-                           plain_ms=timer.ms(lambda: moe_expert_gemv_plain(sq, x, ids), 3),
+                           plain_ms=timer.ms(lambda: mg.moe_expert_gemv_plain(sq, x, ids), 3),
                            library_ms=lib_ms, library_device_ms=lib_dev_ms,
                            bound_ms=b_ms, bound_by=b_by)
+                if sweep and p == 4:
+                    def at(pl):
+                        return functools.partial(mg.launch_moe_gemv, sq, x, ids, pl)
+                    row["warm_l2_device_ms"] = timer.ms(at(plan), spin=True, flush=False)
+                    row["kw_device_ms"] = {
+                        kw: timer.ms(at(mg.plan_at_kw(p, n, kw, sms)), spin=True)
+                        for kw in (1, 2, 4, 8)}
+                    b = min(plan.items, 2 * sms)
+                    even = plan._replace(blocks=b, first=b, per_first=-(-plan.items // b),
+                                         per_second=0)
+                    turns = row["deal_device_ms"] = {"paired": [], "contiguous": []}
+                    for pl in (plan, even, even, plan):  # in turns: A, B, B, A
+                        turns["paired" if pl is plan else "contiguous"].append(
+                            timer.ms(at(pl), spin=True))
                 rows.append(row)
                 log("KERNEL " + json.dumps(row))
                 del wg
+
+
+def check_moe_rows(torch, info: dict) -> None:
+    """K7/K8 sum each pair's row on its own: (a) at P = 4 and 16 each row
+    equals, bit for bit, a one-pair launch of that pair (bits 4 and 8, up
+    and down); (b) an INT4 row of K7 equals K9's small-route row of the same
+    x row and expert (`grouped_matmul_quant` at bm 8 over `route_layout` of
+    the same pairs, distinct experts: one row per tile)."""
+    from uzu_tpu_torch.ops.cuda.grouped_matmul import grouped_matmul_quant, route_layout
+    from uzu_tpu_torch.ops.cuda.moe_gemv import moe_expert_gemv
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    e = GPTOSS["num_experts"]
+    out = []
+    for bits in (4, 8):
+        for wname, n, k in EXPERT_SHAPES:
+            sq = _random_stack(torch, gen, e, n, k, bits)
+            for p in (4, 16):
+                ids = torch.randperm(e, device="cuda", generator=gen)[:p]
+                x = torch.randn((p, k), device="cuda", generator=gen)
+                got = moe_expert_gemv(sq, x, ids)
+                ones = torch.cat([moe_expert_gemv(sq, x[i:i + 1], ids[i:i + 1])
+                                  for i in range(p)])
+                row = dict(bits=bits, weight=wname, N=n, K=k, P=p,
+                           bitwise_one_pair=bool(torch.equal(got, ones)))
+                if bits == 4:
+                    order, dst, te, used, _ = route_layout(ids, e, 8)
+                    x_pad = torch.zeros((te.shape[0] * 8, k), device="cuda")
+                    x_pad[dst] = x[order]
+                    k9 = torch.empty_like(got)
+                    k9[order] = grouped_matmul_quant(x_pad, sq, te, used)[dst]
+                    row["bitwise_k9_bm8"] = bool(torch.equal(got, k9))
+                out.append(row)
+    info["moe_rows"] = out
+    log("MOE_ROWS " + json.dumps(out))
+    bad = [r for r in out if not all(v for key, v in r.items() if key.startswith("bitwise"))]
+    if bad:
+        raise AssertionError(f"K7/K8 rows depend on the other pairs or differ from K9's: {bad}")
 
 
 # K9's rows: (T routed rows, bm) at the plan's layout of S = T / 4 rows (the
@@ -1786,26 +1858,26 @@ def trace_device_time(path: str) -> tuple[dict, float, float]:
     return kernels, busy / 1e3, (stop - start) / 1e3
 
 
-def tools_profile(torch, lm16, info: dict) -> None:
+def tools_profile(torch, lm, model: str, vocab: int, info: dict) -> None:
     """One greedy generation of GEN_TOKENS after a GEN_PROMPT-token prompt
     with the prefill and decode captures armed: each phase must leave one
-    trace that holds the kernels TRACE_KERNELS names."""
+    trace that holds the kernels TRACE_KERNELS[model] names."""
     import shutil
 
     from uzu_tpu_torch.tools import profile
 
-    out_dir = os.path.join(REPO, ".port_cache", "traces")
+    out_dir = os.path.join(REPO, ".port_cache", "traces" if model == "flagship"
+                           else f"traces_{model}")
     shutil.rmtree(out_dir, ignore_errors=True)
     os.environ.update(UZU_TPU_PROFILE="prefill,decode", UZU_TPU_PROFILE_DIR=out_dir)
     profile.reset()
     try:
-        lm16.generate_list(prompt_tokens(GEN_PROMPT, FLAGSHIP["vocab_size"]), GEN_TOKENS,
-                           stop_token_ids=[])
+        lm.generate_list(prompt_tokens(GEN_PROMPT, vocab), GEN_TOKENS, stop_token_ids=[])
     finally:
         del os.environ["UZU_TPU_PROFILE"], os.environ["UZU_TPU_PROFILE_DIR"]
         profile.reset()
     out = {}
-    for phase, wanted in TRACE_KERNELS.items():
+    for phase, wanted in TRACE_KERNELS[model].items():
         found = [d for d in os.listdir(out_dir) if d.startswith(phase + "_")]
         if len(found) != 1:
             raise AssertionError(f"expected one {phase} trace in {out_dir}, found {found}")
@@ -1824,8 +1896,9 @@ def tools_profile(torch, lm16, info: dict) -> None:
             port_kernels={n: [sum(c for k, (c, _) in kernels.items() if n in k),
                               sum(t for k, (_, t) in kernels.items() if n in k)]
                           for n in TRACED_PORT_KERNELS})
-    info["tools_profile"] = out
-    log("TOOLS_PROFILE " + json.dumps(out))
+    key = "tools_profile" if model == "flagship" else f"tools_profile_{model}"
+    info[key] = out
+    log(f"{key.upper()} " + json.dumps(out))
 
 
 def tools_microbench(torch, lm16, info: dict) -> None:
@@ -1918,51 +1991,56 @@ def kernel_record(rows, info) -> list[dict]:
     K5/K6, one token's 4 experts of gpt-oss's up projection for K7/K8, the
     paged step's 32 routed rows of it for K9, a 1024-row chunk's 4096 for
     K10, the bisect probe's [256, 16] block for P1), with the launches of
-    the path that runs it; errors are the worst over every shape checked."""
+    the path that runs it and the csrc kernel of that shape; errors are the
+    worst over every shape checked."""
     spec = {
         "quant_matmul_int4": ("uzu_tpu_torch/csrc/quant_matmul.cu",
                               "uzu_tpu/ops/pallas/quant_matmul.py:183",
-                              dict(weight="up|gate", M=1, variant="symmetric"), "int4_path"),
+                              dict(weight="up|gate", M=1, variant="symmetric"), "int4_path",
+                              "qmm_small"),
         "quant_matmul_int8": ("uzu_tpu_torch/csrc/quant_matmul.cu",
                               "uzu_tpu/ops/pallas/quant_matmul.py:247",
-                              dict(weight="up|gate", M=1, variant="symmetric"), "int8_path"),
+                              dict(weight="up|gate", M=1, variant="symmetric"), "int8_path",
+                              "qmm_small"),
         "flash_attention": ("uzu_tpu_torch/csrc/flash_attention.cu",
                             "uzu_tpu/ops/pallas/flash_attention.py:111",
                             dict(S=256, C=1024, pos0=765, Dh=64, q="bf16", variant="plain"),
-                            "int4_path"),
+                            "int4_path", "flash_fwd"),
         "flash_attention_int8": ("uzu_tpu_torch/csrc/flash_attention.cu",
                                  "uzu_tpu/ops/pallas/flash_attention.py:132",
                                  dict(S=256, C=1024, pos0=765, Dh=64, q="bf16",
-                                      variant="plain"), "paged_int8"),
+                                      variant="plain"), "paged_int8", "flash_fwd"),
         "paged_attention": ("uzu_tpu_torch/csrc/paged_attention.cu",
                             "uzu_tpu/ops/pallas/paged_attention.py:76",
                             dict(page=512, H=32, Dh=64, q="bf16", lengths="uniform1024",
-                                 variant="plain"), "paged_int4"),
+                                 variant="plain"), "paged_int4", "paged_decode"),
         "paged_attention_int8": ("uzu_tpu_torch/csrc/paged_attention.cu",
                                  "uzu_tpu/ops/pallas/paged_attention.py:115",
                                  dict(page=512, Dh=64, q="bf16", lengths="uniform1024",
-                                      variant="plain"), "paged_int8"),
+                                      variant="plain"), "paged_int8", "paged_decode"),
         "moe_gemv_int4": ("uzu_tpu_torch/csrc/moe_gemv.cu",
                           "uzu_tpu/ops/pallas/moe_gemv.py:68",
-                          dict(weight="up", P=4), "gptoss_int4"),
+                          dict(weight="up", P=4), "gptoss_int4", "moe_small"),
         "moe_gemv_int8": ("uzu_tpu_torch/csrc/moe_gemv.cu",
                           "uzu_tpu/ops/pallas/moe_gemv.py:123",
-                          dict(weight="up", P=4), "gptoss_int8"),
+                          dict(weight="up", P=4), "gptoss_int8", "moe_small"),
         "grouped_matmul_int4": ("uzu_tpu_torch/csrc/grouped_matmul.cu",
                                 "uzu_tpu/ops/pallas/grouped_matmul.py:165",
-                                dict(weight="up", T=32, bm=8), "paged_gptoss"),
+                                dict(weight="up", T=32, bm=8), "paged_gptoss",
+                                "grouped_small"),
         "grouped_matmul": ("uzu_tpu_torch/csrc/grouped_matmul.cu",
                            "uzu_tpu/ops/pallas/grouped_matmul.py:67",
-                           dict(weight="up", T=4096), "gptoss_int8"),
+                           dict(weight="up", T=4096), "gptoss_int8",
+                           "grouped_tile_dense"),
         "scale_block_copy": ("uzu_tpu_torch/csrc/block_copy.cu", "tools/exp_qmm_bisect.py:78",
-                             dict(R=256, kg=16), "bisect"),
+                             dict(R=256, kg=16), "bisect", "block_copy"),
     }
     out = []
-    for name, (src, replaces, where, path) in spec.items():
+    for name, (src, replaces, where, path, kernel) in spec.items():
         mine = [r for r in rows if r["kernel"] == name]
         rep = next(r for r in mine if all(r[k] == v for k, v in where.items()))
         out.append(dict(
-            name=name, route="cuda", source=src, replaces=replaces,
+            name=name, route="cuda", source=src, kernel=kernel, replaces=replaces,
             launches=info[path]["launches"][name],
             max_abs_err=max(r["max_abs_err"] for r in mine),
             err_over_rms=max(r["err_over_rms"] for r in mine), tol=rep["tol"],
@@ -1974,6 +2052,7 @@ def kernel_record(rows, info) -> list[dict]:
                                                     "B", "page",
                                                     "lengths", "live_tokens", "E", "P", "T",
                                                     "Tp", "bm", "route", "kw", "bn",
+                                                    "items", "blocks",
                                                     "used_tiles", "distinct_experts",
                                                     "R", "kg", "width")}))
     return out
@@ -2019,6 +2098,8 @@ def main() -> int:
         timer, rows = Timer(torch), []
         if source == "quant_matmul":
             log("QMM_PTXAS " + json.dumps(template_usage(kbuild.BUILD_LOGS.get(source, ""), "qmm")))
+            log("MOE_PTXAS " + json.dumps(template_usage(kbuild.BUILD_LOGS.get("moe_gemv", ""),
+                                                         "moe")))
             check_quant_matmul(torch, timer, rows)
             check_qmm_rows(torch, {})
             check_moe_gemv(torch, timer, rows)
@@ -2026,7 +2107,10 @@ def main() -> int:
         elif source == "grouped_matmul":
             log("GROUPED_PTXAS " + json.dumps(template_usage(kbuild.BUILD_LOGS.get(source, ""),
                                                              "grouped")))
-            check_moe_gemv(torch, timer, rows)
+            log("MOE_PTXAS " + json.dumps(template_usage(kbuild.BUILD_LOGS.get("moe_gemv", ""),
+                                                         "moe")))
+            check_moe_gemv(torch, timer, rows, sweep=True)
+            check_moe_rows(torch, {})
             check_grouped_matmul(torch, timer, rows, sweep=True)
             check_grouped_rows(torch, {})
         elif source == "flash_attention":
@@ -2083,11 +2167,14 @@ def main() -> int:
     log("PAGED_PTXAS " + json.dumps(paged_usage))
     check_paged_attention(torch, timer, rows, paged_usage)
     check_paged_gptoss(torch, timer, rows, paged_usage)
+    info["moe_ptxas"] = template_usage(kbuild.BUILD_LOGS.get("moe_gemv", ""), "moe")
+    log("MOE_PTXAS " + json.dumps(info["moe_ptxas"]))
     check_moe_gemv(torch, timer, rows)
     info["grouped_ptxas"] = template_usage(kbuild.BUILD_LOGS.get("grouped_matmul", ""), "grouped")
     log("GROUPED_PTXAS " + json.dumps(info["grouped_ptxas"]))
     check_grouped_matmul(torch, timer, rows)
     check_grouped_rows(torch, info)
+    check_moe_rows(torch, info)
     check_block_copy(torch, timer, rows)
     del timer
     torch.cuda.empty_cache()
@@ -2114,9 +2201,11 @@ def main() -> int:
           "whole_path", info)
     phase("whole_path_gptoss", whole_path_check, torch, lm_oss, 4, GPTOSS["vocab_size"],
           "whole_path_gptoss", info)
+    phase("tools_profile_gptoss", tools_profile, torch, lm_oss, "gptoss", GPTOSS["vocab_size"],
+          info)
     del lm_oss
     torch.cuda.empty_cache()
-    phase("tools_profile", tools_profile, torch, lm16, info)
+    phase("tools_profile", tools_profile, torch, lm16, "flagship", FLAGSHIP["vocab_size"], info)
     phase("tools_microbench", tools_microbench, torch, lm16, info)
     phase("tools_step_breakdown", tools_step_breakdown, torch, dirs["llama1b_int4"], info)
     phase("tools_quality", tools_quality, torch, lm16, info)

@@ -444,22 +444,6 @@ grouped_mma(const XT* __restrict__ x, const int* __restrict__ tile_expert,
 // ---------------------------------------------------------------------------
 // Launchers
 
-constexpr int MAX_DEVICES = 64;
-
-// The dynamic shared-memory limit is per kernel and device: raise it where
-// a launch needs more than it was raised to (`limit`, one array per kernel
-// instantiation, records how far on each device).
-template <typename F>
-cudaError_t allow_smem(F* kernel, int bytes, int (&limit)[MAX_DEVICES]) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (bytes == 0 || (dev < MAX_DEVICES && limit[dev] >= bytes)) return cudaSuccess;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e == cudaSuccess && dev < MAX_DEVICES) limit[dev] = bytes;
-  return e;
-}
-
 struct QArgs {
   const void* x;
   const int* tile_expert;

@@ -2,7 +2,8 @@
 // qmm_tile in quant_matmul.cu, K9/K10's grouped tiles in
 // grouped_matmul.cu): the 128-byte swizzle and wgmma's shared-memory
 // descriptors, cp.async, mbarriers, TMA 2-D loads and their tensor maps,
-// and wgmma m64nNk16 (bf16 in, f32 accumulate) for N = 64, 128, 256.
+// wgmma m64nNk16 (bf16 in, f32 accumulate) for N = 64, 128, 256, and on
+// the host the raise of a kernel's dynamic shared-memory limit.
 
 #pragma once
 
@@ -230,6 +231,25 @@ inline cudaError_t bf16_tensor_map(CUtensorMap* map, const void* base, long long
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+
+constexpr int MAX_DEVICES = 64;
+
+// The dynamic shared-memory limit is per kernel and device: raise it where
+// a launch needs more than it was raised to (`limit`, one array per kernel
+// instantiation, records how far on each device).
+template <typename F>
+cudaError_t allow_smem(F* kernel, int bytes, int (&limit)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (bytes == 0 || (dev < MAX_DEVICES && limit[dev] >= bytes)) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess && dev < MAX_DEVICES) limit[dev] = bytes;
+  return e;
 }
 
 }  // namespace uzq

@@ -1,8 +1,8 @@
 // Dequantization into bf16 tensor-core operands, and the small-M
 // "swapped" tensor-core product built on it. Shared by K1/K2
-// (quant_matmul.cu: qmm_small, and qmm_tile's W tile) and K9
-// (grouped_matmul.cu: grouped_small on each routed expert's plane, and
-// grouped_tile's W tile).
+// (quant_matmul.cu: qmm_small, and qmm_tile's W tile), K7/K8 (moe_gemv.cu:
+// moe_small on each routed pair's expert plane) and K9 (grouped_matmul.cu:
+// grouped_small on each routed expert's plane, and grouped_tile's W tile).
 //
 // The small-M product (qmm_small's design; see quant_matmul.cu for what
 // bounds it). A warp owns 16 weight rows: the dequantized rows are the A
@@ -182,8 +182,8 @@ __device__ __forceinline__ void load_x(const XT* __restrict__ x, int M, int K, i
 // or f32), each chunk's fragments loaded a chunk ahead into registers and
 // put in the permuted k order by byte permutes. XStaged: bf16 rows that
 // stage_x put in shared memory in that order already, `ld` 16-byte units a
-// row; each fragment is loaded as it is used, so x holds no registers
-// across the chunk.
+// row (0: every row of the n8 operand reads row 0); each fragment is
+// loaded as it is used, so x holds no registers across the chunk.
 template <typename XT>
 struct XRows {
   static constexpr bool kStaged = false;
@@ -203,34 +203,44 @@ __host__ __device__ __forceinline__ int staged_ld(int K) {
 }
 
 // Rows [M, K] of x into shared memory as bf16, each 8 k in the order that
-// an INT4 word's pairs take them, (k0, k4), (k1, k5), (k2, k6), (k3, k7);
-// zeros from K to the row's last whole chunk.
-template <typename XT>
+// a BITS-bit code word's fragments take them: INT4's pairs (k0, k4), (k1,
+// k5), (k2, k6), (k3, k7); INT8's k order itself (a word's four codes are
+// one k-step's (k0, k1), (k2, k3)). Zeros from K to the row's last whole
+// INT4 chunk.
+template <int BITS = 4, typename XT>
 __device__ __forceinline__ void stage_x(uint4* __restrict__ s, int ld,
                                         const XT* __restrict__ x, int M, int K) {
+  static_assert(BITS == 4 || BITS == 8, "INT4 or INT8 fragment order");
   const int units = ld - 1;
   for (int i = threadIdx.x; i < M * units; i += blockDim.x) {
     const int r = i / units;
     const int k = 8 * (i - r * units);
     const uint4 v = k < K ? load_x8(x + static_cast<size_t>(r) * K + k)
                           : make_uint4(0u, 0u, 0u, 0u);
-    s[r * ld + k / 8] = make_uint4(__byte_perm(v.x, v.z, 0x5410), __byte_perm(v.x, v.z, 0x7632),
-                                   __byte_perm(v.y, v.w, 0x5410), __byte_perm(v.y, v.w, 0x7632));
+    if constexpr (BITS == 4) {
+      s[r * ld + k / 8] = make_uint4(__byte_perm(v.x, v.z, 0x5410),
+                                     __byte_perm(v.x, v.z, 0x7632),
+                                     __byte_perm(v.y, v.w, 0x5410),
+                                     __byte_perm(v.y, v.w, 0x7632));
+    } else {
+      s[r * ld + k / 8] = v;
+    }
   }
 }
 
 // Row block `rb`'s share of out[M, N] = x[M, K] * W[N, K]^T (M <= 8 NT):
 // warp w takes row tile w / kw of the block's SM_WARPS / kw (16-row tiles
 // rb * SM_WARPS / kw, ...) and K share kq = w % kw (chunks kq, kq + kw, ...
-// of CK each). x is an XRows or (INT4 only) an XStaged; codes / scales /
-// qbias are W's [N, ...] rows; qbias nullptr for a coefficient tensor.
-template <int BITS, typename ST, int NT, typename XS>
+// of CK each). x is an XRows or an XStaged (staged by stage_x<BITS>);
+// codes / scales / qbias are W's [N, ...] rows; qbias nullptr for a
+// coefficient tensor. GC: the group size G where the caller fixes it at
+// compile time (0: G as passed).
+template <int BITS, typename ST, int NT, int GC = 0, typename XS>
 __device__ __forceinline__ void small_rows(const XS xs, const uint8_t* __restrict__ codes,
                                            const ST* __restrict__ scales,
                                            const ST* __restrict__ qbias, float coeff,
                                            float* __restrict__ out, int M, int N, int K, int G,
                                            int SK, int vec16, int kw, int rb) {
-  static_assert(BITS == 4 || !XS::kStaged, "x is staged in the INT4 fragment order");
   using Geo = SmallGeo<BITS>;
   __shared__ float red[SM_WARPS][4 * NT][32];
   const int warp = threadIdx.x >> 5;
@@ -243,8 +253,9 @@ __device__ __forceinline__ void small_rows(const XS xs, const uint8_t* __restric
   const bool rok[2] = {rows[0] < N, rows[1] < N};
   const int row_bytes = K * BITS / 8;
   const int nchunks = (K + Geo::CK - 1) / Geo::CK;
-  const int glast = (K - 1) / G;
-  const bool one_group = G % Geo::SPAN == 0;  // a lane's span of a chunk is one group
+  const int gsize = GC > 0 ? GC : G;
+  const int glast = (K - 1) / gsize;
+  const bool one_group = gsize % Geo::SPAN == 0;  // a lane's span of a chunk is one group
   const bool stored = qbias != nullptr;
 
   float acc[NT][4];
@@ -267,7 +278,7 @@ __device__ __forceinline__ void small_rows(const XS xs, const uint8_t* __restric
           cw[u][r] = load_codes(codes, rows[r], row_bytes, kb * BITS / 8, rok[r] && c < nchunks,
                                 vec16);
           if (one_group) {
-            raw_group<ST>(scales, qbias, rows[r], rok[r], SK, kb, G, glast, sr[u][r],
+            raw_group<ST>(scales, qbias, rows[r], rok[r], SK, kb, gsize, glast, sr[u][r],
                           br[u][r]);
           }
         }
@@ -304,8 +315,8 @@ __device__ __forceinline__ void small_rows(const XS xs, const uint8_t* __restric
 #pragma unroll
             for (int r = 0; r < 2; ++r) {
               ST sv, bv;
-              raw_group<ST>(scales, qbias, rows[r], rok[r], SK, kb + q * Geo::VPW, G, glast,
-                            sv, bv);
+              raw_group<ST>(scales, qbias, rows[r], rok[r], SK, kb + q * Geo::VPW, gsize,
+                            glast, sv, bv);
               g[r].set(sv, bv, stored, coeff);
             }
           }
@@ -345,9 +356,18 @@ __device__ __forceinline__ void small_rows(const XS xs, const uint8_t* __restric
             const uint32_t a[4] = {p0[0], p1[0], p0[1], p1[1]};
 #pragma unroll
             for (int t = 0; t < NT; ++t) {
-              const uint32_t* xw = reinterpret_cast<const uint32_t*>(&xv[t][q >> 1]);
-              const uint32_t b[2] = {xw[2 * (q & 1)], xw[2 * (q & 1) + 1]};
-              mma_16816(acc[t], a, b);
+              // x[4q .. 4q+3] of row t*8+gid: words 2 (q & 1) and 2 (q & 1) + 1
+              // of the 8 k at 8 (q >> 1)
+              if constexpr (XS::kStaged) {
+                const uint4 x8 = xs.s[(t * 8 + gid) * xs.ld + kb / 8 + (q >> 1)];
+                const uint32_t* xw = reinterpret_cast<const uint32_t*>(&x8);
+                const uint32_t b[2] = {xw[2 * (q & 1)], xw[2 * (q & 1) + 1]};
+                mma_16816(acc[t], a, b);
+              } else {
+                const uint32_t* xw = reinterpret_cast<const uint32_t*>(&xv[t][q >> 1]);
+                const uint32_t b[2] = {xw[2 * (q & 1)], xw[2 * (q & 1) + 1]};
+                mma_16816(acc[t], a, b);
+              }
             }
           }
         }

@@ -1,8 +1,8 @@
 // Device building blocks shared by the quantized matmul kernels: the
-// warp-per-row dequant GEMV (K1/K2's f32 route in quant_matmul.cu, K7/K8
-// in moe_gemv.cu) and the 64x64 mma.sync tensor-core tile (K10's mma route
-// in grouped_matmul.cu); the bf16 packing and mma.sync that qmm_small.cuh
-// builds on.
+// warp-per-row dequant GEMV (K1/K2's f32 route in quant_matmul.cu) and the
+// 64x64 mma.sync tensor-core tile (K10's mma route in grouped_matmul.cu);
+// the bf16 packing and mma.sync that qmm_small.cuh builds on (K1/K2's
+// qmm_small, K7/K8's moe_small, K9's grouped_small).
 //
 // Codes are u8 packed little-endian along K (4-bit: low nibble = even k),
 // read as 32-bit words; one word holds 8 INT4 or 4 INT8 values of one

@@ -32,14 +32,20 @@ from ...quant.format import StackedQuantized, dequantize_stacked
 from .build import LAUNCHES, check, library
 from .flash_attention import num_sms
 from .moe_gemv import gather_experts
-from .quant_matmul import GEMV_MAX_M, SMALL_ROWS, SMALL_WARPS, small_chunk
+from .quant_matmul import (
+    GEMV_MAX_M,
+    SMALL_ROWS,
+    SMALL_STAGE_MAX,
+    SMALL_UNROLL,
+    SMALL_WARPS,
+    small_kw,
+    staged_bytes,
+)
 
 GROUP_ROWS = 64  # rows per tile of the tile and mma routes (the JAX package's _GROUPED_BM)
 SMALL_BMS = (8, 16, 32)  # rows per tile of the small route: 1, 2 or 4 n8 operands
 MAX_TILES = 65535  # tiles a launch may hold (the mma route's grid.y)
-SMALL_UNROLL = 4  # chunks each small-route warp loads before it uses any (csrc SM_UNROLL)
 SMALL_BLOCKS_PER_SM = 2  # the small route's grid: blocks that walk the (tile, row block) items
-SMALL_STAGE_MAX = 200 * 1024  # shared memory a tile's staged x may take on the small route
 # weight rows per tile-route block the plan may take, largest first, and
 # the blocks of each that fit on an SM at once (shared memory: QTileGeo /
 # DTileGeo in csrc). K9's dequantization favours BN 128 at every T; K10
@@ -85,23 +91,6 @@ def grouped_bm(s: int, bits: int, k: int) -> int:
         if staged_bytes(bm, k) <= SMALL_STAGE_MAX:
             return bm
     return GROUP_ROWS
-
-
-def small_kw(k: int) -> int:
-    """Warps over K per 16-row tile on the small route, from K alone (so a
-    row's sum never depends on the other rows or on N): doubles while each
-    warp keeps two batches of SMALL_UNROLL chunks or more."""
-    chunks = -(-k // small_chunk(4))
-    kw = 1
-    while kw < SMALL_WARPS and -(-chunks // (2 * kw)) >= 2 * SMALL_UNROLL:
-        kw *= 2
-    return kw
-
-
-def staged_bytes(bm: int, k: int) -> int:
-    """Shared memory of a small-route tile's staged x: bm rows of K rounded
-    up to a whole 128-wide chunk, bf16, plus 16 bytes a row (csrc staged_ld)."""
-    return bm * (-(-k // small_chunk(4)) * small_chunk(4) * 2 + 16)
 
 
 def expected_tiles(tiles: int, bm: int, e: int) -> int:

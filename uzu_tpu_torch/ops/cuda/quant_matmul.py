@@ -35,6 +35,8 @@ GEMV_MAX_M = 32  # rows up to which the small-M routes run (csrc's GEMV_MAX_M)
 SMALL_WARPS = 8  # warps per qmm_small block
 SMALL_ROWS = 16  # weight rows per qmm_small warp: mma.sync's M
 SMALL_WARPS_PER_SM = 16  # qmm_small warps the plan asks for per SM
+SMALL_UNROLL = 4  # chunks each small-M warp loads before it uses any (csrc SM_UNROLL)
+SMALL_STAGE_MAX = 200 * 1024  # shared memory the routed small-M kernels' staged x may take
 TILE_N = 128  # weight rows per qmm_tile block: wgmma's N
 TILE_K = 64  # k per qmm_tile chunk
 TILE_MIN_CHUNKS = 4  # fewest chunks a split of K takes
@@ -58,6 +60,25 @@ class QmmPlan(NamedTuple):
 def small_chunk(bits: int) -> int:
     """k per qmm_small chunk: 4 lanes x 16 bytes of codes."""
     return 512 // bits
+
+
+def small_kw(k: int, bits: int = 4) -> int:
+    """Warps over K per 16-row tile of the routed small-M kernels (K7/K8's
+    moe_small, K9's grouped_small), from K and the code width alone (so a
+    row's sum never depends on the other rows, on N or on P): doubles while
+    each warp keeps two batches of SMALL_UNROLL chunks or more."""
+    chunks = -(-k // small_chunk(bits))
+    kw = 1
+    while kw < SMALL_WARPS and -(-chunks // (2 * kw)) >= 2 * SMALL_UNROLL:
+        kw *= 2
+    return kw
+
+
+def staged_bytes(rows: int, k: int) -> int:
+    """Shared memory of `rows` rows of x staged for the routed small-M
+    kernels: K rounded up to a whole 128-wide chunk, bf16, plus 16 bytes a
+    row (csrc staged_ld)."""
+    return rows * (-(-k // small_chunk(4)) * small_chunk(4) * 2 + 16)
 
 
 def qmm_plan(m: int, n: int, k: int, bits: int, sms: int, x_bf16: bool = True) -> QmmPlan:
