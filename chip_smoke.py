@@ -10,7 +10,7 @@
 Phases, each of which ends the run with a non-zero exit if it fails:
 
 1. build: compile every CUDA kernel of the port from `uzu_tpu_torch/csrc/`
-   (one nvcc per source, in parallel) while the four models are
+   (one nvcc per source, in parallel) while the seven models are
    synthesized (one process each); print the card's name and power limit.
 2. kernels: each kernel against its plain PyTorch version on the card at
    the shapes its path gives it (bf16 inputs or INT8 codes, f32
@@ -25,7 +25,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    attention (bf16 / INT8 cache; at the end of the cache, the main path's
    first chunk, the split-KV shapes S=16/64 over 4096 slots, Dh 128, f32 q;
    each row with its split count and the kernel's ptxas registers and
-   spills), K5/K6 paged decode attention (bf16 / INT8 pools of 16-512-token
+   spills; and at the hybrid's heads, 8 over 2 groups at Dh 32, its first
+   128-row chunk included), K1 at the hybrid's GDN input projection
+   (N = 3088, a partial last 128-column tile, K = 1280; M = 1, 4, 128), K5/K6 paged decode attention (bf16 / INT8 pools of 16-512-token
    pages, uniform and ragged lengths up to 4096, window, soft cap, sinks,
    the paged engine's 1536-token table, Dh 128, f32 q and pools; each row
    with its split count and ptxas registers and spills),
@@ -40,7 +42,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    small rows at every kw; ptxas's registers and spills of every
    instantiation; and a row check: at bm 8 each routed row's K9 output is
    bitwise the same whether its tile holds 1 or 8 rows), and P1, the bisect
-   probe's zero-padded scale-block copy (bitwise equal).
+   probe's zero-padded scale-block copy (bitwise equal), timed beside an
+   empty kernel's launch (the launch floor).
 3. path INT4: the Llama-1B-shaped INT4 flagship (16 layers, d 2048, vocab
    128256, random weights from a seed) loaded with `LanguageModel.from_dir`
    on the card; greedy generation of 64 tokens after a 128-token prompt,
@@ -98,6 +101,29 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     2e-2 relative L2); and the quant-matmul bisect probe (P1's block read
     exact, K1 at a small group count and with zero-padded scale rows
     within its limits).
+12. sampled decoding on the INT4 flagship: a single stream with
+    temperature, top-k, top-p, min-p and a repetition penalty, and the
+    dense `BatchEngine` with three requests each sampling with its own
+    parameters; each run twice with the same seeds and identical tokens,
+    and every sampled token inside the masks the plain path computes from
+    the logits the card sampled it from.
+13. hybrid: the Qwen3.5-class model at full width (the JAX package's
+    bench_qwen08.DIMS: 24 layers, attention every 4th at Dh 32, d 1280,
+    FFN 4608, GDN 8 heads over 4 groups, dk = dv = 128, vocab 128256;
+    INT4 g32 linears and tied embedding, random weights from a seed): a
+    128-token prompt (one 256-row bucket, the chunked GDN core) and 64
+    greedy tokens, twice, identical; K1 and K3 launched; its first 4
+    layers prefilled in one chunk against token at a time (TOL relative
+    L2), and on the card against the host CPU with f32 activations (TOL)
+    and with the served bf16 ones (each measured against the host's f32
+    pass, the card at most F32_REF_RATIO times the host's distance);
+    LFM2-style (ShortConv) and Mamba2 hybrids at 4 layers, d 1024, card
+    against host the same way; `BatchEngine` (4 slots, 8-step chunks) over the
+    full-width hybrid: 6 greedy requests of 17-300 prompt tokens, 32
+    tokens each, held to the single stream under phase 4's rule, K1 at
+    M = 4; a planted fault (the batched step reads the next slot's
+    recurrent state) that the check must fail; a profiler capture of its
+    first prefill and decode chunk (`.port_cache/traces_hybrid/`).
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Full per-shape numbers also go to
@@ -136,6 +162,22 @@ GPTOSS = dict(model_dim=2880, num_heads=64, num_groups=8, head_dim=64, vocab_siz
               num_experts=32, num_active=4, expert_hidden_dim=2880, sliding_window=128,
               max_seq=8192)
 EXPERT_SHAPES = (("up", 5760, 2880), ("down", 2880, 2880))
+# the repo's Qwen3.5-0.8B-class hybrid (the JAX package's bench_qwen08.DIMS):
+# Gated DeltaNet mixers, GQA attention every 4th layer at the synthesizer's
+# hybrid defaults (8 heads over 2 groups, Dh 32), vocab 128256 tied
+QWEN08 = dict(num_layers=24, model_dim=1280, hidden_dim=4608, vocab_size=128256,
+              num_heads=8, num_groups=4, head_dim=128, value_head_dim=128,
+              kernel_size=4, attn_every=4)
+HYBRID_ATTN = dict(num_heads=8, num_groups=2, head_dim=32)
+# ShortConv and Mamba2 hybrids at 4 layers, d 1024 (their published widths
+# are not in the repository): LFM2's layout (attention every 3rd layer,
+# conv kernel 3) and Mamba2 mixers of 32 heads x 64 over a 128-wide state
+LFM2_4L = dict(num_layers=4, model_dim=1024, hidden_dim=4096, vocab_size=65536)
+MAMBA2_4L = dict(num_layers=4, model_dim=1024, hidden_dim=4096, vocab_size=65536,
+                 num_heads=32, num_groups=1, head_dim=64, state_dim=128)
+# the GDN input projection: 2 * 512 (q, k) + 1024 (v) + 1024 (z) + 2 * 8
+# (beta, a) outputs over d = 1280
+HYBRID_LINEAR_SHAPES = (("gdn_in", 3088, 1280),)
 GEN_PROMPT, GEN_TOKENS = 128, 64
 REPS = 10
 # a greedy step whose single-stream top-2 logit margin is below this may
@@ -157,7 +199,14 @@ GREEDY_FLOOR = 0.9
 ROUTER_MARGIN = 0.125
 PAGED_TOKENS = 64
 CONTROL_TOKENS = 16
+BATCHED_TOKENS = 32
+SAMPLED_TOKENS = 32
 NLL_TOL = 1e-2  # |NLL card - NLL host| in nats over a 256-token sequence
+# the hybrids' served bf16 logits at 4 layers, each measured against the
+# host's f32-activation pass: the card's distance may be at most this
+# multiple of the host's bf16 plain path's (on the H100 the Qwen3.5-class
+# model's read 3.00e-2 against 2.69e-2)
+F32_REF_RATIO = 1.5
 # the bisect probe's cells, each held to max abs error over RMS(oracle):
 # the f32 GEMV at M=1 is f32 throughout; at M=64 the tile rounds x and the
 # weight to bf16; the bf16-scale cell is held to an f32-scale oracle
@@ -169,7 +218,9 @@ TRACE_KERNELS = {
     "flagship": {"prefill": {"K1": ("qmm_small", "qmm_tile"), "K3": ("flash_fwd",)},
                  "decode": {"K1": ("qmm_small",)}},
     "gptoss": {"prefill": {"K9": ("grouped_tile_q",), "K3": ("flash_fwd",)},
-               "decode": {"K7": ("moe_small",)}}}
+               "decode": {"K7": ("moe_small",)}},
+    "hybrid": {"prefill": {"K1": ("qmm_small", "qmm_tile"), "K3": ("flash_fwd",)},
+               "decode": {"K1": ("qmm_small",)}}}
 # kernel names whose launches and summed device ms each trace reports
 TRACED_PORT_KERNELS = ("qmm_small", "qmm_tile", "qmm_split_sum", "flash_fwd",
                        "flash_combine", "moe_small", "grouped_small", "grouped_tile_q")
@@ -233,7 +284,10 @@ def rel_err(got, want) -> tuple[float, float]:
 # -- phase 2: kernels --------------------------------------------------------
 
 
-def check_quant_matmul(torch, timer, rows) -> None:
+def qmm_row(torch, timer, rows, w, wd, wname: str, m: int, variant: str, gen) -> None:
+    """One K1/K2 case: the kernel against its plain version on a random
+    [M, K] bf16 x (err/RMS <= TOL), its time, the plain version's, the
+    dequantized matmul as the yardstick, the bound and the launch plan."""
     from uzu_tpu_torch.ops.cuda.flash_attention import num_sms
     from uzu_tpu_torch.ops.cuda.quant_matmul import (
         plan_blocks,
@@ -241,54 +295,73 @@ def check_quant_matmul(torch, timer, rows) -> None:
         quant_matmul,
         quant_matmul_plain,
     )
+
+    n, k = wd.shape
+    bits = w.bits
+    x = torch.randn((m, k), device="cuda", generator=gen).to(torch.bfloat16)
+    got = quant_matmul(w, x)
+    want = quant_matmul_plain(w, x)
+    torch.cuda.synchronize()
+    abs_err, err = rel_err(got, want)
+    if not (err <= TOL):
+        raise AssertionError(f"quant_matmul int{bits} {wname} M={m} {variant}: "
+                             f"error {err:.3e} of RMS > {TOL}")
+    nbytes = (m * k * 2 + w.codes.numel() + w.scales.numel() * 2
+              + (w.qbias.numel() * 2 if w.qbias is not None else 0) + m * n * 4)
+    b_ms, b_by = bound(nbytes, 2.0 * m * n * k)
+    ms, dev_ms = timer.both(lambda: quant_matmul(w, x))
+    lib_ms, lib_dev_ms = timer.both(lambda: torch.matmul(x, wd.t()))
+    plan = qmm_plan(m, n, k, bits, num_sms(x.device))
+    row = dict(kernel=f"quant_matmul_int{bits}", weight=wname, N=n, K=k, M=m,
+               variant=variant, plan=plan._asdict(), blocks=plan_blocks(plan, m, n),
+               max_abs_err=abs_err, err_over_rms=err, tol=TOL, ms=ms, device_ms=dev_ms,
+               plain_ms=timer.ms(lambda: quant_matmul_plain(w, x), 3),
+               library_ms=lib_ms, library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by)
+    rows.append(row)
+    log("KERNEL " + json.dumps(row))
+
+
+def random_qweights(torch, gen, n: int, k: int, bits: int, g: int = 32):
+    """{variant: (QuantizedTensor, its bf16 dequantization)} over one draw
+    of random codes and scales: `symmetric` with the symmetric
+    coefficient, `stored_qbias` with a random qbias array."""
     from uzu_tpu_torch.quant.format import QuantizedTensor, dequantize
 
+    kg = -(-k // g)
+    codes = torch.randint(0, 256, (n, k * bits // 8), dtype=torch.uint8, device="cuda",
+                          generator=gen)
+    scales = (torch.rand((n, kg), device="cuda", generator=gen) * 0.01 + 0.001
+              ).to(torch.bfloat16)
+    qbias = (torch.randn((n, kg), device="cuda", generator=gen) * 0.01).to(torch.bfloat16)
+    out = {}
+    for variant in ("symmetric", "stored_qbias"):
+        w = (QuantizedTensor(codes, scales, None, bits, g, -float(1 << (bits - 1)))
+             if variant == "symmetric" else QuantizedTensor(codes, scales, qbias, bits, g))
+        out[variant] = (w, dequantize(w, torch.bfloat16))
+    return out
+
+
+def check_quant_matmul(torch, timer, rows) -> None:
+    """K1/K2 at the flagship's linears, both variants, M = 1 (single-stream
+    decode), 8 (a paged step of 8 slots) and 16/64/256 (prefill buckets)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    g = 32
     for bits in (4, 8):
         for wname, n, k in LINEAR_SHAPES:
-            codes = torch.randint(0, 256, (n, k * bits // 8), dtype=torch.uint8,
-                                  device="cuda", generator=gen)
-            scales = (torch.rand((n, k // g), device="cuda", generator=gen) * 0.01
-                      + 0.001).to(torch.bfloat16)
-            qbias = (torch.randn((n, k // g), device="cuda", generator=gen) * 0.01
-                     ).to(torch.bfloat16)
-            for variant in ("symmetric", "stored_qbias"):
-                if variant == "symmetric":
-                    w = QuantizedTensor(codes, scales, None, bits, g, -float(1 << (bits - 1)))
-                else:
-                    w = QuantizedTensor(codes, scales, qbias, bits, g)
-                wd = dequantize(w, torch.bfloat16)
-                # 1: single-stream decode; 8: a paged decode step of 8 slots;
-                # 16/64/256: the prefill buckets
+            for variant, (w, wd) in random_qweights(torch, gen, n, k, bits).items():
                 for m in (1, 8, 16, 64, 256):
-                    x = torch.randn((m, k), device="cuda", generator=gen).to(torch.bfloat16)
-                    got = quant_matmul(w, x)
-                    want = quant_matmul_plain(w, x)
-                    torch.cuda.synchronize()
-                    abs_err, err = rel_err(got, want)
-                    if not (err <= TOL):
-                        raise AssertionError(
-                            f"quant_matmul int{bits} {wname} M={m} {variant}: "
-                            f"error {err:.3e} of RMS > {TOL}")
-                    nbytes = (m * k * 2 + codes.numel() + scales.numel() * 2
-                              + (qbias.numel() * 2 if w.qbias is not None else 0)
-                              + m * n * 4)
-                    b_ms, b_by = bound(nbytes, 2.0 * m * n * k)
-                    ms, dev_ms = timer.both(lambda: quant_matmul(w, x))
-                    lib_ms, lib_dev_ms = timer.both(lambda: torch.matmul(x, wd.t()))
-                    plan = qmm_plan(m, n, k, bits, num_sms(x.device))
-                    row = dict(kernel=f"quant_matmul_int{bits}", weight=wname, N=n, K=k,
-                               M=m, variant=variant, plan=plan._asdict(),
-                               blocks=plan_blocks(plan, m, n), max_abs_err=abs_err,
-                               err_over_rms=err,
-                               tol=TOL, ms=ms, device_ms=dev_ms,
-                               plain_ms=timer.ms(lambda: quant_matmul_plain(w, x), 3),
-                               library_ms=lib_ms, library_device_ms=lib_dev_ms,
-                               bound_ms=b_ms, bound_by=b_by)
-                    rows.append(row)
-                    log("KERNEL " + json.dumps(row))
-                del wd
+                    qmm_row(torch, timer, rows, w, wd, wname, m, variant, gen)
+
+
+def check_quant_matmul_hybrid(torch, timer, rows) -> None:
+    """K1 at the hybrid's Gated DeltaNet input projection, N = 3088 (24
+    full 128-column tiles and a partial one of 16) by K = 1280: M = 1
+    (single-stream decode), 4 (the dense batch engine's 4-slot step) and
+    128 (the tile route's ragged last N tile)."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for wname, n, k in HYBRID_LINEAR_SHAPES:
+        w, wd = random_qweights(torch, gen, n, k, 4)["symmetric"]
+        for m in (1, 4, 128):
+            qmm_row(torch, timer, rows, w, wd, wname, m, "symmetric", gen)
 
 
 def check_qmm_rows(torch, info: dict) -> None:
@@ -982,6 +1055,36 @@ def check_attention_gptoss(torch, timer, rows, usage) -> None:
             flash_row(torch, timer, rows, usage, q, kc, vc, c - s - 3, variant, kw)
 
 
+def check_flash_hybrid(torch, timer, rows, usage) -> None:
+    """K3/K4 at the hybrid's attention heads (8 query heads over 2 KV
+    groups, Dh 32: the 64-byte-swizzled instantiation): its first prefill
+    chunk (S=128 from position 0 over a 1024-slot context) and a later one
+    at the end of the cache in every variant, a 16-row chunk over 4096
+    slots (split route), and f32 q."""
+    from uzu_tpu_torch.models.kv_cache import quantize_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    h, g, dh = HYBRID_ATTN["num_heads"], HYBRID_ATTN["num_groups"], HYBRID_ATTN["head_dim"]
+    sinks = torch.randn((h,), device="cuda", generator=gen)
+
+    def case(s, c, pos0, variants, dtype=torch.bfloat16, quant=False):
+        q, kc, vc = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
+                     for shape in ((s, h, dh), (c, g, dh), (c, g, dh)))
+        scales = {}
+        if quant:
+            (kc, ks), (vc, vs) = quantize_rows(kc.float()), quantize_rows(vc.float())
+            scales = dict(k_scales=ks, v_scales=vs)
+        for variant in variants:
+            flash_row(torch, timer, rows, usage, q, kc, vc, pos0, variant,
+                      dict(flash_kwargs(variant, sinks), **scales))
+
+    for quant in (False, True):
+        case(128, 1024, 0, ("plain",), quant=quant)
+        case(256, 1024, 765, FLASH_VARIANTS, quant=quant)
+        case(16, 4096, 4096 - 19, ("plain", "sinks"), quant=quant)
+        case(128, 1024, 0, ("plain",), dtype=torch.float32, quant=quant)
+
+
 def check_paged_gptoss(torch, timer, rows, usage) -> None:
     """K5 at gpt-oss's heads (8 per KV group, Dh 64, bf16 pools of 512-token
     pages): its window of 128 with sinks, and sinks alone, over 8 x 1024
@@ -1009,10 +1112,15 @@ def check_paged_gptoss(torch, timer, rows, usage) -> None:
 
 def check_block_copy(torch, timer, rows) -> None:
     """P1 at the bisect probe's shape, [256, 16] -> [256, 128] f32; the
-    copy must equal its plain version bit for bit."""
+    copy must equal its plain version bit for bit. Beside it, with the same
+    timer, an empty kernel's launch: the floor under any launch."""
     import torch.nn.functional as F
 
-    from uzu_tpu_torch.ops.cuda.block_copy import scale_block_copy, scale_block_copy_plain
+    from uzu_tpu_torch.ops.cuda.block_copy import (
+        empty_launch,
+        scale_block_copy,
+        scale_block_copy_plain,
+    )
 
     gen = torch.Generator(device="cuda").manual_seed(11)
     r, kg, width = 256, 16, 128
@@ -1026,8 +1134,12 @@ def check_block_copy(torch, timer, rows) -> None:
     b_ms, b_by = bound((r * kg + r * width) * 4, 0.0)
     ms, dev_ms = timer.both(lambda: scale_block_copy(s, width))
     lib_ms, lib_dev_ms = timer.both(lambda: F.pad(s, (0, width - kg)))
+    # the launch floor: an empty kernel, one launch, no memory traffic
+    floor_ms, floor_dev_ms = timer.both(lambda: empty_launch(s.device))
     row = dict(kernel="scale_block_copy", R=r, kg=kg, width=width, max_abs_err=abs_err,
                err_over_rms=err, tol=0.0, ms=ms, device_ms=dev_ms,
+               launch_floor_ms=floor_ms, launch_floor_device_ms=floor_dev_ms,
+               device_ms_over_floor=dev_ms / floor_dev_ms,
                plain_ms=timer.ms(lambda: scale_block_copy_plain(s, width), 3),
                library_ms=lib_ms, library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by)
     rows.append(row)
@@ -1037,14 +1149,38 @@ def check_block_copy(torch, timer, rows) -> None:
 # -- phases 3-10: the port's main paths -----------------------------------------
 
 
+def model_config(name: str):
+    """The LanguageModelConfig of one of the run's models."""
+    from uzu_tpu_torch.tools.synth import (
+        gptoss_config,
+        lfm2_config,
+        llama_config,
+        mamba2_hybrid_config,
+        qwen35_config,
+    )
+
+    if name.startswith("llama1b"):
+        return llama_config(**dict(FLAGSHIP, num_layers=16 if name == "llama1b_int4" else 2))
+    if name.startswith("gptoss"):
+        return gptoss_config(num_layers=4 if name == "gptoss_int4" else 2, **GPTOSS)
+    if name == "qwen08_int4":
+        return qwen35_config(**QWEN08)
+    if name == "lfm2_4l":
+        return lfm2_config(**LFM2_4L)
+    return mamba2_hybrid_config(**MAMBA2_4L)
+
+
 def synth_model(name: str) -> str:
     """Synthesize one of the run's models into .port_cache/<name>, unless a
     finished one is there: the Llama-shaped flagships (16 layers with INT4
-    linears, 2 with INT8; INT4 tied embedding; normal fill, seed 0) and
+    linears, 2 with INT8; INT4 tied embedding; normal fill, seed 0),
     gpt-oss at 4 layers with INT4 experts and at 2 with INT8 experts (bf16
-    attention and untied embeddings; raw-bytes fill, seed 0)."""
+    attention and untied embeddings; raw-bytes fill, seed 0), and the
+    hybrids (the Qwen3.5-class model at full width, LFM2- and Mamba2-style
+    ones at 4 layers; INT4 g32 linears and tied embedding; raw-bytes fill,
+    seed 0)."""
     from uzu_tpu_torch.config.model import IntSpec, Layout
-    from uzu_tpu_torch.tools.synth import gptoss_config, llama_config, synthesize
+    from uzu_tpu_torch.tools.synth import synthesize
 
     out = os.path.join(REPO, ".port_cache", name)
     if os.path.exists(os.path.join(out, "model.safetensors")):
@@ -1053,18 +1189,20 @@ def synth_model(name: str) -> str:
     def spec(bits):
         return IntSpec(bits=bits, group_size=32, is_symmetric=True, layout=Layout.OUTPUT_INPUT)
 
+    cfg = model_config(name)
     if name.startswith("llama1b"):
-        layers, bits = (16, 4) if name == "llama1b_int4" else (2, 8)
-        synthesize(llama_config(**dict(FLAGSHIP, num_layers=layers)), out, seed=0,
-                   linear_spec=spec(bits), embedding_spec=spec(4))
+        bits = 4 if name == "llama1b_int4" else 8
+        synthesize(cfg, out, seed=0, linear_spec=spec(bits), embedding_spec=spec(4))
+    elif name.startswith("gptoss"):
+        bits = 4 if name == "gptoss_int4" else 8
+        synthesize(cfg, out, seed=0, expert_spec=spec(bits), fill="fast")
     else:
-        layers, bits = (4, 4) if name == "gptoss_int4" else (2, 8)
-        synthesize(gptoss_config(num_layers=layers, **GPTOSS), out, seed=0,
-                   expert_spec=spec(bits), fill="fast")
+        synthesize(cfg, out, seed=0, linear_spec=spec(4), embedding_spec=spec(4), fill="fast")
     return out
 
 
-MODELS = ("llama1b_int4", "llama1b_int8_2l", "gptoss_int4", "gptoss_int8_2l")
+MODELS = ("llama1b_int4", "llama1b_int8_2l", "gptoss_int4", "gptoss_int8_2l", "qwen08_int4",
+          "lfm2_4l", "mamba2_4l")
 
 
 def prompt_tokens(n: int, vocab: int):
@@ -1759,10 +1897,10 @@ def control_moe_faults(torch, lm, info: dict) -> None:
         raise AssertionError(f"the routed stream check passed planted faults: {missed}")
 
 
-def first_layers(lm, layers: int, device: str):
+def first_layers(lm, layers: int, device: str, **kw):
     """`lm` cut to its first `layers` layers, as a LanguageModel on
     `device` with 1024 slots of context (its parameters shared where the
-    device is the same)."""
+    device is the same); `kw` goes to LanguageModel."""
     from uzu_tpu_torch.engine.engine import LanguageModel
 
     cfg = lm.config
@@ -1771,32 +1909,45 @@ def first_layers(lm, layers: int, device: str):
         tcfg, layer_configs=tcfg.layer_configs[:layers]))
     return LanguageModel(dataclasses.replace(cfg, decoder_config=dcfg),
                          dict(lm.params, layers=lm.params["layers"][:layers]),
-                         device=device, max_context=1024)
+                         device=device, max_context=1024, **kw)
 
 
-def whole_path_check(torch, lm, layers: int, vocab: int, key: str, info: dict) -> None:
+def whole_path_check(torch, lm, layers: int, vocab: int, key: str, info: dict,
+                     f32: bool = False) -> None:
     """Teacher-forced logits of the first `layers` layers of `lm` for a
     32-token prompt, on the card and through the port's plain path on the
     host CPU. For an MoE model the CPU pass takes the card's expert
     choices (each a near-tie of its own router, check_routing; a flipped
     expert would move its row far past the tolerance), and the free CPU
-    pass is reported beside it."""
+    pass is reported beside it.
+
+    With `f32` (the hybrids) the two passes held to TOL carry f32
+    activations (the embedding rows upcast, so every layer and kernel runs
+    its f32 route): in bf16 each layer's rounding flips add ~1e-2 of
+    relative L2 wherever the two paths round differently, and at 4 layers
+    the host's bf16 plain path alone lies ~2.7e-2 from the f32 one.
+    The served bf16 passes are then measured against that f32 host pass:
+    the card's distance may be at most F32_REF_RATIO times the host's."""
+    import uzu_tpu_torch.models.decoder as dec
     import uzu_tpu_torch.models.moe as moe
-    from uzu_tpu_torch.models.decoder import decoder_forward
 
     toks = prompt_tokens(32, vocab)
     card_routes = []
     real = moe.router_topk
+    real_embed = dec.embed
 
-    def forward(dev, router):
+    def forward(dev, router, upcast=False):
         lm2 = first_layers(lm, layers, dev)
         t = torch.as_tensor(toks, dtype=torch.int64, device=dev)
         moe.router_topk = router
+        if upcast:
+            dec.embed = lambda cfg, params, tokens: real_embed(cfg, params, tokens).float()
         try:
-            out, _ = decoder_forward(lm2.decoder_config, lm2.params, t, lm2.new_state(),
-                                     last_only=False)
+            out, _ = dec.decoder_forward(lm2.decoder_config, lm2.params, t, lm2.new_state(),
+                                         last_only=False)
         finally:
             moe.router_topk = real
+            dec.embed = real_embed
         return out.float().cpu()
 
     def recording(c, p, x):
@@ -1804,16 +1955,23 @@ def whole_path_check(torch, lm, layers: int, vocab: int, key: str, info: dict) -
         card_routes.append(out[0].cpu())
         return out
 
-    card = forward("cuda", recording)
+    card = forward("cuda", recording, f32)
     replay = iter(card_routes)
     pinned, gaps = pinned_router(torch, lambda x: next(replay))
-    host = forward("cpu", pinned)
+    host = forward("cpu", pinned, f32)
 
     def rel(a, b):
         return ((a - b).norm() / b.norm()).item()
 
     info[key] = dict(tokens=len(toks), layers=layers, rel_l2=rel(card, host), tol=TOL,
+                     activations="f32" if f32 else "bf16",
                      finite=bool(torch.isfinite(card).all()))
+    if f32:
+        card_bf16, host_bf16 = forward("cuda", real), forward("cpu", real)
+        info[key].update(rel_l2_bf16=rel(card_bf16, host_bf16),
+                         card_bf16_vs_f32_host=rel(card_bf16, host),
+                         host_bf16_vs_f32_host=rel(host_bf16, host),
+                         f32_ref_ratio=F32_REF_RATIO)
     if card_routes:
         rg = torch.cat(gaps).double().tolist()
         info[key].update(routed_rows=len(rg), router_flips=sum(g > 0 for g in rg),
@@ -1823,8 +1981,299 @@ def whole_path_check(torch, lm, layers: int, vocab: int, key: str, info: dict) -
     if not (info[key]["rel_l2"] <= TOL) or not info[key]["finite"]:
         raise AssertionError(f"{key}: card vs CPU logits: relative L2 "
                              f"{info[key]['rel_l2']:.3e} > {TOL}")
+    if f32 and not (info[key]["card_bf16_vs_f32_host"]
+                    <= F32_REF_RATIO * info[key]["host_bf16_vs_f32_host"]):
+        raise AssertionError(f"{key}: the card's bf16 logits lie farther from the f32 host "
+                             f"pass than {F32_REF_RATIO}x the host's bf16 logits do")
     if card_routes:
         check_routing([dict(max_router_gap=info[key]["max_router_gap"])])
+
+
+# -- phases 11-13: the hybrid recurrent families, dense batching, sampling ---------
+
+
+def path_hybrid(torch, model_dir: str, info: dict):
+    """The Qwen3.5-class hybrid at full width (18 Gated DeltaNet layers, 6
+    attention layers at Dh 32): GEN_TOKENS greedy tokens after a
+    GEN_PROMPT-token prompt, twice, identical; the 128-row prefill runs
+    the chunked GDN core; K1 and K3 launched."""
+    from uzu_tpu_torch.engine.engine import LanguageModel
+
+    lm = LanguageModel.from_dir(model_dir, device="cuda", max_context=4096)
+    single_stream_run(torch, lm, QWEN08["vocab_size"], "hybrid_path",
+                      ("quant_matmul_int4", "flash_attention"), info)
+    return lm
+
+
+def hybrid_chunking_check(torch, lm, info: dict) -> None:
+    """The hybrid's first 4 layers (3 GDN, 1 attention) on the card: a
+    128-token prompt prefilled in one 256-row bucket (the chunked cores)
+    against the same prompt fed one token at a time (the per-token
+    recurrence); the last logits within TOL relative L2."""
+    prompt = prompt_tokens(GEN_PROMPT, QWEN08["vocab_size"])
+    chunked = first_layers(lm, 4, "cuda")
+    stepped = first_layers(lm, 4, "cuda", prefill_buckets=(1,))
+    a, sa = chunked.prefill(chunked.new_state(), prompt)
+    b, sb = stepped.prefill(stepped.new_state(), prompt)
+    rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
+    state_rel = max(((x.float() - y.float()).norm() / y.float().norm()).item()
+                    for la, lb in zip(sa["layers"], sb["layers"]) if "ssm" in la
+                    for x, y in ((la["ssm"], lb["ssm"]), (la["conv"], lb["conv"])))
+    info["hybrid_chunking"] = dict(prompt=len(prompt), layers=4, rel_l2=rel,
+                                   state_rel_l2_max=state_rel, tol=TOL,
+                                   finite=bool(torch.isfinite(a).all()))
+    log("HYBRID_CHUNKING " + json.dumps(info["hybrid_chunking"]))
+    if not (rel <= TOL) or not info["hybrid_chunking"]["finite"]:
+        raise AssertionError(f"hybrid: chunked vs token-at-a-time prefill: relative L2 "
+                             f"{rel:.3e} > {TOL}")
+
+
+def path_recurrent_families(torch, dirs: dict, info: dict) -> None:
+    """ShortConv (LFM2-style) and Mamba2 hybrids at 4 layers, d 1024, on
+    the card against the host CPU (teacher-forced logits of a 32-token
+    prompt with f32 activations within TOL relative L2, the served bf16
+    ones against those, see whole_path_check), with 16 greedy tokens each."""
+    from uzu_tpu_torch.engine.engine import LanguageModel
+
+    for key, name, vocab in (("lfm2", "lfm2_4l", LFM2_4L["vocab_size"]),
+                             ("mamba2", "mamba2_4l", MAMBA2_4L["vocab_size"])):
+        lm = LanguageModel.from_dir(dirs[name], device="cuda", max_context=1024)
+        toks = lm.generate_list(prompt_tokens(40, vocab), 16, stop_token_ids=[])
+        if len(toks) != 16:
+            raise AssertionError(f"{key}: expected 16 tokens, got {len(toks)}")
+        whole_path_check(torch, lm, 4, vocab, f"whole_path_{key}", info, True)
+        info[f"whole_path_{key}"]["tokens_head"] = toks
+        del lm
+        torch.cuda.empty_cache()
+
+
+def batched_prompts(vocab: int):
+    """6 prompts of 17 to 300 tokens."""
+    import numpy as np
+
+    return [((np.arange(n) * (29 + 2 * i) + 53 * i + 5) % vocab).tolist()
+            for i, n in enumerate((17, 300, 64, 129, 33, 200))]
+
+
+def run_batched(torch, lm, prompts, tokens: int):
+    """The dense BatchEngine (4 slots, 8-step chunks) over `prompts`, each
+    asking `tokens` greedy tokens: four admitted at once, the other two as
+    slots free up. Returns (requests, engine, seconds, steps, K1's row
+    counts M seen)."""
+    from uzu_tpu_torch.engine.batch import BatchEngine
+    from uzu_tpu_torch.ops import linear
+
+    eng = BatchEngine(lm, batch_size=4, decode_chunk=8, stop_token_ids=[])
+    real = linear.qmm.quant_matmul
+    ms = set()
+
+    def counting(w, x):
+        ms.add(int(x.shape[0]))
+        return real(w, x)
+
+    linear.qmm.quant_matmul = counting
+    try:
+        reqs = [eng.submit(p, tokens) for p in prompts]
+        seconds, steps = drive(torch, eng)
+    finally:
+        linear.qmm.quant_matmul = real
+    return reqs, eng, seconds, steps, ms
+
+
+def path_batched(torch, lm, info: dict) -> None:
+    """BatchEngine over the full-width hybrid: 6 greedy requests of 17-300
+    prompt tokens, 32 tokens each, 4 slots (admission while other slots
+    decode); each stream held to the single stream under phase 4's rule;
+    K1 launched at M = 4 (the decode step's rows)."""
+    from uzu_tpu_torch.ops.cuda.build import LAUNCHES, reset_launches
+
+    prompts = batched_prompts(QWEN08["vocab_size"])
+    reset_launches()
+    reqs, eng, seconds, steps, ms = run_batched(torch, lm, prompts, BATCHED_TOKENS)
+    launches = dict(LAUNCHES)
+    if not all(r.finished and len(r.tokens) == BATCHED_TOKENS for r in reqs):
+        raise AssertionError("a batched request did not produce its tokens")
+    if 4 not in ms or launches["quant_matmul_int4"] <= 0:
+        raise AssertionError(f"K1 did not run at M = 4 in the batched step (M seen: {ms})")
+    t0 = time.perf_counter()
+    readings = stream_readings(torch, lm, prompts, [r.tokens for r in reqs])
+    log("COMPARED_BATCHED " + json.dumps(readings))
+    check_streams(readings)
+    chunk_ms = [1e3 * t for t, decode_only in steps if decode_only]
+    generated = sum(len(r.tokens) for r in reqs)
+    info["batched"] = dict(
+        requests=len(reqs), batch_size=4, decode_chunk=8,
+        prompt_tokens=[len(p) for p in prompts], generated=generated, seconds=seconds,
+        aggregate_tok_s=generated / seconds,
+        ms_per_chunk_median=statistics.median(chunk_ms) if chunk_ms else None,
+        decode_only_chunks=len(chunk_ms),
+        decode_tok_s_steady=(4 * 8 / (statistics.median(chunk_ms) / 1e3)
+                             if chunk_ms else None),
+        ttft_ms=[round(1e3 * r.ttft, 3) for r in reqs], qmm_rows_seen=sorted(ms),
+        prefill_chunks=eng.stats["prefill_chunks"], decode_chunks=eng.stats["decode_chunks"],
+        **stream_summary(readings), compare_seconds=time.perf_counter() - t0,
+        launches=launches)
+    log("PATH_BATCHED " + json.dumps(info["batched"]))
+
+
+def control_batched_fault(torch, lm, info: dict) -> None:
+    """The batched stream check held to a planted fault: the batched step's
+    recurrent mixers read the next slot's state (wrapping the name that
+    `models/batch_decode.py` calls; the package is untouched). Its streams
+    must fail `check_streams`."""
+    import uzu_tpu_torch.models.batch_decode as bd
+
+    real = bd.ssm_forward_batched
+
+    def next_slot(cfg, params, x, state, fed):
+        return real(cfg, params, x, {k: v.roll(-1, 0) for k, v in state.items()}, fed)
+
+    prompts = batched_prompts(QWEN08["vocab_size"])[:4]
+    bd.ssm_forward_batched = next_slot
+    try:
+        reqs, _, _, _, _ = run_batched(torch, lm, prompts, CONTROL_TOKENS)
+    finally:
+        bd.ssm_forward_batched = real
+    readings = stream_readings(torch, lm, prompts, [r.tokens for r in reqs])
+    try:
+        check_streams(readings)
+        caught = None
+    except AssertionError as e:
+        caught = str(e)
+    info["control_batched"] = dict(stream_summary(readings), caught=caught,
+                                   prompt_tokens=[len(p) for p in prompts],
+                                   tokens=CONTROL_TOKENS)
+    log("CONTROL_BATCHED " + json.dumps(info["control_batched"]))
+    if caught is None:
+        raise AssertionError("the batched stream check passed the next-slot-state fault")
+
+
+def plain_allowed(torch, logits, sp, ring=None):
+    """The tokens the plain sampling path allows from f32 logits [V]: the
+    repetition penalty over `ring`, the temperature, then the top-k, top-p
+    and min-p masks (`engine/sampling.py`'s single-stream functions)."""
+    from uzu_tpu_torch.engine import sampling as smp
+
+    x = logits.float()
+    if sp.repetition_penalty is not None and ring is not None:
+        x = smp.apply_repetition_penalty(x, ring, sp.repetition_penalty)
+    x = x / sp.temperature
+    if sp.top_k:
+        x = smp._mask_top_k(x, sp.top_k)
+    if sp.top_p is not None:
+        x = smp._mask_top_p(x, sp.top_p)
+    if sp.min_p:
+        x = smp._mask_min_p(x, sp.min_p)
+    return x > 0.5 * smp.NEG_INF
+
+
+def sample_miss(torch, logits, sp, tok: int) -> dict:
+    """Where a sampled token lies against each mask, in f64: its rank, the
+    probability mass of the tokens above it after top-k (top-p keeps it
+    while that mass is below p), and its probability over the largest."""
+    x = logits.double() / sp.temperature
+    rank = int((x > x[tok]).sum())
+    if sp.top_k:
+        x = torch.where(x < torch.topk(x, sp.top_k).values[-1], torch.full_like(x, -1e300), x)
+    p = torch.softmax(x, dim=-1)
+    return dict(token=tok, rank=rank, mass_above=float(p[x > x[tok]].sum()),
+                prob_over_max=float(p[tok] / p.max()), top_k=sp.top_k, top_p=sp.top_p,
+                min_p=sp.min_p)
+
+
+def path_sampled(torch, lm16, info: dict) -> None:
+    """Sampled decoding on the flagship, single stream (temperature, top-k,
+    top-p, min-p and a repetition penalty over a 16-token ring) and through
+    the BatchEngine (three requests with their own temperature, top-k,
+    top-p and min-p; the repetition penalty has no per-slot ring in batched
+    serving): the same seed gives the same tokens twice, and every sampled
+    token lies inside the masks the plain path computes from the logits
+    the card sampled it from (recorded where the engines call the
+    sampler)."""
+    import uzu_tpu_torch.engine.engine as eng_mod
+    from uzu_tpu_torch.engine.batch import BatchEngine
+    from uzu_tpu_torch.engine.sampling import SamplingParams
+
+    vocab = FLAGSHIP["vocab_size"]
+    prompt = prompt_tokens(GEN_PROMPT, vocab)
+    sp = SamplingParams(temperature=0.8, top_k=50, top_p=0.9, min_p=0.05,
+                        repetition_penalty=1.3, suffix_repetition_length=16)
+    real = eng_mod.sample
+    runs = []
+    for _ in range(2):
+        seen = []
+
+        def recording(logits, params, generator=None, ring=None, bitmask=None):
+            tok = real(logits, params, generator=generator, ring=ring, bitmask=bitmask)
+            seen.append((logits.detach().clone(), None if ring is None else ring.clone(), tok))
+            return tok
+
+        eng_mod.sample = recording
+        try:
+            toks = lm16.generate_list(prompt, SAMPLED_TOKENS, sampling=sp, seed=5,
+                                      stop_token_ids=[])
+        finally:
+            eng_mod.sample = real
+        runs.append((toks, seen))
+    (toks, seen), (toks2, _) = runs
+    if toks != toks2:
+        raise AssertionError(f"sampled single stream differs between runs:\n{toks}\n{toks2}")
+    outside = 0
+    for (logits, ring, tok), want in zip(seen, toks):
+        if int(tok) != want:
+            raise AssertionError("the recorded samples are not the stream's tokens")
+        outside += not bool(plain_allowed(torch, logits, sp, ring)[want])
+    single = dict(tokens=len(toks), tokens_head=toks[:16], distinct=len(set(toks)),
+                  outside_masks=outside, greedy_equal=None)
+    single["greedy_equal"] = toks == lm16.generate_list(prompt, SAMPLED_TOKENS,
+                                                        stop_token_ids=[])
+
+    per_req = [SamplingParams(temperature=t, top_k=k, top_p=p, min_p=m)
+               for t, k, p, m in ((0.7, 40, 0.95, 0.0), (1.0, 0, 0.8, 0.1),
+                                  (0.9, 20, 1.0, 0.05))]
+    prompts = [prompt_tokens(n, vocab).tolist() for n in (17, 64, 129)]
+    batched = []
+    for _ in range(2):
+        eng = BatchEngine(lm16, batch_size=4, decode_chunk=8, stop_token_ids=[])
+        rec = []
+        real_rows = eng._sample_rows
+
+        def rows_recording(logits, rows, key0, key1, sampled, counts=None, _r=real_rows,
+                           _rec=rec):
+            out = _r(logits, rows, key0, key1, sampled, counts)
+            _rec.append((logits.detach().clone(), rows.clone(), out))
+            return out
+
+        eng._sample_rows = rows_recording
+        reqs = [eng.submit(p, SAMPLED_TOKENS, seed=11 + i, sampling=s)
+                for i, (p, s) in enumerate(zip(prompts, per_req))]
+        eng.run()
+        batched.append(([r.tokens for r in reqs], rec))
+    (streams, rec), (streams2, _) = batched
+    if streams != streams2:
+        raise AssertionError("sampled batched streams differ between runs")
+    checked = b_outside = 0
+    misses = []
+    for logits, rows, out in rec:
+        for r in range(logits.shape[0]):
+            row = rows[r].tolist()
+            if row[0] <= 0:  # a greedy (free or default) row
+                continue
+            srow = SamplingParams(temperature=row[0], top_k=int(row[1]) or None,
+                                  top_p=row[2] if row[2] < 1.0 else None, min_p=row[3] or None)
+            checked += 1
+            tok = int(out[r])
+            if not bool(plain_allowed(torch, logits[r], srow)[tok]):
+                b_outside += 1
+                misses.append(sample_miss(torch, logits[r], srow, tok))
+    info["sampled"] = dict(single=single, batched=dict(
+        requests=len(prompts), streams_head=[t[:8] for t in streams], checked_rows=checked,
+        outside_masks=b_outside, misses=misses,
+        params=[dataclasses.asdict(s) for s in per_req]))
+    log("SAMPLED " + json.dumps(info["sampled"]))
+    if outside or b_outside or not checked:
+        raise AssertionError(f"sampled tokens outside the plain masks: {outside} single, "
+                             f"{b_outside} batched of {checked}")
 
 
 # -- phase 11: the measurement tools -----------------------------------------------
@@ -2035,6 +2484,8 @@ def kernel_record(rows, info) -> list[dict]:
         "scale_block_copy": ("uzu_tpu_torch/csrc/block_copy.cu", "tools/exp_qmm_bisect.py:78",
                              dict(R=256, kg=16), "bisect", "block_copy"),
     }
+    paths = [key for key, v in info.items()
+             if isinstance(v, dict) and isinstance(v.get("launches"), dict)]
     out = []
     for name, (src, replaces, where, path, kernel) in spec.items():
         mine = [r for r in rows if r["kernel"] == name]
@@ -2042,6 +2493,8 @@ def kernel_record(rows, info) -> list[dict]:
         out.append(dict(
             name=name, route="cuda", source=src, kernel=kernel, replaces=replaces,
             launches=info[path]["launches"][name],
+            launches_by_path={key: info[key]["launches"][name] for key in paths
+                              if info[key]["launches"].get(name)},
             max_abs_err=max(r["max_abs_err"] for r in mine),
             err_over_rms=max(r["err_over_rms"] for r in mine), tol=rep["tol"],
             ms=rep["ms"], device_ms=rep["device_ms"], plain_ms=rep["plain_ms"],
@@ -2101,6 +2554,7 @@ def main() -> int:
             log("MOE_PTXAS " + json.dumps(template_usage(kbuild.BUILD_LOGS.get("moe_gemv", ""),
                                                          "moe")))
             check_quant_matmul(torch, timer, rows)
+            check_quant_matmul_hybrid(torch, timer, rows)
             check_qmm_rows(torch, {})
             check_moe_gemv(torch, timer, rows)
             check_grouped_matmul(torch, timer, rows)
@@ -2119,6 +2573,7 @@ def main() -> int:
             check_flash_attention(torch, timer, rows, usage)
             check_flash_attention_int8(torch, timer, rows, usage)
             check_attention_gptoss(torch, timer, rows, usage)
+            check_flash_hybrid(torch, timer, rows, usage)
         else:
             usage = kernel_usage(kbuild.BUILD_LOGS.get(source, ""), "paged_decode")
             log("PAGED_PTXAS " + json.dumps(usage))
@@ -2155,6 +2610,7 @@ def main() -> int:
     info["qmm_ptxas"] = template_usage(kbuild.BUILD_LOGS.get("quant_matmul", ""), "qmm")
     log("QMM_PTXAS " + json.dumps(info["qmm_ptxas"]))
     check_quant_matmul(torch, timer, rows)
+    check_quant_matmul_hybrid(torch, timer, rows)
     check_qmm_rows(torch, info)
     usage = kernel_usage(kbuild.BUILD_LOGS.get("flash_attention", ""), "flash_fwd")
     info["flash_ptxas"] = usage
@@ -2162,6 +2618,7 @@ def main() -> int:
     check_flash_attention(torch, timer, rows, usage)
     check_flash_attention_int8(torch, timer, rows, usage)
     check_attention_gptoss(torch, timer, rows, usage)
+    check_flash_hybrid(torch, timer, rows, usage)
     paged_usage = kernel_usage(kbuild.BUILD_LOGS.get("paged_attention", ""), "paged_decode")
     info["paged_ptxas"] = paged_usage
     log("PAGED_PTXAS " + json.dumps(paged_usage))
@@ -2210,6 +2667,18 @@ def main() -> int:
     phase("tools_step_breakdown", tools_step_breakdown, torch, dirs["llama1b_int4"], info)
     phase("tools_quality", tools_quality, torch, lm16, info)
     phase("tools_bisect", tools_bisect, torch, info)
+    phase("sampled", path_sampled, torch, lm16, info)
+    del lm16
+    torch.cuda.empty_cache()
+    lm_h = phase("hybrid", path_hybrid, torch, dirs["qwen08_int4"], info)
+    phase("hybrid_chunking", hybrid_chunking_check, torch, lm_h, info)
+    phase("whole_path_hybrid", whole_path_check, torch, lm_h, 4, QWEN08["vocab_size"],
+          "whole_path_hybrid", info, True)
+    phase("recurrent_families", path_recurrent_families, torch, dirs, info)
+    phase("batched", path_batched, torch, lm_h, info)
+    phase("control_batched", control_batched_fault, torch, lm_h, info)
+    phase("tools_profile_hybrid", tools_profile, torch, lm_h, "hybrid", QWEN08["vocab_size"],
+          info)
     info["phase_seconds"]["total"] = time.perf_counter() - t_start
     log("PHASES " + json.dumps(info["phase_seconds"]))
 

@@ -96,7 +96,7 @@ def test_split_plan_takes_shapes_only():
 # -- partials + fixed-order combine -------------------------------------------------------
 
 @pytest.mark.parametrize("variant", ["plain", "window", "softcap", "sinks"])
-@pytest.mark.parametrize("h,dh", [(8, 64), (16, 128)])
+@pytest.mark.parametrize("h,dh", [(8, 64), (16, 128), (8, 32)])
 def test_split_route_equals_flash_plain(variant, h, dh):
     """rep 4 (H 8 over G 2) and rep 8 (H 16), a 16-row chunk at the end of
     a 2048-slot cache: many ranges, all but the window's edge ones full."""
@@ -195,3 +195,61 @@ def test_split_route_matches_pallas_interpret(variant, pos0):
                                 scale=0.125, interpret=True, **jkw))
     got = _split_route(q, k, v, qpos, scale=0.125, **kw)
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-2, atol=2e-2)
+
+
+# -- head dim 32: the hybrids' attention layers ------------------------------------------
+
+@pytest.mark.parametrize("variant", ["plain", "window", "softcap", "sinks"])
+@pytest.mark.parametrize("quant", [False, True])
+def test_split_halves_at_head_dim_32(variant, quant):
+    """The hybrids' prefill shape (S=128 from position 0, 8 heads over 2
+    groups, Dh 32, a 1024-slot context): 16 row blocks, so the plan splits
+    the cache; the plain partials merged in order equal the whole, with
+    INT8 codes and their scales as K4 folds them."""
+    s, h, g, dh, c = 128, 8, 2, 32, 1024
+    assert split_plan(s, h, g, c, SMS) == (16, 1)
+    q, k, v, sinks = _case(31, s, h, g, dh, c)
+    qpos = torch.arange(s, dtype=torch.int32)
+    kw = _variant(variant, sinks)
+    if quant:
+        (k, ks), (v, vs) = quantize_rows(k), quantize_rows(v)
+        kw.update(k_scales=ks, v_scales=vs)
+    want = flash_attention_plain(q, k, v, qpos, scale=dh ** -0.5, **kw)
+    got = _split_route(q, k, v, qpos, scale=dh ** -0.5, **kw)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_kernel_head_dims_cover_the_chip_models():
+    """Every attention layer of every model `chip_smoke.py` synthesizes (the
+    port's synthesizer at the chip shapes) has a head dim the K3/K4 kernel
+    is built for: a prefill chunk of any of them launches the kernel, and
+    on the card the wrapper raises for any other head dim."""
+    import chip_smoke
+
+    from uzu_tpu_torch.config.model import AttentionConfig
+    from uzu_tpu_torch.ops.cuda.flash_attention import _HEAD_DIMS
+
+    seen = set()
+    for name in chip_smoke.MODELS:
+        cfg = chip_smoke.model_config(name)
+        for lc in cfg.decoder_config.transformer_config.layer_configs:
+            if isinstance(lc.mixer_config, AttentionConfig):
+                seen.add((name, lc.mixer_config.head_dim))
+    assert {dh for _, dh in seen} <= set(_HEAD_DIMS), sorted(seen)
+    assert {name for name, _ in seen} == set(chip_smoke.MODELS)
+    assert chip_smoke.HYBRID_ATTN["head_dim"] in _HEAD_DIMS
+
+
+def test_gate_admits_head_dims_the_kernel_lacks():
+    """The fault logged in ROADMAP §3: the flash gate, as the JAX gate
+    (`dh % 8 == 0`), admits head dims the K3/K4 kernel is not built for
+    (Gemma-class 256, the tiny configs' 16 and 24); on the card the
+    wrapper raises for them instead of computing. 32, 64 and 128 are
+    built."""
+    from uzu_tpu_torch.ops.cuda.flash_attention import _HEAD_DIMS, supported
+
+    gate = dict(is_causal=True, suffix_mask=None, kv_valid_length=None)
+    lacking = [dh for dh in range(8, 257, 8) if dh not in _HEAD_DIMS]
+    assert set(_HEAD_DIMS) == {32, 64, 128}
+    assert all(supported(64, 8, 2, dh, 1024, **gate) for dh in lacking)
+    assert {16, 24, 256} <= set(lacking)

@@ -291,6 +291,26 @@ def test_gumbel_noise_is_a_function_of_each_rows_keys():
     assert abs(noise[3].std().item() - 1.2825) < 0.03
 
 
+def test_gumbel_uniforms_stay_inside_the_open_interval():
+    """The hash's extremes map strictly inside (0, 1), so the noise is
+    finite and a masked logit (-1e30) can never win the argmax; the largest
+    hash once mapped to 1.0 (+inf noise) and sampled masked tokens on the
+    card."""
+    from uzu_tpu_torch.engine.sampling import unit_uniform
+
+    u = unit_uniform(torch.tensor([0, 1, 0x1FF, 0xFFFFFE00, 0xFFFFFFFF], dtype=torch.int64))
+    assert bool((u > 0).all()) and bool((u < 1).all())
+    assert u[-1].item() == 1.0 - 2.0 ** -24 and u[0].item() == 2.0 ** -24
+    g = -torch.log(-torch.log(u))
+    assert bool(torch.isfinite(g).all())
+    logits = torch.full((1, 5), -1e30)
+    logits[0, 0] = 0.0
+    got = sample_dynamic(logits, torch.ones(1), torch.zeros(1), torch.ones(1), torch.zeros(1),
+                         g[None])  # the masked tokens draw the largest noise
+    assert got.tolist() == [0]
+    assert bool(torch.isfinite(gumbel_noise(torch.arange(8), torch.arange(8), 100000)).all())
+
+
 def test_count_penalties_follow_their_definition():
     rng = np.random.default_rng(1)
     logits = rng.standard_normal((3, 20)).astype(np.float32)

@@ -360,6 +360,8 @@ def test_scale_block_copy_wrapper_checks(monkeypatch):
     monkeypatch.setattr(torch.Tensor, "device", property(lambda t: torch.device("cuda")))
     with pytest.raises(ValueError, match="f32"):
         scale_block_copy(torch.ones((4, 16), dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        scale_block_copy(torch.ones((4, 16)), 18)
 
 
 def _padded_weights(method: str, pad_to: int):

@@ -11,7 +11,9 @@ on an expert stack), never by importing the JAX package. bf16 arrays
 MoE down stack's output rows (and its biases) to a multiple of 128, a TPU
 lane rule; the port keeps the model's d rows, so the padding is cut here.
 An MoE block's shared experts (`"shared"`) are plain linears, unpadded in
-both packages, and convert as such.
+both packages, and convert as such. A recurrent mixer's leaves (`conv_w`,
+`conv_b`, `a_log`, `dt_bias`, `norm_scales`, `gate_bias`, `skip_weight`)
+are f32 arrays in both packages and carry over as they are.
 """
 
 from __future__ import annotations

@@ -38,6 +38,9 @@
 //   by __shfl_xor_sync. P is rounded to bf16 in registers and is wgmma's
 //   register A operand for O += P V (m64n64k16 per 64 columns of DH, V read
 //   transposed from shared memory); O stays in registers.
+// - DH is 32, 64 or 128. At DH 32 (the hybrids' attention layers) a row is
+//   64 bytes: the operand tiles take the 64-byte swizzle (8-row groups of
+//   512 bytes), S = Q K^T is two k16 steps and O += P V is m64n32k16.
 // - KV tiles wholly above the causal diagonal or outside the window are
 //   never loaded; per-element masks run only on the diagonal, window-edge
 //   and ragged-C tiles. The loop is bound by instruction issue on the CUDA
@@ -97,6 +100,7 @@ constexpr int BK = 64;        // KV slots per ring stage
 constexpr int THREADS = 128;  // one warpgroup
 constexpr int SW_ROW = 128;           // bytes of one swizzled row (64 bf16)
 constexpr int SW_ATOM = BQ * SW_ROW;  // one 64-row block of 64 columns
+constexpr int SW64_ROW = 64;          // DH 32: one row is 64 bytes (32 bf16)
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -106,18 +110,29 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 }
 
 // Byte offset of 16-byte chunk c (8 bf16 along DH) of row r in a 64-row
-// bf16 tile in the 128-byte-swizzled layout: [DH/64][64 rows][128 bytes],
-// the chunk index XOR (row % 8) inside each 128-byte row. The same bytes
-// are K-major for Q and K (S = Q K^T) and MN-major for V (O += P V).
+// bf16 tile. DH 64 and 128: the 128-byte-swizzled layout [DH/64][64 rows]
+// [128 bytes], the chunk index XOR (row % 8) inside each 128-byte row.
+// DH 32: rows of 64 bytes in the 64-byte-swizzled layout [64 rows][64
+// bytes], the chunk index XOR ((row / 2) % 4), which is what the hardware
+// does to address bits 4-5 with bits 7-8 in a 512-byte atom of 8 rows.
+// The same bytes are K-major for Q and K (S = Q K^T) and MN-major for V
+// (O += P V).
+template <int DH>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
-  return (c >> 3) * SW_ATOM + r * SW_ROW + (((c & 7) ^ (r & 7)) << 4);
+  if constexpr (DH == 32) {
+    return r * SW64_ROW + (((c & 3) ^ ((r >> 1) & 3)) << 4);
+  } else {
+    return (c >> 3) * SW_ATOM + r * SW_ROW + (((c & 7) ^ (r & 7)) << 4);
+  }
 }
 
-// wgmma shared-memory descriptor, 128-byte swizzle (layout type 1).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// wgmma shared-memory descriptor; swizzle mode 1 is 128 bytes, 2 is 64.
+template <int DH>
+__device__ __forceinline__ uint64_t sw_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  constexpr uint64_t mode = DH == 32 ? 2ull : 1ull;
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (mode << 62);
 }
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
@@ -155,9 +170,10 @@ __device__ __forceinline__ void wg_wait0() {
 
 // keep the compiler from moving accesses of wgmma's registers across the
 // asynchronous issue and the wait
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 #define UZ_D32                                                                              \
@@ -170,6 +186,13 @@ __device__ __forceinline__ void fence_regs(float (&d)[32]) {
 #define UZ_R32                                                                     \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
   "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+#define UZ_D16                                                                              \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),       \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+      "+f"(d[14]), "+f"(d[15])
+
+#define UZ_R16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 
 // d[64x64] (+)= A[64x16] B[16x64]; A and B K-major in shared memory.
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
@@ -199,6 +222,26 @@ __device__ __forceinline__ void wgmma_rs_f16(float (&d)[32], const uint32_t (&a)
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " UZ_R32
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : UZ_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// DH 32: d[64x32] += A[64x16] (registers) B[16x32], bf16 and fp16
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " UZ_R16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : UZ_D16
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_f16(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 " UZ_R16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : UZ_D16
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -359,7 +402,10 @@ flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __rest
   using L = Smem<TQ, TKV, DH>;
   constexpr int CH = DH / 8;                               // bf16 chunks per row
   constexpr int CPR = DH * static_cast<int>(sizeof(TKV)) / 16;  // cp.async per ring row
-  constexpr int NH = DH / 64;                              // 64-column blocks of O
+  constexpr int ON = DH < 64 ? DH : 64;                    // columns of one O block
+  constexpr int NH = DH / ON;                              // O blocks (wgmma's N = ON)
+  constexpr int OR = ON / 2;                               // accumulators per block
+  constexpr int ROWB = DH == 32 ? SW64_ROW : SW_ROW;       // bytes of a swizzled row
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* sQ = base;
@@ -400,7 +446,7 @@ flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __rest
       const size_t off = ok ? ((static_cast<size_t>(c0 + r) * kv_stride +
                                 static_cast<size_t>(g) * DH) * sizeof(TKV) + c * 16)
                             : 0;
-      const uint32_t dst = L::CONVERT ? static_cast<uint32_t>(i * 16) : swz(r, c);
+      const uint32_t dst = L::CONVERT ? static_cast<uint32_t>(i * 16) : swz<DH>(r, c);
       cp_async16(dk + dst, reinterpret_cast<const uint8_t*>(k) + off, ok);
       cp_async16(dv + dst, reinterpret_cast<const uint8_t*>(v) + off, ok);
     }
@@ -436,8 +482,8 @@ flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __rest
         hi = load8_bf16(src);
       }
     }
-    *reinterpret_cast<uint4*>(sQ + swz(r, c)) = hi;
-    if constexpr (L::QLO) *reinterpret_cast<uint4*>(sQ + L::TILE + swz(r, c)) = lo;
+    *reinterpret_cast<uint4*>(sQ + swz<DH>(r, c)) = hi;
+    if constexpr (L::QLO) *reinterpret_cast<uint4*>(sQ + L::TILE + swz<DH>(r, c)) = lo;
   }
 
   // this thread's two rows of every accumulator fragment: lr0 and lr0 + 8
@@ -455,11 +501,11 @@ flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __rest
   const float cap_out = soft_cap * LOG2E;
   const uint32_t q_base = smem_u32(sQ);
 
-  float o[NH][32];
+  float o[NH][OR];
 #pragma unroll
   for (int n = 0; n < NH; ++n)
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[n][i] = 0.f;
+    for (int i = 0; i < OR; ++i) o[n][i] = 0.f;
   float o_unit = 1.f;        // K4: O is held in units of the last tile's u
   float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;  // running max, log2 units
   float l0 = 0.f, l1 = 0.f;  // this thread's part of the running sum
@@ -483,7 +529,7 @@ flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __rest
       for (int i = tid; i < BK * CH; i += THREADS) {
         const int r = i / CH;
         const int c = i % CH;
-        const uint32_t at = swz(r, c);
+        const uint32_t at = swz<DH>(r, c);
         if constexpr (L::KVLO) {
           uint4 hi, lo;
           load8_split(raw_k + r * DH + c * 8, hi, lo);
@@ -503,17 +549,20 @@ flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __rest
     fence_async_smem();
     __syncthreads();
 
-    // S = Q K^T over DH in steps of 16 (32 bytes inside a swizzled row)
+    // S = Q K^T over DH in steps of 16 (32 bytes inside a swizzled row);
+    // a group of 8 rows is 8 * ROWB bytes
     float sc[32];
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk) {
       const uint32_t off = (kk >> 2) * SW_ATOM + (kk & 3) * 32;
-      const uint64_t qd = sw128_desc(q_base + off, 16, 1024);
-      const uint64_t kd = sw128_desc(k_base + off, 16, 1024);
+      const uint64_t qd = sw_desc<DH>(q_base + off, 16, 8 * ROWB);
+      const uint64_t kd = sw_desc<DH>(k_base + off, 16, 8 * ROWB);
       wgmma_ss(sc, qd, kd, kk > 0);
-      if constexpr (L::KVLO) wgmma_ss(sc, qd, sw128_desc(k_base + 2 * L::TILE + off, 16, 1024), 1);
-      if constexpr (L::QLO) wgmma_ss(sc, sw128_desc(q_base + L::TILE + off, 16, 1024), kd, 1);
+      if constexpr (L::KVLO) {
+        wgmma_ss(sc, qd, sw_desc<DH>(k_base + 2 * L::TILE + off, 16, 8 * ROWB), 1);
+      }
+      if constexpr (L::QLO) wgmma_ss(sc, sw_desc<DH>(q_base + L::TILE + off, 16, 8 * ROWB), kd, 1);
     }
     wg_commit();
     wg_wait0();
@@ -607,7 +656,7 @@ flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __rest
 #pragma unroll
     for (int n = 0; n < NH; ++n) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < OR / 4; ++j) {
         o[n][4 * j] *= oa0;
         o[n][4 * j + 1] *= oa0;
         o[n][4 * j + 2] *= oa1;
@@ -615,7 +664,7 @@ flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __rest
       }
     }
 
-    // O += P V: 16 keys a step, V's rows are K-groups of 8 (1024 bytes)
+    // O += P V: 16 keys a step, V's rows are K-groups of 8 (8 * ROWB bytes)
 #pragma unroll
     for (int n = 0; n < NH; ++n) fence_regs(o[n]);
     wg_fence();
@@ -623,14 +672,16 @@ flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __rest
     for (int kk = 0; kk < BK / 16; ++kk) {
 #pragma unroll
       for (int n = 0; n < NH; ++n) {
-        const uint32_t at = v_base + n * SW_ATOM + kk * 16 * SW_ROW;
-        const uint64_t vd = sw128_desc(at, SW_ATOM, 1024);
+        const uint32_t at = v_base + n * SW_ATOM + kk * 16 * ROWB;
+        const uint64_t vd = sw_desc<DH>(at, SW_ATOM, 8 * ROWB);
         if constexpr (L::QUANT) {
           wgmma_rs_f16(o[n], pa[kk], vd);
         } else {
           wgmma_rs(o[n], pa[kk], vd);
         }
-        if constexpr (L::KVLO) wgmma_rs(o[n], pa[kk], sw128_desc(at + 2 * L::TILE, SW_ATOM, 1024));
+        if constexpr (L::KVLO) {
+          wgmma_rs(o[n], pa[kk], sw_desc<DH>(at + 2 * L::TILE, SW_ATOM, 8 * ROWB));
+        }
       }
     }
     wg_commit();
@@ -678,10 +729,10 @@ flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __rest
 #pragma unroll
     for (int n = 0; n < NH; ++n) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < OR / 4; ++j) {
         const float2 val = make_float2(o[n][4 * j + 2 * half] * mul,
                                        o[n][4 * j + 2 * half + 1] * mul);
-        *reinterpret_cast<float2*>(dst + n * 64 + 8 * j + col_t) = val;
+        *reinterpret_cast<float2*>(dst + n * ON + 8 * j + col_t) = val;
       }
     }
   }
@@ -726,6 +777,10 @@ int dispatch(const void* q, const void* k, const void* v, const float* ks, const
              const int* qpos, const float* sk, float* o, float* part, int S, int H, int G,
              int C, int DH, float scale, float soft_cap, int window, int splits, int tps,
              cudaStream_t s) {
+  if (DH == 32) {
+    return launch<TQ, TKV, 32>(q, k, v, ks, vs, qpos, sk, o, part, S, H, G, C, scale,
+                               soft_cap, window, splits, tps, s);
+  }
   if (DH == 64) {
     return launch<TQ, TKV, 64>(q, k, v, ks, vs, qpos, sk, o, part, S, H, G, C, scale,
                                soft_cap, window, splits, tps, s);

@@ -4,7 +4,8 @@ Counterpart of `uzu_tpu/engine/engine.py` (`LanguageModel`,
 `StreamMetrics`), redesigned for PyTorch's eager execution:
 
 - prefill runs in fixed-size chunks; a ragged tail pads up to a small
-  bucket set — padding lands in future cache slots the causal mask hides;
+  bucket set — padding lands in future cache slots the causal mask hides,
+  and recurrent mixers take padded rows as identity transitions;
 - decode runs in chunks of K steps with a device-side halt flag, budget
   and stop ids: the K steps are a Python loop whose token never leaves the
   device, and the host reads the chunk's K tokens with one sync at its end
@@ -82,7 +83,7 @@ class LanguageModel:
         self.max_decode_chunk = 64
         self.kv_quant = kv_quant
         self.ring_windows = ring_windows
-        self.params = _to_device(params, self.device)
+        self.params = _map_leaves(params, lambda t: t.to(self.device))
 
     # -- loading ---------------------------------------------------------
 
@@ -98,14 +99,22 @@ class LanguageModel:
 
     # -- state -----------------------------------------------------------
 
-    def new_state(self, ring_size: int = 0) -> dict:
-        """Fresh decoding state on the model's device."""
+    def new_state(self, ring_size: int = 0, batch_size: int = 0,
+                  ctx_capacity: int | None = None) -> dict:
+        """Fresh decoding state on the model's device. batch_size > 0 gives
+        the batched state of the dense batch engine: every leaf with a
+        leading [B] dimension (KV [B, C, G, Dh], recurrent states [B, ...],
+        pos [B]). ctx_capacity < max_context allocates shorter KV caches
+        (the batch engine grows them by context bucket)."""
         state = init_state(
-            self.decoder_config, self.max_context, device=self.device,
+            self.decoder_config, ctx_capacity or self.max_context, device=self.device,
             kv_quant=self.kv_quant, ring_windows=self.ring_windows,
             ring_extra=max(self.prefill_buckets))
         if ring_size:
             state["ring"] = torch.full((ring_size,), -1, dtype=torch.int32, device=self.device)
+        if batch_size:
+            state = _map_leaves(state, lambda t: t.unsqueeze(0).repeat(
+                batch_size, *([1] * t.dim())))
         return state
 
     def _ctx_bucket(self, needed: int) -> int | None:
@@ -253,10 +262,11 @@ def _ring_push_chunk(ring: torch.Tensor, tokens: np.ndarray) -> torch.Tensor:
     return torch.cat([ring, new])[-ring.shape[0]:]
 
 
-def _to_device(tree, device):
-    """Move a parameter tree (dicts, lists, tensors, QuantizedTensors)."""
+def _map_leaves(tree, fn):
+    """Apply `fn` to every leaf of a tree of dicts and lists (tensors,
+    QuantizedTensors; None stays None)."""
     if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
+        return {k: _map_leaves(v, fn) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_to_device(v, device) for v in tree]
-    return tree.to(device)
+        return [_map_leaves(v, fn) for v in tree]
+    return None if tree is None else fn(tree)

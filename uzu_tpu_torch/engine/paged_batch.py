@@ -38,37 +38,7 @@ from ..models.paged_decode import paged_decode_step, paged_prefill_chunk, paged_
 from ..models.paged_kv import PagePool, PagePoolOverflow, init_pools
 from .batch import BatchEngineBase, Request
 from .engine import LanguageModel
-from .sampling import SamplingParams, apply_count_penalties, gumbel_noise, sample_dynamic
-
-
-class _HostCopy:
-    """One device-to-host copy of several tensors, started now and waited
-    for in `get` (values travel as f64: token ids and f32 values are
-    exact in it). `n_lp` is the number of top logprobs the chunk carries."""
-
-    def __init__(self, tensors: list[torch.Tensor], n_lp: int = 0):
-        self.n_lp = n_lp
-        self.shapes = [tuple(t.shape) for t in tensors]
-        flat = torch.cat([t.reshape(-1).double() for t in tensors])
-        self.event = None
-        if flat.is_cuda:
-            self.host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
-            self.host.copy_(flat, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
-        else:
-            self.host = flat
-
-    def get(self) -> list[np.ndarray]:
-        if self.event is not None:
-            self.event.synchronize()
-        flat = self.host.numpy()
-        out, i = [], 0
-        for shape in self.shapes:
-            n = int(np.prod(shape))
-            out.append(flat[i:i + n].reshape(shape))
-            i += n
-        return out
+from .sampling import SamplingParams
 
 
 class PagedBatchEngine(BatchEngineBase):
@@ -147,25 +117,6 @@ class PagedBatchEngine(BatchEngineBase):
         b = self.lm._ctx_bucket(needed_tokens)
         ctx = b if b is not None else self.lm.max_context
         return min(-(-ctx // self.page_size), self.max_pages)
-
-    def _sample_rows(self, logits, rows, key0, key1, sampled: bool, counts=None):
-        """Sample logits [N, V] with sampling rows [N, 6] (f32, on the
-        device) and noise keys key0/key1 [N]; `sampled` is False when every
-        row is greedy (no noise is drawn); count penalties where `counts`
-        is given."""
-        if counts is not None:
-            logits = apply_count_penalties(logits.float(), counts, rows[:, 4:5], rows[:, 5:6])
-        noise = gumbel_noise(key0, key1, logits.shape[-1]) if sampled else None
-        return sample_dynamic(logits, rows[:, 0], rows[:, 1], rows[:, 2], rows[:, 3], noise,
-                              banned_tokens=self.sampling.banned_tokens)
-
-    @staticmethod
-    def _logprobs(logits, tokens, n: int):
-        """(token logprob [N], top values [N, n], top ids [N, n]) of the raw
-        logits' log-softmax."""
-        lp = torch.log_softmax(logits.float(), dim=-1)
-        top_v, top_i = torch.topk(lp, n, dim=-1)
-        return lp.gather(-1, tokens[:, None].long())[:, 0], top_v, top_i
 
     # -- scheduling ----------------------------------------------------------
 
@@ -252,16 +203,8 @@ class PagedBatchEngine(BatchEngineBase):
             self._admitting = [req, i, slot_i, table_row]
             return True
         self._admitting = None
-        self._set_slot_sampling(slot_i, req)
-        dev = lm.device
-        rows = torch.as_tensor(self._samp[slot_i:slot_i + 1], device=dev)
-        first = self._sample_rows(
-            logits[None], rows, torch.zeros(1, dtype=torch.long, device=dev),
-            torch.full((1,), req.seed, dtype=torch.long, device=dev),
-            bool(self._samp[slot_i, 0] > 0))
-        pending = [first]
-        if req.logprobs:
-            pending += list(self._logprobs(logits[None], first, req.logprobs))
+        pending = self._first_token(slot_i, req, logits)
+        first = pending[0]
         self._tokens[slot_i] = first[0]
         self._positions[slot_i] = n
         self._halted[slot_i] = False
@@ -392,9 +335,7 @@ class PagedBatchEngine(BatchEngineBase):
         sampled = any(self._samp[b, 0] > 0 for b in live)
         n_lp = max(self.slots[b].request.logprobs for b in live)
         rows = torch.as_tensor(self._samp, device=dev)
-        key0 = torch.as_tensor(self._seeds & 0xFFFFFFFF, device=dev)
-        key1 = torch.as_tensor((self._steps[None, :] * k + np.arange(k)[:, None])
-                               & 0xFFFFFFFF, device=dev)  # [K, B]
+        key0, key1 = self._noise_keys(k)
         counts = self._ensure_counts() if penalized else None
         # tables cut to the pages of the live context bucket, plus one
         # trash column: the host mirror lags the in-flight chunk by <= k
@@ -434,105 +375,4 @@ class PagedBatchEngine(BatchEngineBase):
         self.stats["decode_chunks"] += 1
 
         parts = [torch.stack(col) for col in zip(*emitted)]  # [K, B, ...] each
-        snapshot = {}
-        for b in live:
-            slot = self.slots[b]
-            self._steps[b] += 1
-            first = slot.pending_first
-            snapshot[b] = (slot.request, first is not None, slot.request.preempted)
-            if first is not None:
-                parts += first
-            slot.pending_first = None
-        return _HostCopy(parts, n_lp), snapshot
-
-    def _process_emitted(self, copy: _HostCopy, snapshot):
-        """Route a dispatched chunk's tokens (and the first tokens of
-        requests admitted before it) to their requests. Finishing mirrors
-        the device-side halt exactly, so the host may lag one chunk. A
-        request preempted while its chunk was in flight is skipped: its
-        stream restarts on re-admission."""
-        arrays = copy.get()
-        vals = arrays[0]  # [K, B]
-        lp_pack = arrays[1:4] if copy.n_lp else None
-        rest = arrays[4 if copy.n_lp else 1:]
-        k = vals.shape[0]
-        now = time.perf_counter()
-        for b, (req, has_first, preempted) in snapshot.items():
-            stream = []
-            if has_first:
-                tok = rest.pop(0)
-                entry = None
-                if req.logprobs:
-                    lp, top_v, top_i = rest.pop(0), rest.pop(0), rest.pop(0)
-                    entry = (float(lp[0]), [(int(i), float(v))
-                                            for i, v in zip(top_i[0], top_v[0])])
-                stream.append((int(tok[0]), 0, entry))
-            if req is None or req.finished or req.preempted != preempted:
-                continue
-            if has_first:
-                req.first_token_at = now
-            slot = self.slots[b]
-            for s in range(k):
-                entry = None
-                if lp_pack is not None:
-                    lp, top_v, top_i = lp_pack
-                    entry = (float(lp[s, b]), [(int(i), float(v)) for i, v in
-                                               zip(top_i[s, b][:req.logprobs],
-                                                   top_v[s, b][:req.logprobs])])
-                stream.append((int(vals[s, b]), 1, entry))
-            for v, adv, lpe in stream:
-                req.tokens.append(v)
-                if req.logprobs and lpe is not None:
-                    req.logprob_content.append(lpe)
-                slot.produced += 1
-                slot.pos += adv
-                if v in self.stop_ids:
-                    self._finish(b, "stop")
-                    break
-                if slot.produced >= req.max_new_tokens:
-                    self._finish(b, "length")
-                    break
-                if slot.pos >= self.lm.max_context - 1:
-                    self._finish(b, "length")
-                    break
-
-    def _drains_all(self, snapshot) -> bool:
-        """True if the in-flight chunk surely finishes every active slot,
-        so another chunk would only run discarded identity steps."""
-        k = self.decode_chunk
-        for b, slot in enumerate(self.slots):
-            if slot.free:
-                continue
-            entry = snapshot.get(b)
-            if entry is None:
-                return False  # admitted after the dispatch; needs a chunk
-            req, has_first, _ = entry
-            budget = slot.produced + (1 if has_first else 0) + k
-            if budget < req.max_new_tokens and slot.pos + k < self.lm.max_context - 1:
-                return False
-        return True
-
-    def step(self) -> bool:
-        """One scheduling action; returns False when fully idle. Admission
-        fills every free slot before a decode chunk is paid for (unless
-        `admit_greedy` is off)."""
-        admitted = False
-        while self._admit():
-            admitted = True
-            if self.num_active and not self.admit_greedy:
-                break
-            if self.num_active >= self.batch_size:
-                break
-        pending, self._pending = self._pending, None
-        if pending is not None and not self.queue and self._drains_all(pending[1]):
-            self._process_emitted(*pending)
-            pending = None
-        if self.num_active:
-            self._pending = self._dispatch_decode()
-        if pending is not None:
-            self._process_emitted(*pending)
-        return bool(self._pending or pending or admitted or self.queue or self._admitting)
-
-    def run(self) -> None:
-        while self.queue or self.num_active or self._pending or self._admitting:
-            self.step()
+        return self._snapshot(parts, live, n_lp)

@@ -162,14 +162,23 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
+def unit_uniform(x: torch.Tensor) -> torch.Tensor:
+    """f32 in the open interval (0, 1) from 32-bit hashes: the top 23 bits
+    plus one half, times 2^-23, all exact in f32, so u lies in [2^-24,
+    1 - 2^-24]. (With 24 bits, the largest value plus one half rounds to
+    2^24 in f32, u to 1.0 and the gumbel noise to +inf, which outranks a
+    masked logit: one sampled token in ~2^24 draws fell outside its masks.)"""
+    return ((x >> 9).float() + 0.5) * (1.0 / (1 << 23))
+
+
 def gumbel_noise(key0: torch.Tensor, key1: torch.Tensor, vocab: int) -> torch.Tensor:
     """Gumbel noise [B, V] f32 from per-row key words key0, key1 [B]
-    (integers, taken mod 2^32): a pure function of (key0, key1, index)."""
+    (integers, taken mod 2^32): a pure function of (key0, key1, index),
+    finite everywhere."""
     row = _mix32(_mix32(key0.long() & _M32) ^ (key1.long() & _M32))
     idx = torch.arange(vocab, device=key0.device, dtype=torch.int64)
     x = _mix32(_mix32(row[:, None] ^ ((idx * 0x61C88647) & _M32)))
-    u = ((x >> 8).float() + 0.5) * (1.0 / (1 << 24))
-    return -torch.log(-torch.log(u))
+    return -torch.log(-torch.log(unit_uniform(x)))
 
 
 def sample_dynamic(

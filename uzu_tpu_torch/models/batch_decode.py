@@ -1,0 +1,104 @@
+"""Batched decode step over dense per-slot states.
+
+The dense `BatchEngine` (`engine/batch.py`) keeps one decoding state per
+slot stacked on a leading [B] dimension: KV caches [B, C, G, Dh] (or INT8
+codes and scales), recurrent states [B, ...] and positions [B]. The JAX
+package maps its single-sequence decoder over the slots; here one step
+runs every slot's token as a row of one [B, D] activation, so each linear
+is one product at M = B (K1's small route for quantized weights, whose
+rows are bitwise the M = 1 rows), and:
+
+- attention writes each slot's new K/V row at that slot's position and
+  reads the slot's own cache up to its position (`attention_decode_batched`,
+  plain einsums, as the JAX decode is an einsum);
+- recurrent mixers advance [B, ...] states (`ssm_forward_batched` at S = 1);
+- a slot with `fed` 0 (halted or free) takes an identity transition: its
+  position stays, its recurrent state is unchanged, and its K/V write
+  lands at its position, which no read of that slot sees before it is
+  written again.
+
+Caches are updated in place; recurrent states and positions come back as
+new tensors in the returned state.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config.model import AttentionConfig, DecoderConfig
+from ..ops.attention import attention_decode_batched
+from .decoder import attention_output, embed, project_qkv, readout, residual_block
+from .kv_cache import is_quantized, quantize_rows
+from .ssm import ssm_forward_batched
+
+
+def _write_rows(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
+                positions: torch.Tensor) -> None:
+    """Row b's K/V [G, Dh] into cache[b, positions[b]] (clamped into the
+    cache, as the single-sequence append clamps its start)."""
+    b = k_new.shape[0]
+    c = next(iter(cache.values())).shape[1]
+    rows = torch.arange(b, device=k_new.device)
+    idx = torch.clamp(positions.long(), 0, c - 1)
+    if is_quantized(cache):
+        (k_q, k_s), (v_q, v_s) = quantize_rows(k_new), quantize_rows(v_new)
+        new = {"k_q": k_q, "k_s": k_s, "v_q": v_q, "v_s": v_s}
+    else:
+        new = {"k": k_new, "v": v_new}
+    for name, t in new.items():
+        cache[name].index_put_((rows, idx), t.to(cache[name].dtype))
+
+
+def _attend(cfg: AttentionConfig, layer_cfg, params: dict, x: torch.Tensor,
+            positions: torch.Tensor, cache: dict, owns: bool, ctx_limit):
+    q, k_new, v_new = project_qkv(cfg, layer_cfg, params, x, positions)
+    if owns:
+        _write_rows(cache, k_new, v_new, positions)
+    read = cache
+    c_full = next(iter(cache.values())).shape[1]
+    if ctx_limit is not None and ctx_limit < c_full:
+        read = {name: t[:, :ctx_limit] for name, t in cache.items()}
+    if is_quantized(read):
+        k, v = read["k_q"], read["v_q"]
+        scales = {"k_scales": read["k_s"], "v_scales": read["v_s"]}
+    else:
+        k, v, scales = read["k"], read["v"], {}
+    scale = cfg.scale if cfg.scale is not None else float(cfg.head_dim) ** -0.5
+    attn = attention_decode_batched(
+        q, k, v, positions, scale=scale, sliding_window_size=cfg.sliding_window_size,
+        logit_soft_cap=cfg.logit_soft_cap, sinks=params.get("sinks"), **scales)
+    return attention_output(params, x, attn.reshape(x.shape[0], -1)), cache if owns else None
+
+
+def batch_decode_step(
+    cfg: DecoderConfig,
+    params: dict,
+    tokens: torch.Tensor,  # [B] input token per slot
+    state: dict,  # batched: {"layers": [...], "pos": [B] int32}
+    fed: torch.Tensor,  # [B] int32: 1 where the slot advances, 0 where it halts
+    ctx_limit: int | None = None,  # attention reads cache slots [0, ctx_limit)
+):
+    """Advance every slot one token; returns (logits [B, V] f32, state)."""
+    positions = state["pos"]
+    x = embed(cfg, params, tokens)
+    new_layers = []
+    for i, layer_cfg in enumerate(cfg.transformer_config.layer_configs):
+        m = layer_cfg.mixer_config
+        p = params["layers"][i]
+        layer_state = state["layers"][i]
+        if isinstance(m, AttentionConfig):
+            src = layer_cfg.kv_source_layer_index
+            owns = layer_state is not None
+            cache = layer_state if owns else new_layers[src]
+            x, new = residual_block(layer_cfg, p, x, lambda h: _attend(
+                m, layer_cfg, p["mixer"], h, positions, cache, owns, ctx_limit))
+        else:
+            def recurrent(h):
+                out, new_state = ssm_forward_batched(m, p["mixer"], h[:, None], layer_state,
+                                                     fed)
+                return out[:, 0], new_state
+
+            x, new = residual_block(layer_cfg, p, x, recurrent)
+        new_layers.append(new)
+    logits = readout(cfg, params, x)
+    return logits, {"layers": new_layers, "pos": positions + fed}

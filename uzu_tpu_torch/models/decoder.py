@@ -4,9 +4,10 @@ Counterpart of `uzu_tpu/models/decoder.py`. One code path serves prefill
 chunks and decode steps: tokens carry absolute positions derived from
 state["pos"] (a device tensor), the KV cache is slot-per-position, and
 causal masking makes end-padding invisible (padded rows sit at future
-slots that later writes overwrite). Tree verification, sequence-parallel
-prefill, per-layer embeddings and deferred recurrent state wait for later
-slices of the port.
+slots that later writes overwrite). Recurrent mixers (`models/ssm.py`)
+take `true_length` and turn padded rows into identity transitions. Tree
+verification, sequence-parallel prefill, per-layer embeddings and deferred
+recurrent state wait for later slices of the port.
 
 Residual discipline:
     h = pre_mixer_norm(x)            (layer 0 may have no pre-norm)
@@ -37,6 +38,7 @@ from ..ops.rope import apply_rope, inverse_frequencies, rope_tables
 from ..quant.format import QuantizedTensor, unpack_codes
 from .kv_cache import append as kv_append, is_quantized, read as kv_read, read_quantized
 from .moe import moe_forward
+from .ssm import ssm_forward
 
 
 # --------------------------------------------------------------------------
@@ -236,7 +238,8 @@ def layer_forward(
 ):
     mixer_cfg = layer_cfg.mixer_config
     if not isinstance(mixer_cfg, AttentionConfig):
-        raise NotImplementedError(f"{type(mixer_cfg).__name__} mixers are not ported yet")
+        return residual_block(layer_cfg, params, x, lambda h: ssm_forward(
+            mixer_cfg, params["mixer"], h, positions, layer_state, true_length))
     owns = layer_state is not None
     x, new_state = residual_block(layer_cfg, params, x, lambda h: attention_forward(
         mixer_cfg, layer_cfg, params["mixer"], h, positions,
@@ -275,8 +278,9 @@ def decoder_forward(
 
     tokens may be end-padded: `true_length` (default S) is how many are
     real. pos advances by true_length; padded rows land in future cache
-    slots that the causal mask hides and later writes overwrite. The KV
-    caches in `state` are updated in place.
+    slots that the causal mask hides and later writes overwrite, and are
+    identity transitions of the recurrent mixers. The KV caches in `state`
+    are updated in place; recurrent states come back as new tensors.
     """
     if cfg.ple_model_config is not None:
         raise NotImplementedError("per-layer embeddings are not ported yet")

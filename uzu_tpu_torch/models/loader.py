@@ -4,9 +4,9 @@ Counterpart of `uzu_tpu/models/loader.py`, with the same tensor names,
 shapes and dtypes, so model directories written for the JAX package load
 unchanged. The parameters are a nested dict of torch tensors and
 `QuantizedTensor` leaves on one device, shaped like the JAX package's
-pytree; everything static lives in the config objects. Recurrent (SSM)
-mixers, per-layer embeddings and HybridSpec linears wait for later slices
-of the port and raise `NotImplementedError`.
+pytree; everything static lives in the config objects. Per-layer
+embeddings and HybridSpec linears wait for later slices of the port and
+raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -226,11 +226,14 @@ def load_layer(tree: ParameterTree, layer_cfg, model_dim: int, hidden_dim: int,
                device=None) -> dict:
     out: dict = {}
     mixer_cfg = layer_cfg.mixer_config
-    if not isinstance(mixer_cfg, AttentionConfig):
-        raise NotImplementedError(f"{type(mixer_cfg).__name__} mixers are not ported yet")
     if layer_cfg.ple_config is not None:
         raise NotImplementedError("per-layer embeddings are not ported yet")
-    out["mixer"] = load_attention(tree.subtree("mixer"), mixer_cfg, model_dim, device)
+    if isinstance(mixer_cfg, AttentionConfig):
+        out["mixer"] = load_attention(tree.subtree("mixer"), mixer_cfg, model_dim, device)
+    else:
+        from .ssm import load_ssm_mixer
+
+        out["mixer"] = load_ssm_mixer(tree.subtree("mixer"), mixer_cfg, model_dim, device)
     for key in ("pre_mixer_norm", "post_mixer_norm", "pre_mlp_norm", "post_mlp_norm"):
         norm_cfg = getattr(layer_cfg, key + "_config")
         if norm_cfg is not None:

@@ -1,9 +1,10 @@
-"""Decoding state: per-layer KV caches + global position.
+"""Decoding state: per-layer KV caches / recurrent states + global position.
 
 Counterpart of `uzu_tpu/models/state.py`: a fixed [C, G, Dh] cache of
-`max_context` slots per attention layer (slot j holds position j) and the
-position as a 0-d int32 tensor on the device, so a decode step advances it
-without a host sync. KV-shared layers own no cache.
+`max_context` slots per attention layer (slot j holds position j), the
+conv tail and recurrent state of each recurrent mixer (`models/ssm.py`),
+and the position as a 0-d int32 tensor on the device, so a decode step
+advances it without a host sync. KV-shared layers own no cache.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import torch
 
 from ..config.model import AttentionConfig, DecoderConfig
 from .kv_cache import make_cache
+from .ssm import make_ssm_state
 
 
 def init_state(
@@ -28,9 +30,8 @@ def init_state(
     for layer_cfg in cfg.transformer_config.layer_configs:
         m = layer_cfg.mixer_config
         if not isinstance(m, AttentionConfig):
-            raise NotImplementedError(
-                f"{type(m).__name__} mixers (recurrent state) are not ported yet")
-        if m.is_kv_sharing or layer_cfg.kv_source_layer_index is not None:
+            layers.append(make_ssm_state(m, cfg.transformer_config.model_dim, dtype, device))
+        elif m.is_kv_sharing or layer_cfg.kv_source_layer_index is not None:
             layers.append(None)
         else:
             layers.append(make_cache(

@@ -165,3 +165,46 @@ def attention_online(
 
     out = acc / torch.clamp(l_run[..., None], min=1e-30)
     return out.permute(2, 0, 1, 3).reshape(s, h, dh).to(q.dtype)
+
+
+def attention_decode_batched(
+    q: torch.Tensor,  # [B, H, Dh]: one query token per slot
+    k_cache: torch.Tensor,  # [B, C, G, Dh]
+    v_cache: torch.Tensor,  # [B, C, G, Dh]
+    positions: torch.Tensor,  # [B] absolute position of each slot's token
+    *,
+    scale: float,
+    sliding_window_size: int | None = None,
+    logit_soft_cap: float | None = None,
+    sinks: torch.Tensor | None = None,  # [H]
+    k_scales: torch.Tensor | None = None,  # [B, C, G] f32: k/v are INT8 codes
+    v_scales: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """One decode token per slot over each slot's own dense cache (slot j
+    holds position j), masked to that slot's positions: the einsum path of
+    `attention_reference` at S = 1 with a slot dimension written out (the
+    JAX package maps its einsum decode over slots). f32 throughout; an
+    INT8 cache is dequantized."""
+    if k_scales is not None:
+        k_cache = dequantize_rows(k_cache, k_scales)
+        v_cache = dequantize_rows(v_cache, v_scales)
+    b, h, dh = q.shape
+    c, g = k_cache.shape[1], k_cache.shape[2]
+    rep = h // g
+    qf = q.float().reshape(b, g, rep, dh)
+    scores = torch.einsum("bgrd,bcgd->bgrc", qf, k_cache.float()) * scale
+    if logit_soft_cap is not None:
+        scores = logit_soft_cap * torch.tanh(scores / logit_soft_cap)
+    qpos = positions.to(torch.int32)[:, None]  # [B, 1]
+    kpos = torch.arange(c, dtype=torch.int32, device=q.device)[None, :]
+    valid = kpos <= qpos
+    if sliding_window_size is not None:
+        valid = valid & (kpos > qpos - sliding_window_size)
+    scores = torch.where(valid[:, None, None], scores, torch.full_like(scores, NEG_INF))
+    if sinks is not None:
+        sink = sinks.float().reshape(1, g, rep, 1).expand(b, g, rep, 1)
+        probs = torch.softmax(torch.cat([scores, sink], dim=-1), dim=-1)[..., :c]
+    else:
+        probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bgrc,bcgd->bgrd", probs, v_cache.float())
+    return out.reshape(b, h, dh).to(q.dtype)

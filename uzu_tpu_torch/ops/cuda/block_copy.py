@@ -4,6 +4,8 @@ Wrapper and plain PyTorch version of `csrc/block_copy.cu`, which replaces
 `tools/exp_qmm_bisect.py::copy_kernel`, the bisect probe's block read
 (`uzu_tpu_torch/tools/exp_qmm_bisect.py` runs it). A CPU tensor takes
 `scale_block_copy_plain`; a CUDA tensor launches the kernel or raises.
+`empty_launch` launches a kernel that does nothing, the launch floor that
+P1's time is read against; no path runs it, so it has no launch count.
 """
 
 from __future__ import annotations
@@ -43,6 +45,9 @@ def scale_block_copy(s: torch.Tensor, width: int = 128) -> torch.Tensor:
         raise ValueError(f"scale_block_copy: unsupported device {s.device}")
     if s.dtype != torch.float32:
         raise ValueError(f"scale_block_copy kernel takes f32 scales, not {s.dtype}")
+    if width % 4:
+        raise ValueError(f"scale_block_copy kernel writes 4-column vectors: width {width} "
+                         f"is not a multiple of 4")
     s = s.contiguous()
     r, kg = s.shape
     out = torch.empty((r, width), dtype=torch.float32, device=s.device)
@@ -52,3 +57,16 @@ def scale_block_copy(s: torch.Tensor, width: int = 128) -> torch.Tensor:
     check(rc, "scale_block_copy")
     LAUNCHES["scale_block_copy"] += 1
     return out
+
+
+def empty_launch(device: torch.device) -> None:
+    """One launch of an empty kernel (one warp, no memory traffic) on the
+    current stream of the CUDA `device`."""
+    if device.type != "cuda":
+        raise ValueError(f"empty_launch needs a CUDA device, not {device}")
+    fn = library("block_copy").uz_empty_launch
+    if fn.argtypes is None:
+        fn.argtypes = [_P]
+        fn.restype = _I
+    with torch.cuda.device(device):
+        check(fn(torch.cuda.current_stream().cuda_stream), "empty_launch")

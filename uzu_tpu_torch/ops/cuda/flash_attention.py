@@ -25,7 +25,7 @@ from .build import LAUNCHES, check, library
 # enough query rows per KV group to fill a block of the kernel; below this
 # the einsum path is cheap anyway (the JAX package's FLASH_MIN_ROWS)
 FLASH_MIN_ROWS = 64
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (32, 64, 128)  # the kernel's instantiations (csrc dispatch)
 NEG_INF = -1e30
 BQ = 64  # query rows per block of the kernel
 BK = 64  # KV slots per tile of the kernel

@@ -1,8 +1,9 @@
 """Synthesize model directories (config.json + model.safetensors), numpy only.
 
 Counterpart of `uzu_tpu/tools/synth.py` for the decoder shapes the port
-runs (attention mixers, dense and mixture-of-experts MLPs, full-precision /
-IntSpec / MLXSpec weights, dense or symmetric-quantized expert stacks):
+runs (attention, ShortConv, Mamba2 and Gated DeltaNet mixers, dense and
+mixture-of-experts MLPs, full-precision / IntSpec / MLXSpec weights, dense
+or symmetric-quantized expert stacks):
 with the same seed, fill and specs it draws the same random numbers in the
 same order and writes the same bytes, bf16 included, without `ml_dtypes`.
 """
@@ -19,6 +20,7 @@ from ..config import dumps as config_dumps
 from ..config.model import (
     AttentionConfig,
     DecoderConfig,
+    DeltaNetConfig,
     DenseMLPConfig,
     FullPrecisionSpec,
     GenerationConfig,
@@ -27,9 +29,12 @@ from ..config.model import (
     Layout,
     LinearConfig,
     LlamaRoPEConfig,
+    Mamba2Config,
     MixtureOfExpertsConfig,
     MLXSpec,
     NormalizationConfig,
+    SeparableCausalConvConfig,
+    ShortConvConfig,
     SiLU,
     SoftmaxRouting,
     TiedEmbeddingConfig,
@@ -140,22 +145,23 @@ class ModelBuilder:
     def layer_tensors(self, p: str, lc, d: int, default_hidden: int, linear_spec,
                       expert_spec=None) -> None:
         m = lc.mixer_config
-        if not isinstance(m, AttentionConfig):
-            raise NotImplementedError(f"{type(m).__name__} mixers are not ported yet")
         if lc.ple_config is not None:
             raise NotImplementedError("per-layer embeddings are not ported yet")
-        q_dim = m.num_heads * m.head_dim
-        qkv_out = q_dim if m.is_kv_sharing else q_dim + 2 * m.num_groups * m.head_dim
-        self.linear(f"{p}.mixer.qkv_projection", d, qkv_out, linear_spec, m.has_qkv_biases)
-        self.linear(f"{p}.mixer.out_projection", q_dim, d, linear_spec, m.has_out_biases)
-        if m.gate_projection_config is not None:
-            self.linear(f"{p}.mixer.gate_projection", d, q_dim, linear_spec, False)
-        if m.query_norm_config is not None:
-            self.tensors[f"{p}.mixer.query_norm.scales"] = np.ones(m.head_dim, np.float32)
-        if m.key_norm_config is not None and not m.is_kv_sharing:
-            self.tensors[f"{p}.mixer.key_norm.scales"] = np.ones(m.head_dim, np.float32)
-        if m.has_sinks:
-            self.dense(f"{p}.mixer.sinks", (m.num_heads,), scale=1.0)
+        if isinstance(m, AttentionConfig):
+            q_dim = m.num_heads * m.head_dim
+            qkv_out = q_dim if m.is_kv_sharing else q_dim + 2 * m.num_groups * m.head_dim
+            self.linear(f"{p}.mixer.qkv_projection", d, qkv_out, linear_spec, m.has_qkv_biases)
+            self.linear(f"{p}.mixer.out_projection", q_dim, d, linear_spec, m.has_out_biases)
+            if m.gate_projection_config is not None:
+                self.linear(f"{p}.mixer.gate_projection", d, q_dim, linear_spec, False)
+            if m.query_norm_config is not None:
+                self.tensors[f"{p}.mixer.query_norm.scales"] = np.ones(m.head_dim, np.float32)
+            if m.key_norm_config is not None and not m.is_kv_sharing:
+                self.tensors[f"{p}.mixer.key_norm.scales"] = np.ones(m.head_dim, np.float32)
+            if m.has_sinks:
+                self.dense(f"{p}.mixer.sinks", (m.num_heads,), scale=1.0)
+        else:
+            self.recurrent_mixer_tensors(f"{p}.mixer", m, d, linear_spec)
         if lc.pre_mixer_norm_config is not None:
             self.norm_scales(f"{p}.pre_mixer_norm", d, lc.pre_mixer_norm_config.has_biases)
         if lc.post_mixer_norm_config is not None:
@@ -176,6 +182,42 @@ class ModelBuilder:
                              expert_spec if expert_spec is not None else linear_spec)
         else:
             raise NotImplementedError(f"{type(mlp).__name__} MLPs are not ported yet")
+
+    def recurrent_mixer_tensors(self, p: str, m, d: int, linear_spec) -> None:
+        """A ShortConv, Mamba2 or Gated DeltaNet mixer's tensors under `p`,
+        drawn in the JAX synthesizer's order."""
+        if isinstance(m, ShortConvConfig):
+            self.linear(f"{p}.in_projection", d, 3 * d, linear_spec, False)
+            self.linear(f"{p}.out_projection", d, d, linear_spec, False)
+            self.dense(f"{p}.conv.weights", (d, m.kernel_size), np.float32, scale=0.4)
+            if m.conv_config.has_biases:
+                self.dense(f"{p}.conv.biases", (d,), np.float32)
+        elif isinstance(m, Mamba2Config):
+            inner = m.num_heads * m.head_dim
+            conv_dim = inner + 2 * m.num_groups * m.state_dim
+            self.linear(f"{p}.in_projection", d, conv_dim + inner + m.num_heads, linear_spec,
+                        m.has_in_biases)
+            self.linear(f"{p}.out_projection", inner, d, linear_spec, m.has_out_biases)
+            self.dense(f"{p}.gate_bias", (inner,), np.float32)
+            self.dense(f"{p}.conv.weights", (conv_dim, m.kernel_size), np.float32, scale=0.4)
+            if m.conv_config.has_biases:
+                self.dense(f"{p}.conv.biases", (conv_dim,), np.float32)
+            self.dense(f"{p}.skip_connection_weight", (m.num_heads,), np.float32, scale=0.5)
+        elif isinstance(m, DeltaNetConfig):
+            key_dim = m.num_groups * m.head_dim
+            value_dim = m.num_heads * m.value_head_dim
+            conv_dim = 2 * key_dim + value_dim
+            self.linear(f"{p}.in_proj", d, conv_dim + value_dim + 2 * m.num_heads, linear_spec,
+                        False)
+            self.linear(f"{p}.out_proj", value_dim, d, linear_spec, False)
+            self.dense(f"{p}.conv.weights", (conv_dim, m.kernel_size), np.float32, scale=0.4)
+            if m.conv_config.has_biases:
+                self.dense(f"{p}.conv.biases", (conv_dim,), np.float32)
+            self.dense(f"{p}.a_log", (m.num_heads,), np.float32, scale=0.3)
+            self.dense(f"{p}.dt_bias", (m.num_heads,), np.float32, scale=0.3)
+            self.tensors[f"{p}.norm.scales"] = np.ones(m.value_head_dim, np.float32)
+        else:
+            raise ValueError(f"unsupported mixer {type(m).__name__}")
 
     def moe_tensors(self, p: str, mlp: MixtureOfExpertsConfig, d: int, e_spec) -> None:
         """Router and expert stacks. A symmetric IntSpec whose group divides
@@ -427,3 +469,105 @@ def gptoss_config(
         for i, lc in enumerate(base.decoder_config.transformer_config.layer_configs)
     ]
     return _with_mlp(base, layers, expert_hidden_dim)
+
+
+def _hybrid_config(
+    mixer_for_layer,
+    *,
+    num_layers: int,
+    model_dim: int,
+    hidden_dim: int,
+    vocab_size: int,
+    max_seq: int = 4096,
+    rope_base: float = 1000000.0,
+    attn_heads: int = 8,
+    attn_groups: int = 2,
+    attn_head_dim: int = 32,
+) -> LanguageModelConfig:
+    """A hybrid model: `mixer_for_layer(i)` returns a recurrent mixer
+    config, or None for a standard attention layer (recurrent mixers with
+    periodic full-attention layers, as in LFM2 and Qwen3.5)."""
+    base = llama_config(
+        num_layers=num_layers, model_dim=model_dim, hidden_dim=hidden_dim,
+        num_heads=attn_heads, num_groups=attn_groups, head_dim=attn_head_dim,
+        vocab_size=vocab_size, max_seq=max_seq, rope_base=rope_base,
+    )
+    layers = []
+    for i, lc in enumerate(base.decoder_config.transformer_config.layer_configs):
+        mixer = mixer_for_layer(i)
+        # recurrent mixers take no RoPE
+        layers.append(lc if mixer is None else dataclasses.replace(
+            lc, mixer_config=mixer, rope_config=None))
+    return _with_mlp(base, layers, hidden_dim)
+
+
+def lfm2_config(
+    *, num_layers: int = 4, model_dim: int = 128, hidden_dim: int = 256,
+    vocab_size: int = 512, kernel_size: int = 3, attn_every: int = 3,
+) -> LanguageModelConfig:
+    """LFM2-style hybrid: ShortConv mixers with periodic GQA attention."""
+    conv = ShortConvConfig(
+        in_projection_config=LinearConfig(),
+        conv_config=SeparableCausalConvConfig(has_biases=False),
+        out_projection_config=LinearConfig(),
+        kernel_size=kernel_size,
+    )
+    return _hybrid_config(
+        lambda i: None if (i % attn_every == attn_every - 1) else conv,
+        num_layers=num_layers, model_dim=model_dim, hidden_dim=hidden_dim,
+        vocab_size=vocab_size,
+    )
+
+
+def mamba2_hybrid_config(
+    *, num_layers: int = 4, model_dim: int = 128, hidden_dim: int = 256,
+    vocab_size: int = 512, num_heads: int = 4, num_groups: int = 2,
+    head_dim: int = 16, state_dim: int = 32, kernel_size: int = 4,
+    attn_every: int = 4,
+) -> LanguageModelConfig:
+    """Mamba2 mixers with periodic GQA attention."""
+    mamba = Mamba2Config(
+        in_projection_config=LinearConfig(),
+        out_projection_config=LinearConfig(),
+        conv_config=SeparableCausalConvConfig(has_biases=True),
+        activation=SiLU(alpha=1.0),
+        kernel_size=kernel_size,
+        num_heads=num_heads,
+        num_groups=num_groups,
+        head_dim=head_dim,
+        state_dim=state_dim,
+        has_in_biases=False,
+        has_out_biases=False,
+    )
+    return _hybrid_config(
+        lambda i: None if (i % attn_every == attn_every - 1) else mamba,
+        num_layers=num_layers, model_dim=model_dim, hidden_dim=hidden_dim,
+        vocab_size=vocab_size,
+    )
+
+
+def qwen35_config(
+    *, num_layers: int = 4, model_dim: int = 128, hidden_dim: int = 256,
+    vocab_size: int = 512, num_heads: int = 4, num_groups: int = 2,
+    head_dim: int = 32, value_head_dim: int = 32, kernel_size: int = 4,
+    attn_every: int = 4,
+) -> LanguageModelConfig:
+    """Qwen3.5-style hybrid: Gated DeltaNet mixers with periodic GQA
+    attention (at `_hybrid_config`'s attention defaults: 8 heads over 2
+    groups, Dh 32)."""
+    gdn = DeltaNetConfig(
+        in_proj_config=LinearConfig(),
+        conv_config=SeparableCausalConvConfig(has_biases=False),
+        out_proj_config=LinearConfig(),
+        norm_config=_rms(eps=1e-6, upcast=UpcastMode.FULL_LAYER),
+        num_heads=num_heads,
+        num_groups=num_groups,
+        head_dim=head_dim,
+        value_head_dim=value_head_dim,
+        kernel_size=kernel_size,
+    )
+    return _hybrid_config(
+        lambda i: None if (i % attn_every == attn_every - 1) else gdn,
+        num_layers=num_layers, model_dim=model_dim, hidden_dim=hidden_dim,
+        vocab_size=vocab_size,
+    )
