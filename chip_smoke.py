@@ -6,11 +6,12 @@
     python3 chip_smoke.py --paged-only   # K5/K6's rows of phase 2 alone
     python3 chip_smoke.py --qmm-only     # K1/K2's rows with K7-K10's (shared headers)
     python3 chip_smoke.py --grouped-only # K7-K10's rows alone, BN / kw sweeps, ptxas, row checks
+    python3 chip_smoke.py --gemma-only   # phase 14 alone, with K3-K6's Gemma rows
 
 Phases, each of which ends the run with a non-zero exit if it fails:
 
 1. build: compile every CUDA kernel of the port from `uzu_tpu_torch/csrc/`
-   (one nvcc per source, in parallel) while the seven models are
+   (one nvcc per source, in parallel) while the nine models are
    synthesized (one process each); print the card's name and power limit.
 2. kernels: each kernel against its plain PyTorch version on the card at
    the shapes its path gives it (bf16 inputs or INT8 codes, f32
@@ -32,6 +33,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    the paged engine's 1536-token table, Dh 128, f32 q and pools; each row
    with its split count and ptxas registers and spills),
    K3/K5 again at gpt-oss's heads (8 per KV group, window 128, sinks),
+   K3-K6 at the Gemma models' heads at Dh 256 (4/1 and 8/2, window 512,
+   soft cap 50, f32 q and pools, the paged engine's 1536-token table) and
+   at Dh 24 and 16, which run in the next instantiation up,
    K7/K8 expert-gather GEMV (each row with the launch plan it ran; with
    --grouped-only also at every kw and against contiguous dealing; ptxas's
    registers and spills of every instantiation; and a row check: each
@@ -124,6 +128,26 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     M = 4; a planted fault (the batched step reads the next slot's
     recurrent state) that the check must fail; a profiler capture of its
     first prefill and decode chunk (`.port_cache/traces_hybrid/`).
+14. Gemma: `gemma3_1b`, `windowed_config` at Gemma-3-1B's published
+    widths (26 layers, d 1152, FFN 6912, 4 query heads over 1 KV group at
+    Dh 256, vocab 262144, window 512 on five layers of six), and
+    `gemma_e4b_8l`, `gemma_config` at Gemma-3n-E4B's text widths cut to
+    8 of 35 layers (d 2048, FFN 16384, 8/2 heads at Dh 256, vocab 262400,
+    PLE 256 over 262144 ids, the last 2 layers sharing layer 5's KV);
+    INT4 g32 linears and tied embedding, random weights. gemma3_1b:
+    greedy twice, identical (K1, K3 at Dh 256); with `ring_windows=True`
+    teacher-forced logits of a 1200-token prompt against the full layout
+    (f32 activations, TOL relative L2) and its greedy stream under phase
+    4's rule; INT8 KV (K4); `PagedBatchEngine` with phase 4's requests
+    and checks (26 K5 launches a step), and at 2 layers with INT8 pools
+    (K6); `BatchEngine` over rings (a 900-token prompt past the ring's 768
+    slots among them); a profile of the ring model's first prefill and
+    decode chunk (`.port_cache/traces_gemma3_1b/`). gemma_e4b_8l with the
+    ring: greedy twice, identical, prompts holding ids past the PLE
+    vocabulary (K1, K3 on the global layers); its first 4 layers card
+    against host (f32, TOL); `BatchEngine` over rings; one batched decode
+    step's logits per slot within TOL of the single stream's, and the
+    check must fail with the PLE projection dropped from slot 1's row.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Full per-shape numbers also go to
@@ -178,6 +202,21 @@ MAMBA2_4L = dict(num_layers=4, model_dim=1024, hidden_dim=4096, vocab_size=65536
 # the GDN input projection: 2 * 512 (q, k) + 1024 (v) + 1024 (z) + 2 * 8
 # (beta, a) outputs over d = 1280
 HYBRID_LINEAR_SHAPES = (("gdn_in", 3088, 1280),)
+# Gemma-3-1B's published widths (google/gemma-3-1b-pt config.json), full
+# depth: 26 layers, 4 query heads over 1 KV group at Dh 256, window 512 on
+# five layers of every six
+GEMMA3_1B = dict(num_layers=26, model_dim=1152, hidden_dim=6912, num_heads=4, num_groups=1,
+                 head_dim=256, vocab_size=262144, sliding_window=512)
+# Gemma-3n-E4B's published text widths (google/gemma-3n-E4B text config),
+# cut to 8 of 35 layers: 8 query heads over 2 KV groups at Dh 256, window
+# 512, per-layer embeddings of 256 over the first 262144 ids, the last 2
+# layers sharing layer 5's KV
+GEMMA_E4B = dict(num_layers=8, model_dim=2048, hidden_dim=16384, num_heads=8, num_groups=2,
+                 head_dim=256, vocab_size=262400, sliding_window=512, ple_dim=256,
+                 ple_vocab=262144, kv_share_last=2)
+GEMMA_SOFT_CAP = 50.0  # gemma_config's attention logit soft cap
+# head dims between two kernel instantiations (the tiny configs' 24 and 16)
+ROUNDED_HEAD_DIMS = (24, 16)
 GEN_PROMPT, GEN_TOKENS = 128, 64
 REPS = 10
 # a greedy step whose single-stream top-2 logit margin is below this may
@@ -220,7 +259,9 @@ TRACE_KERNELS = {
     "gptoss": {"prefill": {"K9": ("grouped_tile_q",), "K3": ("flash_fwd",)},
                "decode": {"K7": ("moe_small",)}},
     "hybrid": {"prefill": {"K1": ("qmm_small", "qmm_tile"), "K3": ("flash_fwd",)},
-               "decode": {"K1": ("qmm_small",)}}}
+               "decode": {"K1": ("qmm_small",)}},
+    "gemma3_1b": {"prefill": {"K1": ("qmm_small", "qmm_tile"), "K3": ("flash_fwd",)},
+                  "decode": {"K1": ("qmm_small",)}}}
 # kernel names whose launches and summed device ms each trace reports
 TRACED_PORT_KERNELS = ("qmm_small", "qmm_tile", "qmm_split_sum", "flash_fwd",
                        "flash_combine", "moe_small", "grouped_small", "grouped_tile_q")
@@ -437,18 +478,20 @@ def demangled_usage(log_text: str) -> dict:
 
 
 def kernel_usage(log: str, kernel: str) -> dict:
-    """ptxas's registers and spills of each `kernel<TQ, TKV, DH>` (flash_fwd,
-    paged_decode) and flash_combine instantiation ("bf16/int8/64",
-    "combine/64", ...) from a build log."""
+    """ptxas's registers and spills of each `kernel<TQ, TKV, DH>` (flash_fwd)
+    or `kernel<TQ, TKV, DH, EXACT>` (paged_decode; "/rounded" where EXACT
+    is false) and flash_combine instantiation ("bf16/int8/64",
+    "bf16/bf16/64/rounded", "combine/64", ...) from a build log."""
     import re
 
     short = {"__nv_bfloat16": "bf16", "float": "f32", "signed char": "int8"}
     out = {}
     for dem, use in demangled_usage(log).items():
-        m = re.search(kernel + r"<([^,]+), ([^,]+), (\d+)>", dem)
+        m = re.search(kernel + r"<([^,]+), ([^,]+), (\d+)(?:, (true|false))?>", dem)
         c = re.search(r"flash_combine<(\d+)>", dem)
         if m:
-            out["/".join((short.get(m[1], m[1]), short.get(m[2], m[2]), m[3]))] = use
+            key = "/".join((short.get(m[1], m[1]), short.get(m[2], m[2]), m[3]))
+            out[key + ("/rounded" if m[4] == "false" else "")] = use
         elif c:
             out["combine/" + c[1]] = use
     return out
@@ -469,6 +512,7 @@ def flash_row(torch, timer, rows, usage, q, kc, vc, pos0: int, variant: str, kw:
     from uzu_tpu_torch.ops.cuda.flash_attention import (
         flash_attention,
         flash_attention_plain,
+        head_dim_instance,
         split_plan,
     )
 
@@ -517,8 +561,9 @@ def flash_row(torch, timer, rows, usage, q, kc, vc, pos0: int, variant: str, kw:
     kv_name = "int8" if quant else qname
     run = lambda: flash_attention(q, kc, vc, qpos, scale=scale, **kw)  # noqa: E731
     ms, dev_ms = timer.both(run)
+    inst = head_dim_instance(dh)
     row = dict(kernel=kernel, S=s, H=h, G=g, Dh=dh, C=c, pos0=pos0, q=qname, variant=variant,
-               splits=splits, ptxas=usage.get(f"{qname}/{kv_name}/{dh}"),
+               splits=splits, instance=inst, ptxas=usage.get(f"{qname}/{kv_name}/{inst}"),
                max_abs_err=abs_err, err_over_rms=err, tol=TOL,
                ms=ms, device_ms=dev_ms,
                plain_ms=timer.ms(lambda: flash_attention_plain(
@@ -601,6 +646,7 @@ def paged_row(torch, timer, rows, usage, q, k, v, table, lengths, lens_name: str
     from uzu_tpu_torch.models.kv_cache import dequantize_rows
     from uzu_tpu_torch.ops.cuda import paged_attention as pa
     from uzu_tpu_torch.ops.cuda.paged_attention import (
+        head_dim_instance,
         paged_attention_plain,
         paged_decode_attention,
         paged_split_plan,
@@ -675,9 +721,11 @@ def paged_row(torch, timer, rows, usage, q, k, v, table, lengths, lens_name: str
     splits, per = plan
     kv_name = "int8" if quant else qname
     ms, dev_ms = timer.both(run)
+    inst = head_dim_instance(dh)
     row = dict(kernel=kernel, B=b, H=h, G=g, Dh=dh, page=page, width=maxp * page, q=qname,
                lengths=lens_name, variant=variant, live_tokens=live, splits=splits,
-               tiles_per_split=per, ptxas=usage.get(f"{qname}/{kv_name}/{dh}"),
+               tiles_per_split=per, instance=inst,
+               ptxas=usage.get(f"{qname}/{kv_name}/{inst}" + ("/rounded" if dh != inst else "")),
                max_abs_err=abs_err, err_over_rms=err, tol=TOL,
                ms=ms, device_ms=dev_ms,
                plain_ms=timer.ms(lambda: paged_attention_plain(
@@ -1110,6 +1158,93 @@ def check_paged_gptoss(torch, timer, rows, usage) -> None:
                       kw)
 
 
+def check_flash_gemma(torch, timer, rows, usage) -> None:
+    """K3/K4 at the Gemma models' attention heads, Dh 256 (the
+    instantiation this slice adds): a 256-row chunk over a 1024-slot cache
+    at H/G 4/1 (gemma3_1b) and 8/2 (gemma_e4b_8l), plain, with the window of
+    512 and with the soft cap of 50, bf16 and f32 q; the first chunk from
+    position 0; a 16-row chunk over 4096 slots (split route); then the
+    head dims that run rounded up (24 and 16 in the Dh-32 instantiation)."""
+    from uzu_tpu_torch.models.kv_cache import quantize_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    kinds = {"plain": {}, "window": {"sliding_window_size": GEMMA3_1B["sliding_window"]},
+             "softcap": {"logit_soft_cap": GEMMA_SOFT_CAP},
+             "window_softcap": {"sliding_window_size": GEMMA_E4B["sliding_window"],
+                                "logit_soft_cap": GEMMA_SOFT_CAP}}
+
+    def case(h, g, dh, s, c, pos0, variants, dtype=torch.bfloat16, quants=(False, True)):
+        q, kc, vc = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
+                     for shape in ((s, h, dh), (c, g, dh), (c, g, dh)))
+        (kq, ks), (vq, vs) = quantize_rows(kc.float()), quantize_rows(vc.float())
+        for quant in quants:
+            for variant in variants:
+                kw = dict(kinds[variant])
+                if quant:
+                    kw.update(k_scales=ks, v_scales=vs)
+                flash_row(torch, timer, rows, usage, q, kq if quant else kc,
+                          vq if quant else vc, pos0, "gemma_" + variant, kw)
+
+    h1, g1 = GEMMA3_1B["num_heads"], GEMMA3_1B["num_groups"]
+    h4, g4 = GEMMA_E4B["num_heads"], GEMMA_E4B["num_groups"]
+    case(h1, g1, 256, 256, 1024, 765, ("plain", "window"))
+    case(h1, g1, 256, 256, 1024, 0, ("plain",))
+    case(h4, g4, 256, 256, 1024, 765, ("softcap", "window_softcap"))
+    case(h4, g4, 256, 256, 1024, 765, ("softcap",), dtype=torch.float32)
+    case(h1, g1, 256, 16, 4096, 4096 - 19, ("plain",))
+    for dh in ROUNDED_HEAD_DIMS:
+        case(h4, g4, dh, 256, 1024, 765, ("plain", "softcap"))
+        case(h4, g4, dh, 16, 4096, 4096 - 19, ("plain",), dtype=torch.float32)
+
+
+def check_paged_gemma(torch, timer, rows, usage) -> None:
+    """K5/K6 at the Gemma models' heads, Dh 256: 8 slots over 512-token
+    pages at H/G 4/1 (the paged engine's 1536-token table of 8 x 1000
+    tokens, and 8 x 1024 live tokens with the window of 512) and 8/2 with
+    the soft cap; f32 q and pools (the one-stage ring); then the head dims
+    that run rounded up (24 and 16 in the Dh-64 instantiation), ragged
+    lengths included."""
+    from uzu_tpu_torch.models.kv_cache import quantize_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    b, page = 8, 512
+
+    def case(h, g, dh, variants, dtype=torch.bfloat16, quants=(False, True), width=4096,
+             lens_cases=("uniform1024",)):
+        maxp = width // page
+        p_total = b * maxp + 1
+        k = torch.randn((g, p_total, page, dh), device="cuda", generator=gen).to(dtype)
+        v = torch.randn((g, p_total, page, dh), device="cuda", generator=gen).to(dtype)
+        (kq, ks), (vq, vs) = quantize_rows(k.float()), quantize_rows(v.float())
+        table = torch.randperm(p_total - 1, device="cuda", generator=gen)[: b * maxp]
+        table = table.reshape(b, maxp).to(torch.int32)
+        q = torch.randn((b, h, dh), device="cuda", generator=gen).to(dtype)
+        all_lens = {"uniform1024": [1024] * b, "uniform1000": [1000] * b,
+                    "ragged": [1, 100, 513, 777, 1024, 1500, width - 1, width]}
+        for lens_name in lens_cases:
+            lengths = torch.tensor([min(n, width) for n in all_lens[lens_name]],
+                                   device="cuda", dtype=torch.int32)
+            for variant in variants:
+                kw = {"plain": {}, "window": {"sliding_window_size": GEMMA3_1B["sliding_window"]},
+                      "softcap": {"logit_soft_cap": GEMMA_SOFT_CAP}}[variant]
+                for quant in quants:
+                    kwq = dict(kw, k_scales=ks, v_scales=vs) if quant else kw
+                    paged_row(torch, timer, rows, usage, q, kq if quant else k,
+                              vq if quant else v, table, lengths, lens_name,
+                              "gemma_" + variant, kwq)
+        del k, v, kq, vq
+
+    h1, g1 = GEMMA3_1B["num_heads"], GEMMA3_1B["num_groups"]
+    h4, g4 = GEMMA_E4B["num_heads"], GEMMA_E4B["num_groups"]
+    case(h1, g1, 256, ("plain",), width=1536, lens_cases=("uniform1000",))
+    case(h1, g1, 256, ("plain", "window"))
+    case(h4, g4, 256, ("softcap",), lens_cases=("uniform1024", "ragged"))
+    case(h1, g1, 256, ("plain",), dtype=torch.float32, quants=(False,))
+    for dh in ROUNDED_HEAD_DIMS:
+        case(h4, g4, dh, ("plain", "softcap"), lens_cases=("uniform1024", "ragged"))
+        case(h4, g4, dh, ("plain",), dtype=torch.float32, quants=(False,))
+
+
 def check_block_copy(torch, timer, rows) -> None:
     """P1 at the bisect probe's shape, [256, 16] -> [256, 128] f32; the
     copy must equal its plain version bit for bit. Beside it, with the same
@@ -1152,13 +1287,37 @@ def check_block_copy(torch, timer, rows) -> None:
 def model_config(name: str):
     """The LanguageModelConfig of one of the run's models."""
     from uzu_tpu_torch.tools.synth import (
+        gemma_config,
         gptoss_config,
         lfm2_config,
         llama_config,
         mamba2_hybrid_config,
         qwen35_config,
+        windowed_config,
     )
 
+    if name == "gemma3_1b":
+        # windowed_config at Gemma-3-1B's widths, with Gemma-3's pattern of
+        # five local layers to one global one. What it does not have of
+        # Gemma-3: its MLP is SiLU (Gemma's is GELU), and it has no QK norm
+        # and no post norms.
+        g = dict(GEMMA3_1B)
+        window = g.pop("sliding_window")
+        cfg = windowed_config(**g, sliding_window=window, has_sinks=False,
+                              logit_soft_cap=None, kv_share_last=0)
+        tcfg = cfg.decoder_config.transformer_config
+        layers = tuple(dataclasses.replace(lc, mixer_config=dataclasses.replace(
+            lc.mixer_config, sliding_window_size=None if i % 6 == 5 else window))
+            for i, lc in enumerate(tcfg.layer_configs))
+        return dataclasses.replace(cfg, decoder_config=dataclasses.replace(
+            cfg.decoder_config,
+            transformer_config=dataclasses.replace(tcfg, layer_configs=layers)))
+    if name == "gemma_e4b_8l":
+        # gemma_config at Gemma-3n-E4B's text widths: PLE, per-layer
+        # scalars, windows on even layers, soft caps, GELU, the last two
+        # layers sharing layer 5's KV. The repo's config has no AltUp and
+        # no LAuReL.
+        return gemma_config(**GEMMA_E4B)
     if name.startswith("llama1b"):
         return llama_config(**dict(FLAGSHIP, num_layers=16 if name == "llama1b_int4" else 2))
     if name.startswith("gptoss"):
@@ -1201,8 +1360,9 @@ def synth_model(name: str) -> str:
     return out
 
 
+GEMMA_MODELS = ("gemma3_1b", "gemma_e4b_8l")
 MODELS = ("llama1b_int4", "llama1b_int8_2l", "gptoss_int4", "gptoss_int8_2l", "qwen08_int4",
-          "lfm2_4l", "mamba2_4l")
+          "lfm2_4l", "mamba2_4l", *GEMMA_MODELS)
 
 
 def prompt_tokens(n: int, vocab: int):
@@ -1211,13 +1371,16 @@ def prompt_tokens(n: int, vocab: int):
     return (np.arange(n) * 37 + 11) % vocab
 
 
-def single_stream_run(torch, lm, vocab: int, key: str, kernels, info: dict) -> dict:
-    """GEN_TOKENS greedy tokens after a GEN_PROMPT-token prompt, twice: the
-    tokens must repeat, and each kernel in `kernels` must have launched."""
+def single_stream_run(torch, lm, vocab: int, key: str, kernels, info: dict,
+                      prompt=None) -> dict:
+    """GEN_TOKENS greedy tokens after a GEN_PROMPT-token prompt (or
+    `prompt`), twice: the tokens must repeat, and each kernel in `kernels`
+    must have launched."""
     from uzu_tpu_torch.engine.engine import StreamMetrics
     from uzu_tpu_torch.ops.cuda.build import LAUNCHES, reset_launches
 
-    prompt = prompt_tokens(GEN_PROMPT, vocab)
+    if prompt is None:
+        prompt = prompt_tokens(GEN_PROMPT, vocab)
     lm.generate_list(prompt[:16], 2, stop_token_ids=[])  # warm the allocator
 
     reset_launches()
@@ -1243,7 +1406,7 @@ def single_stream_run(torch, lm, vocab: int, key: str, kernels, info: dict) -> d
     decode_steps = metrics.num_forward_passes - 1
     per_step = {n: (launches[n] - per_prefill_chunk[n]) / decode_steps for n in launches}
     info[key] = dict(
-        prompt=GEN_PROMPT, generated=len(toks), tokens_head=toks[:16],
+        prompt=len(prompt), generated=len(toks), tokens_head=toks[:16],
         prefill_tok_s=[m.prefill_tokens_per_second for _, m, _ in runs],
         decode_tok_s=[m.decode_tokens_per_second for _, m, _ in runs],
         launches=launches, launches_per_prefill_chunk=per_prefill_chunk,
@@ -1506,13 +1669,20 @@ def paged_prompts(vocab: int):
 
 def path_paged_int4(torch, lm16, info: dict) -> dict:
     """PagedBatchEngine over the full-width INT4 flagship (bf16 pools)."""
+    return paged_run(torch, lm16, FLAGSHIP["vocab_size"], "paged_int4", info)
+
+
+def paged_run(torch, lm16, vocab: int, key: str, info: dict) -> dict:
+    """PagedBatchEngine (8 slots, 8-step chunks, 64 pages of 512 tokens,
+    bf16 pools) over `lm16`: phase 4's requests and checks, K5 launched
+    once per layer per decode step."""
     from uzu_tpu_torch.engine.paged_batch import PagedBatchEngine
     from uzu_tpu_torch.ops.cuda.build import LAUNCHES, reset_launches
 
     eng = PagedBatchEngine(lm16, batch_size=8, decode_chunk=8, num_pages=64,
                            stop_token_ids=[])
     pool_bytes = sum(t.numel() * t.element_size() for pk in eng.pools if pk for t in pk)
-    prompts = paged_prompts(FLAGSHIP["vocab_size"])
+    prompts = paged_prompts(vocab)
     reset_launches()
     reqs = [eng.submit(p, PAGED_TOKENS) for p in prompts]
     seconds, steps = drive(torch, eng)
@@ -1545,7 +1715,7 @@ def path_paged_int4(torch, lm16, info: dict) -> dict:
     check_streams(readings)
     chunk_ms = [1e3 * t for t, decode_only in steps + steps2 if decode_only]
     generated = sum(len(r.tokens) for r in reqs)
-    info["paged_int4"] = dict(
+    info[key] = dict(
         requests=len(reqs), batch_size=8, decode_chunk=8, page_size=eng.page_size,
         num_pages=64, pool_gb=pool_bytes / 1e9, prompt_tokens=[len(p) for p in prompts],
         generated=generated, seconds=seconds + seconds2,
@@ -1557,7 +1727,7 @@ def path_paged_int4(torch, lm16, info: dict) -> dict:
         prefix_cache_tokens=apc_skipped, **stream_summary(readings),
         compare_seconds=time.perf_counter() - t0, launches=launches,
         launches_per_decode_step={n: launches[n] / decode_steps for n in launches})
-    log("PATH_PAGED_INT4 " + json.dumps(info["paged_int4"]))
+    log("PATH_" + key.upper() + " " + json.dumps(info[key]))
     return launches
 
 
@@ -1565,12 +1735,20 @@ def path_paged_int8(torch, model_dir: str, info: dict) -> dict:
     """PagedBatchEngine with INT8 pools over the 2-layer INT8 flagship:
     prefill through K4, decode through K6."""
     from uzu_tpu_torch.engine.engine import LanguageModel
+
+    lm = LanguageModel.from_dir(model_dir, device="cuda", max_context=4096, kv_quant=True)
+    return paged_int8_run(torch, lm, FLAGSHIP["vocab_size"], "paged_int8", info)
+
+
+def paged_int8_run(torch, lm, vocab: int, key: str, info: dict) -> dict:
+    """PagedBatchEngine with INT8 pools (8 slots, 64 pages) over `lm`
+    (loaded with kv_quant): 6 of phase 4's requests, 32 tokens each, held
+    to the INT8-KV single stream; K4 and K6 launched."""
     from uzu_tpu_torch.engine.paged_batch import PagedBatchEngine
     from uzu_tpu_torch.ops.cuda.build import LAUNCHES, reset_launches
 
-    lm = LanguageModel.from_dir(model_dir, device="cuda", max_context=4096, kv_quant=True)
     eng = PagedBatchEngine(lm, batch_size=8, decode_chunk=8, num_pages=64, stop_token_ids=[])
-    prompts = paged_prompts(FLAGSHIP["vocab_size"])[:6]
+    prompts = paged_prompts(vocab)[:6]
     reset_launches()
     reqs = [eng.submit(p, 32) for p in prompts]
     seconds, _ = drive(torch, eng)
@@ -1581,11 +1759,11 @@ def path_paged_int8(torch, model_dir: str, info: dict) -> dict:
     readings = stream_readings(torch, lm, prompts, [r.tokens for r in reqs])
     log("COMPARED " + json.dumps(readings))
     check_streams(readings)
-    info["paged_int8"] = dict(requests=len(reqs), generated=sum(len(r.tokens) for r in reqs),
-                              seconds=seconds, **stream_summary(readings), launches=launches,
-                              decode_steps=eng.stats["decode_chunks"] * eng.decode_chunk,
-                              prefill_chunks=eng.stats["prefill_chunks"])
-    log("PATH_PAGED_INT8 " + json.dumps(info["paged_int8"]))
+    info[key] = dict(requests=len(reqs), generated=sum(len(r.tokens) for r in reqs),
+                     seconds=seconds, **stream_summary(readings), launches=launches,
+                     decode_steps=eng.stats["decode_chunks"] * eng.decode_chunk,
+                     prefill_chunks=eng.stats["prefill_chunks"])
+    log("PATH_" + key.upper() + " " + json.dumps(info[key]))
     return launches
 
 
@@ -2080,14 +2258,16 @@ def run_batched(torch, lm, prompts, tokens: int):
     return reqs, eng, seconds, steps, ms
 
 
-def path_batched(torch, lm, info: dict) -> None:
-    """BatchEngine over the full-width hybrid: 6 greedy requests of 17-300
-    prompt tokens, 32 tokens each, 4 slots (admission while other slots
-    decode); each stream held to the single stream under phase 4's rule;
-    K1 launched at M = 4 (the decode step's rows)."""
+def path_batched(torch, lm, info: dict, key: str = "batched", prompts=None) -> None:
+    """BatchEngine over the full-width hybrid (or `lm` over `prompts`): 6
+    greedy requests of 17-300 prompt tokens, 32 tokens each, 4 slots
+    (admission while other slots decode); each stream held to the single
+    stream under phase 4's rule; K1 launched at M = 4 (the decode step's
+    rows)."""
     from uzu_tpu_torch.ops.cuda.build import LAUNCHES, reset_launches
 
-    prompts = batched_prompts(QWEN08["vocab_size"])
+    if prompts is None:
+        prompts = batched_prompts(QWEN08["vocab_size"])
     reset_launches()
     reqs, eng, seconds, steps, ms = run_batched(torch, lm, prompts, BATCHED_TOKENS)
     launches = dict(LAUNCHES)
@@ -2101,7 +2281,7 @@ def path_batched(torch, lm, info: dict) -> None:
     check_streams(readings)
     chunk_ms = [1e3 * t for t, decode_only in steps if decode_only]
     generated = sum(len(r.tokens) for r in reqs)
-    info["batched"] = dict(
+    info[key] = dict(
         requests=len(reqs), batch_size=4, decode_chunk=8,
         prompt_tokens=[len(p) for p in prompts], generated=generated, seconds=seconds,
         aggregate_tok_s=generated / seconds,
@@ -2113,7 +2293,7 @@ def path_batched(torch, lm, info: dict) -> None:
         prefill_chunks=eng.stats["prefill_chunks"], decode_chunks=eng.stats["decode_chunks"],
         **stream_summary(readings), compare_seconds=time.perf_counter() - t0,
         launches=launches)
-    log("PATH_BATCHED " + json.dumps(info["batched"]))
+    log("PATH_" + key.upper() + " " + json.dumps(info[key]))
 
 
 def control_batched_fault(torch, lm, info: dict) -> None:
@@ -2146,6 +2326,248 @@ def control_batched_fault(torch, lm, info: dict) -> None:
     log("CONTROL_BATCHED " + json.dumps(info["control_batched"]))
     if caught is None:
         raise AssertionError("the batched stream check passed the next-slot-state fault")
+
+
+# -- phase 14: the Gemma slice (ring KV, PLE, Dh 256) ---------------------------
+
+
+def gemma_prompt(n: int, vocab: int, ple_vocab: int | None = None):
+    """prompt_tokens(n, vocab); with `ple_vocab`, every 8th token is an id
+    at or past it (those read the PLE table's zero rows)."""
+    toks = prompt_tokens(n, vocab)
+    if ple_vocab is not None:
+        toks[3::8] = ple_vocab + (toks[3::8] % (vocab - ple_vocab))
+    return toks
+
+
+def teacher_forced_rel_l2(torch, lms, toks, chunk: int, f32: bool) -> float:
+    """Relative L2 distance of lms[0]'s teacher-forced logits of `toks`
+    from lms[1]'s, both fed in lockstep chunks of `chunk` rows (a ring
+    takes chunks up to its ring_extra); with `f32` the embedding rows are
+    upcast, so every layer and kernel runs its f32 route."""
+    import uzu_tpu_torch.models.decoder as dec
+
+    real_embed = dec.embed
+    if f32:
+        dec.embed = lambda cfg, params, tokens: real_embed(cfg, params, tokens).float()
+    num = den = 0.0
+    try:
+        states = [m.new_state() for m in lms]
+        for i in range(0, len(toks), chunk):
+            t = torch.as_tensor(toks[i:i + chunk], dtype=torch.int64, device="cuda")
+            outs = []
+            for j, m in enumerate(lms):
+                logits, states[j] = dec.decoder_forward(m.decoder_config, m.params, t,
+                                                        states[j], last_only=False)
+                outs.append(logits.float())
+            if not all(bool(torch.isfinite(o).all()) for o in outs):
+                raise AssertionError("non-finite teacher-forced logits")
+            num += float((outs[0] - outs[1]).pow(2).sum())
+            den += float(outs[1].pow(2).sum())
+            del outs
+    finally:
+        dec.embed = real_embed
+    return (num / den) ** 0.5
+
+
+def path_gemma3(torch, model_dir: str, info: dict):
+    """gemma3_1b (Gemma-3-1B's widths, 26 layers, Dh 256) single stream,
+    full layout: GEN_TOKENS greedy tokens after a GEN_PROMPT-token prompt,
+    twice, identical; K1 and K3 (Dh 256, windowed and global layers)
+    launched."""
+    from uzu_tpu_torch.engine.engine import LanguageModel
+
+    lm = LanguageModel.from_dir(model_dir, device="cuda", max_context=4096)
+    single_stream_run(torch, lm, GEMMA3_1B["vocab_size"], "gemma3_1b",
+                      ("quant_matmul_int4", "flash_attention"), info)
+    return lm
+
+
+def gemma3_ring(torch, lm, info: dict):
+    """gemma3_1b with `ring_windows=True` (each windowed layer keeps 512 +
+    256 slots) against its full layout: teacher-forced logits of a
+    1200-token prompt, fed in 256-row chunks, with f32 activations (held
+    to TOL) and with the served bf16 ones (reported); then the ring's
+    greedy stream after that prompt held to the full layout's single
+    stream under phase 4's rule. Returns the ring model."""
+    from uzu_tpu_torch.engine.engine import LanguageModel
+    from uzu_tpu_torch.ops.cuda.build import LAUNCHES, reset_launches
+
+    ring = LanguageModel(lm.config, lm.params, device="cuda", max_context=4096,
+                         ring_windows=True)
+    toks = prompt_tokens(1200, GEMMA3_1B["vocab_size"])
+    c = ring.new_state()["layers"][0]["k"].shape[0]
+    rel = teacher_forced_rel_l2(torch, (ring, lm), toks, 256, f32=True)
+    rel_bf16 = teacher_forced_rel_l2(torch, (ring, lm), toks, 256, f32=False)
+    reset_launches()
+    stream = ring.generate_list(toks, BATCHED_TOKENS, stop_token_ids=[])
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    readings = stream_readings(torch, lm, [toks], [stream])
+    info["gemma3_1b_ring"] = dict(prompt=len(toks), ring_slots=c, rel_l2_f32=rel,
+                                  rel_l2_bf16=rel_bf16, tol=TOL, generated=len(stream),
+                                  **stream_summary(readings), launches=launches)
+    log("GEMMA3_1B_RING " + json.dumps(info["gemma3_1b_ring"]))
+    if not (rel <= TOL):
+        raise AssertionError(f"gemma3_1b ring vs full layout: relative L2 {rel:.3e} > {TOL}")
+    check_streams(readings)
+    return ring
+
+
+def gemma3_kv_int8(torch, lm, info: dict) -> dict:
+    """gemma3_1b with the INT8 KV cache: prefill attention through K4 at
+    Dh 256."""
+    from uzu_tpu_torch.engine.engine import LanguageModel, StreamMetrics
+    from uzu_tpu_torch.ops.cuda.build import LAUNCHES, reset_launches
+
+    lm8 = LanguageModel(lm.config, lm.params, device="cuda", max_context=4096, kv_quant=True)
+    metrics = StreamMetrics()
+    reset_launches()
+    toks = lm8.generate_list(prompt_tokens(GEN_PROMPT, GEMMA3_1B["vocab_size"]), 16,
+                             stop_token_ids=[], metrics=metrics)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    if launches["flash_attention_int8"] <= 0:
+        raise AssertionError("kernel flash_attention_int8 was not launched on gemma3_1b's "
+                             "INT8-KV path")
+    info["gemma3_1b_kv_int8"] = dict(generated=len(toks), tokens_head=toks[:16],
+                                     launches=launches,
+                                     prefill_tok_s=metrics.prefill_tokens_per_second,
+                                     decode_tok_s=metrics.decode_tokens_per_second)
+    log("GEMMA3_1B_KV_INT8 " + json.dumps(info["gemma3_1b_kv_int8"]))
+    return launches
+
+
+def gemma_batched_prompts(vocab: int, ple_vocab: int | None = None):
+    """batched_prompts, with a 900-token one beside them (past a ring's
+    512 + 256 slots); with `ple_vocab`, ids past it in every prompt."""
+    out = batched_prompts(vocab) + [gemma_prompt(900, vocab).tolist()]
+    if ple_vocab is not None:
+        for p in out:
+            p[3::8] = [ple_vocab + t % (vocab - ple_vocab) for t in p[3::8]]
+    return out
+
+
+def path_gemma_e4b(torch, model_dir: str, info: dict):
+    """gemma_e4b_8l (Gemma-3n-E4B's text widths at 8 layers: PLE, Dh 256,
+    KV sharing) with `ring_windows=True`: GEN_TOKENS greedy tokens after
+    a GEN_PROMPT-token prompt holding ids past the PLE vocabulary, twice,
+    identical; K1 and K3 (the global layers at Dh 256) launched."""
+    from uzu_tpu_torch.engine.engine import LanguageModel
+
+    lm = LanguageModel.from_dir(model_dir, device="cuda", max_context=4096, ring_windows=True)
+    vocab = GEMMA_E4B["vocab_size"]
+    single_stream_run(torch, lm, vocab, "gemma_e4b_8l", ("quant_matmul_int4", "flash_attention"),
+                      info, prompt=gemma_prompt(GEN_PROMPT, vocab, GEMMA_E4B["ple_vocab"]))
+    return lm
+
+
+def batched_step_rel_l2(torch, lm, prompts, fault=None) -> list[float]:
+    """Each slot's logits of one batched decode step (`batch_decode_step`
+    over the prompts' single-stream states stacked on [B], as
+    `BatchEngine` holds them) against the single stream's next-step
+    logits from the same state: relative L2 per slot. `fault` wraps the
+    batched step's `ple_apply` (the name `models/batch_decode.py` calls;
+    the package is untouched)."""
+    import numpy as np
+
+    import uzu_tpu_torch.models.batch_decode as bd
+
+    states, firsts = [], []
+    for p in prompts:
+        logits, st = lm.prefill(lm.new_state(), np.asarray(p))
+        states.append(st)
+        firsts.append(int(torch.argmax(logits)))
+    batched = {"pos": torch.stack([st["pos"] for st in states]),
+               "layers": [None if layer is None else {k: torch.stack(
+                   [st["layers"][i][k] for st in states]) for k in layer}
+                   for i, layer in enumerate(states[0]["layers"])]}
+    tokens = torch.tensor(firsts, device="cuda")
+    real = bd.ple_apply
+    if fault is not None:
+        bd.ple_apply = fault(real)
+    try:
+        got, _ = bd.batch_decode_step(lm.decoder_config, lm.params, tokens, batched,
+                                      torch.ones(len(prompts), dtype=torch.int32,
+                                                 device="cuda"))
+    finally:
+        bd.ple_apply = real
+    out = []
+    for b, (st, tok) in enumerate(zip(states, firsts)):
+        want, _, _ = lm._forward(torch.tensor([tok], device="cuda"), st, 1, None)
+        out.append(((got[b].float() - want.float()).norm() / want.float().norm()).item())
+    return out
+
+
+def control_ple_fault(torch, lm, info: dict) -> None:
+    """gemma_e4b_8l's greedy streams on random weights repeat one token,
+    so a stream check cannot see a PLE fault. So the batched step is held
+    at the logits: each slot's logits of one `batch_decode_step` over 4
+    slots (with the ring, ids past the PLE vocabulary in every prompt)
+    within TOL relative L2 of the single stream's from the same state; and
+    with a planted fault, the PLE projection dropped from slot 1's row,
+    slot 1 must lie past TOL."""
+    def dropped(real):
+        def apply(layer_cfg, params, x, per_layer_input):
+            out = real(layer_cfg, params, x, per_layer_input)
+            if out is x or x.shape[0] < 2:
+                return out
+            out = out.clone()
+            out[1] = x[1]
+            return out
+        return apply
+
+    prompts = gemma_batched_prompts(GEMMA_E4B["vocab_size"], GEMMA_E4B["ple_vocab"])[:4]
+    clean = batched_step_rel_l2(torch, lm, prompts)
+    faulty = batched_step_rel_l2(torch, lm, prompts, dropped)
+    info["control_ple"] = dict(prompt_tokens=[len(p) for p in prompts], rel_l2=clean,
+                               rel_l2_fault=faulty, tol=TOL)
+    log("CONTROL_PLE " + json.dumps(info["control_ple"]))
+    if not max(clean) <= TOL:
+        raise AssertionError(f"gemma_e4b_8l batched step vs single stream: relative L2 "
+                             f"{max(clean):.3e} > {TOL}")
+    if not faulty[1] > TOL:
+        raise AssertionError("the batched logits check passed the dropped-PLE fault")
+
+
+def timed_phase(info: dict, name: str, fn, *args):
+    """fn(*args), its seconds recorded under info["phase_seconds"][name]."""
+    t = time.perf_counter()
+    out = fn(*args)
+    info["phase_seconds"][name] = time.perf_counter() - t
+    return out
+
+
+def gemma_phases(torch, dirs: dict, info: dict) -> None:
+    """Phase 14: gemma3_1b single stream, with the ring, with INT8 KV,
+    paged (bf16 pools; INT8 pools at 2 layers), batched over rings and a
+    profile of the ring's first prefill and decode chunk
+    (`.port_cache/traces_gemma3_1b/`);
+    gemma_e4b_8l single stream with the ring, card against host, batched
+    over rings, and the dropped-PLE control."""
+    phase = functools.partial(timed_phase, info)
+    lm_g = phase("gemma3_1b", path_gemma3, torch, dirs["gemma3_1b"], info)
+    lm_gr = phase("gemma3_1b_ring", gemma3_ring, torch, lm_g, info)
+    phase("gemma3_1b_kv_int8", gemma3_kv_int8, torch, lm_g, info)
+    phase("paged_gemma3_1b", paged_run, torch, lm_g, GEMMA3_1B["vocab_size"],
+          "paged_gemma3_1b", info)
+    phase("paged_int8_gemma3_1b", paged_int8_run, torch,
+          first_layers(lm_g, 2, "cuda", kv_quant=True), GEMMA3_1B["vocab_size"],
+          "paged_int8_gemma3_1b", info)
+    phase("batched_gemma3_1b", path_batched, torch, lm_gr, info, "batched_gemma3_1b",
+          gemma_batched_prompts(GEMMA3_1B["vocab_size"]))
+    phase("tools_profile_gemma3_1b", tools_profile, torch, lm_gr, "gemma3_1b",
+          GEMMA3_1B["vocab_size"], info)
+    del lm_g, lm_gr
+    torch.cuda.empty_cache()
+    lm_e = phase("gemma_e4b_8l", path_gemma_e4b, torch, dirs["gemma_e4b_8l"], info)
+    phase("whole_path_gemma_e4b", whole_path_check, torch, lm_e, 4, GEMMA_E4B["vocab_size"],
+          "whole_path_gemma_e4b", info, True)
+    phase("batched_gemma_e4b", path_batched, torch, lm_e, info, "batched_gemma_e4b",
+          gemma_batched_prompts(GEMMA_E4B["vocab_size"], GEMMA_E4B["ple_vocab"]))
+    phase("control_ple", control_ple_fault, torch, lm_e, info)
+    del lm_e
+    torch.cuda.empty_cache()
 
 
 def plain_allowed(torch, logits, sp, ring=None):
@@ -2484,17 +2906,36 @@ def kernel_record(rows, info) -> list[dict]:
         "scale_block_copy": ("uzu_tpu_torch/csrc/block_copy.cu", "tools/exp_qmm_bisect.py:78",
                              dict(R=256, kg=16), "bisect", "block_copy"),
     }
+    # K3-K6 again at the Gemma models' Dh 256 (at gemma3_1b's heads, 4
+    # over 1 group) and at a head dim that runs rounded up (24: K3/K4 in
+    # the Dh-32 instantiation, K5/K6 in the Dh-64 one); errors over the
+    # rows of that Dh. A rounded Dh runs on no model path here: its
+    # launches are its kernel's on the path that runs the kernel.
+    for dh, paths_of in ((256, ("gemma3_1b", "gemma3_1b_kv_int8", "paged_gemma3_1b",
+                                "paged_int8_gemma3_1b")),
+                         (24, ("int4_path", "paged_int8", "paged_int4", "paged_int8"))):
+        at = dict(H=4, G=1) if dh == 256 else dict(H=8, G=2)
+        for name, path in zip(("flash_attention", "flash_attention_int8", "paged_attention",
+                               "paged_attention_int8"), paths_of):
+            src, replaces, _, _, kernel = spec[name]
+            where = (dict(S=256, C=1024, pos0=765, q="bf16", variant="gemma_plain")
+                     if name.startswith("flash") else
+                     dict(page=512, q="bf16", variant="gemma_plain",
+                          lengths="uniform1000" if dh == 256 else "uniform1024"))
+            spec[f"{name}_dh{dh}"] = (src, replaces, dict(where, Dh=dh, **at), path, kernel)
     paths = [key for key, v in info.items()
              if isinstance(v, dict) and isinstance(v.get("launches"), dict)]
     out = []
     for name, (src, replaces, where, path, kernel) in spec.items():
-        mine = [r for r in rows if r["kernel"] == name]
+        kname = name.split("_dh")[0]
+        mine = [r for r in rows if r["kernel"] == kname
+                and ("_dh" not in name or r["Dh"] == where["Dh"])]
         rep = next(r for r in mine if all(r[k] == v for k, v in where.items()))
         out.append(dict(
             name=name, route="cuda", source=src, kernel=kernel, replaces=replaces,
-            launches=info[path]["launches"][name],
-            launches_by_path={key: info[key]["launches"][name] for key in paths
-                              if info[key]["launches"].get(name)},
+            launches=info[path]["launches"][kname],
+            launches_by_path={key: info[key]["launches"][kname] for key in paths
+                              if info[key]["launches"].get(kname)},
             max_abs_err=max(r["max_abs_err"] for r in mine),
             err_over_rms=max(r["err_over_rms"] for r in mine), tol=rep["tol"],
             ms=rep["ms"], device_ms=rep["device_ms"], plain_ms=rep["plain_ms"],
@@ -2502,6 +2943,7 @@ def kernel_record(rows, info) -> list[dict]:
             library_device_ms=rep["library_device_ms"],
             shape={k: rep[k] for k in rep if k in ("weight", "N", "K", "M", "S", "H", "G",
                                                     "Dh", "C", "pos0", "q", "splits", "variant",
+                                                    "instance",
                                                     "B", "page",
                                                     "lengths", "live_tokens", "E", "P", "T",
                                                     "Tp", "bm", "route", "kw", "bn",
@@ -2574,12 +3016,31 @@ def main() -> int:
             check_flash_attention_int8(torch, timer, rows, usage)
             check_attention_gptoss(torch, timer, rows, usage)
             check_flash_hybrid(torch, timer, rows, usage)
+            check_flash_gemma(torch, timer, rows, usage)
         else:
             usage = kernel_usage(kbuild.BUILD_LOGS.get(source, ""), "paged_decode")
             log("PAGED_PTXAS " + json.dumps(usage))
             check_paged_attention(torch, timer, rows, usage)
             check_paged_gptoss(torch, timer, rows, usage)
+            check_paged_gemma(torch, timer, rows, usage)
         log(f"{flag[2:].replace('-', '_').upper()} {len(rows)} rows")
+        return 0
+
+    if "--gemma-only" in sys.argv[1:]:
+        # the Gemma slice alone: its kernel rows and phase 14
+        t0 = time.perf_counter()
+        with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn")) as ex:
+            dirs = dict(zip(GEMMA_MODELS, ex.map(synth_model, GEMMA_MODELS)))
+        log(f"BUILD kernels built in {kbuild.build():.1f} s, models synthesized in "
+            f"{time.perf_counter() - t0:.1f} s")
+        timer, rows = Timer(torch), []
+        check_flash_gemma(torch, timer, rows,
+                          kernel_usage(kbuild.BUILD_LOGS.get("flash_attention", ""), "flash_fwd"))
+        check_paged_gemma(torch, timer, rows,
+                          kernel_usage(kbuild.BUILD_LOGS.get("paged_attention", ""),
+                                       "paged_decode"))
+        gemma_phases(torch, dirs, info)
+        log("GEMMA_ONLY " + json.dumps(info["phase_seconds"]))
         return 0
 
     # phase 1: build the kernels while the models are synthesized
@@ -2619,11 +3080,13 @@ def main() -> int:
     check_flash_attention_int8(torch, timer, rows, usage)
     check_attention_gptoss(torch, timer, rows, usage)
     check_flash_hybrid(torch, timer, rows, usage)
+    check_flash_gemma(torch, timer, rows, usage)
     paged_usage = kernel_usage(kbuild.BUILD_LOGS.get("paged_attention", ""), "paged_decode")
     info["paged_ptxas"] = paged_usage
     log("PAGED_PTXAS " + json.dumps(paged_usage))
     check_paged_attention(torch, timer, rows, paged_usage)
     check_paged_gptoss(torch, timer, rows, paged_usage)
+    check_paged_gemma(torch, timer, rows, paged_usage)
     info["moe_ptxas"] = template_usage(kbuild.BUILD_LOGS.get("moe_gemv", ""), "moe")
     log("MOE_PTXAS " + json.dumps(info["moe_ptxas"]))
     check_moe_gemv(torch, timer, rows)
@@ -2637,12 +3100,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     info["phase_seconds"]["kernels"] = time.perf_counter() - t0
 
-    def phase(name, fn, *args):
-        t = time.perf_counter()
-        out = fn(*args)
-        info["phase_seconds"][name] = time.perf_counter() - t
-        return out
-
+    phase = functools.partial(timed_phase, info)
     lm16 = phase("path_int4", path_int4, torch, dirs["llama1b_int4"], info)
     phase("path_int4_kv_int8", path_int4_kv_int8, torch, lm16, info)
     phase("paged_int4", path_paged_int4, torch, lm16, info)
@@ -2679,6 +3137,9 @@ def main() -> int:
     phase("control_batched", control_batched_fault, torch, lm_h, info)
     phase("tools_profile_hybrid", tools_profile, torch, lm_h, "hybrid", QWEN08["vocab_size"],
           info)
+    del lm_h
+    torch.cuda.empty_cache()
+    gemma_phases(torch, dirs, info)
     info["phase_seconds"]["total"] = time.perf_counter() - t_start
     log("PHASES " + json.dumps(info["phase_seconds"]))
 

@@ -204,9 +204,11 @@ def test_grammar_and_ring_layouts_are_refused(model_dirs):
     eng = BatchEngine(lm, batch_size=2)
     with pytest.raises(ValueError):
         eng.submit([1, 2, 3], 4, grammar=object())
-    ring = _lm(model_dirs, "flagship", ring_windows=True)
-    with pytest.raises(NotImplementedError):
-        BatchEngine(ring, batch_size=2)
+    # ring layouts are served since the Gemma slice: the engine pins its
+    # capacity at max_context and turns prefix sharing off, as the JAX one
+    ring = _lm(model_dirs, "flagship", ring_windows=True, max_context=2048)
+    eng = BatchEngine(ring, batch_size=2)
+    assert eng._ctx_cap == 2048 and eng.prefix_min == 0
 
 
 def test_batched_state_layout(model_dirs):

@@ -19,6 +19,7 @@ import torch
 
 from uzu_tpu.ops.pallas.flash_attention import flash_attention as jax_flash
 from uzu_tpu_torch.models.kv_cache import quantize_rows
+from uzu_tpu_torch.ops.cuda import build
 from uzu_tpu_torch.ops.cuda.flash_attention import (
     BK,
     BQ,
@@ -240,16 +241,32 @@ def test_kernel_head_dims_cover_the_chip_models():
     assert chip_smoke.HYBRID_ATTN["head_dim"] in _HEAD_DIMS
 
 
-def test_gate_admits_head_dims_the_kernel_lacks():
-    """The fault logged in ROADMAP §3: the flash gate, as the JAX gate
-    (`dh % 8 == 0`), admits head dims the K3/K4 kernel is not built for
-    (Gemma-class 256, the tiny configs' 16 and 24); on the card the
-    wrapper raises for them instead of computing. 32, 64 and 128 are
-    built."""
-    from uzu_tpu_torch.ops.cuda.flash_attention import _HEAD_DIMS, supported
+def test_gate_admits_head_dims_the_kernel_lacks(monkeypatch):
+    """Repaired (ROADMAP §3): the flash gate, as the JAX gate (`dh % 8 ==
+    0`), admits every head dim, and every such Dh up to 256 now runs in an
+    instantiation at least as wide (32, 64, 128, 256; 16 and 24 in 32).
+    Past 256, or not a multiple of 8, the wrapper raises on the card
+    before any build."""
+    from uzu_tpu_torch.ops.cuda.flash_attention import (
+        _HEAD_DIMS,
+        flash_attention,
+        head_dim_instance,
+        supported,
+    )
 
     gate = dict(is_causal=True, suffix_mask=None, kv_valid_length=None)
-    lacking = [dh for dh in range(8, 257, 8) if dh not in _HEAD_DIMS]
-    assert set(_HEAD_DIMS) == {32, 64, 128}
-    assert all(supported(64, 8, 2, dh, 1024, **gate) for dh in lacking)
-    assert {16, 24, 256} <= set(lacking)
+    assert _HEAD_DIMS == (32, 64, 128, 256)
+    for dh in range(8, 257, 8):
+        assert supported(64, 8, 2, dh, 1024, **gate)
+        inst = head_dim_instance(dh)
+        assert inst in _HEAD_DIMS and inst >= dh
+        assert inst == min(i for i in _HEAD_DIMS if i >= dh)
+    assert head_dim_instance(16) == head_dim_instance(24) == 32
+    assert head_dim_instance(264) is None and head_dim_instance(20) is None
+    before = dict(build.LAUNCHES)
+    monkeypatch.setattr(torch.Tensor, "device", property(lambda t: torch.device("cuda")))
+    for dh in (264, 20):
+        q, k = torch.zeros((64, 8, dh)), torch.zeros((128, 2, dh))
+        with pytest.raises(ValueError, match="multiple of 8"):
+            flash_attention(q, k, k, torch.zeros(64, dtype=torch.int32), scale=0.1)
+    assert build.LAUNCHES == before

@@ -23,11 +23,15 @@ from uzu_tpu.ops.pallas.paged_attention import (
     paged_attention_reference,
     paged_decode_attention as jax_paged,
 )
+from uzu_tpu_torch.ops.cuda import build
 from uzu_tpu_torch.ops.cuda.flash_attention import flash_combine_plain
 from uzu_tpu_torch.ops.cuda.paged_attention import (
+    _HEAD_DIMS,
     MAX_REP,
     TILE,
+    head_dim_instance,
     paged_attention_plain,
+    paged_decode_attention,
     paged_partials_plain,
     paged_split_plan,
     split_positions,
@@ -216,3 +220,40 @@ def test_split_route_matches_jax(variant, h, quant):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
     interp = np.asarray(jax_paged(*jargs, scale=0.125, interpret=True, **jkw))
     np.testing.assert_allclose(got.numpy(), interp, rtol=2e-2, atol=2e-2)
+
+
+def test_paged_kernel_takes_every_head_dim_the_gate_admits(monkeypatch):
+    """Repaired (ROADMAP §3): `paged_supported` checks no head dim, as the
+    reference's paged kernel takes any; every Dh that is a multiple of 8
+    up to 256 runs in an instantiation at least as wide (64, 128, 256; 16,
+    24 and 32 in 64). Past 256, or not a multiple of 8, the wrapper raises
+    on the card before any build."""
+    assert _HEAD_DIMS == (64, 128, 256)
+    for dh in range(8, 257, 8):
+        inst = head_dim_instance(dh)
+        assert inst == min(i for i in _HEAD_DIMS if i >= dh)
+    assert head_dim_instance(24) == head_dim_instance(32) == 64
+    assert head_dim_instance(264) is None and head_dim_instance(12) is None
+    before = dict(build.LAUNCHES)
+    monkeypatch.setattr(torch.Tensor, "device", property(lambda t: torch.device("cuda")))
+    for dh in (264, 12):
+        q, pool = torch.zeros((2, 8, dh)), torch.zeros((2, 5, 16, dh))
+        with pytest.raises(ValueError, match="multiple of 8"):
+            paged_decode_attention(q, pool, pool, torch.zeros((2, 2), dtype=torch.int32),
+                                   torch.ones(2, dtype=torch.int32), scale=0.1)
+    assert build.LAUNCHES == before
+
+
+def test_every_paged_chip_model_has_a_kernel_head_dim():
+    """Every model `chip_smoke.py` serves through `PagedBatchEngine` (the
+    flagships, gpt-oss, gemma3_1b) passes the paged gate with a head dim
+    the kernel runs."""
+    import chip_smoke
+
+    from uzu_tpu_torch.models.paged_decode import paged_supported
+
+    for name in ("llama1b_int4", "llama1b_int8_2l", "gptoss_int4", "gemma3_1b"):
+        cfg = chip_smoke.model_config(name).decoder_config
+        assert paged_supported(cfg), name
+        for lc in cfg.transformer_config.layer_configs:
+            assert head_dim_instance(lc.mixer_config.head_dim) is not None, name

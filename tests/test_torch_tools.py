@@ -124,13 +124,22 @@ def test_kv_quant_trace_delta(model_dir):
     assert not bad, bad
 
 
-def test_capture_trace_rejects_ple(model_dir):
-    import dataclasses
+def test_capture_trace_rejects_ple(tmp_path):
+    """Repaired with the Gemma slice: `capture_trace` no longer rejects a
+    model with per-layer embeddings; it threads each layer's PLE input,
+    so its logits are the decoder's (`tests/test_torch_gemma.py` holds the
+    trace to the JAX package's)."""
+    from uzu_tpu_torch.models.decoder import decoder_forward
+    from uzu_tpu_torch.tools.synth import gemma_config, synthesize
 
-    lm = _port(model_dir)
-    lm.decoder_config = dataclasses.replace(lm.decoder_config, ple_model_config=object())
-    with pytest.raises(NotImplementedError, match="per-layer embeddings"):
-        quality.capture_trace(lm, [1, 2, 3])
+    d = synthesize(gemma_config(), str(tmp_path / "gemma"), seed=2, dtype=np.float32)
+    lm = LanguageModel.from_dir(d, device="cpu", max_context=64)
+    toks = [1, 2, 3, 300, 511]  # ids past the PLE vocabulary (256) included
+    trace = quality.capture_trace(lm, toks)
+    assert {f"layers.{i}" for i in range(4)} <= set(trace)
+    want, _ = decoder_forward(lm.decoder_config, lm.params, torch.as_tensor(toks),
+                              lm.new_state(), last_only=False)
+    np.testing.assert_allclose(trace["logits"], want.numpy(), rtol=1e-5, atol=1e-5)
 
 
 # -- corpus, telemetry, logs ---------------------------------------------------------------

@@ -13,7 +13,9 @@ lane rule; the port keeps the model's d rows, so the padding is cut here.
 An MoE block's shared experts (`"shared"`) are plain linears, unpadded in
 both packages, and convert as such. A recurrent mixer's leaves (`conv_w`,
 `conv_b`, `a_log`, `dt_bias`, `norm_scales`, `gate_bias`, `skip_weight`)
-are f32 arrays in both packages and carry over as they are.
+are f32 arrays in both packages and carry over as they are, and so do the
+per-layer embeddings (`"per_layer_embedding"` and each layer's `"ple"`:
+a table, linears and norm scales).
 """
 
 from __future__ import annotations

@@ -38,9 +38,21 @@
 //   by __shfl_xor_sync. P is rounded to bf16 in registers and is wgmma's
 //   register A operand for O += P V (m64n64k16 per 64 columns of DH, V read
 //   transposed from shared memory); O stays in registers.
-// - DH is 32, 64 or 128. At DH 32 (the hybrids' attention layers) a row is
-//   64 bytes: the operand tiles take the 64-byte swizzle (8-row groups of
-//   512 bytes), S = Q K^T is two k16 steps and O += P V is m64n32k16.
+// - DH is 32, 64, 128 or 256. At DH 32 (the hybrids' attention layers) a
+//   row is 64 bytes: the operand tiles take the 64-byte swizzle (8-row
+//   groups of 512 bytes), S = Q K^T is two k16 steps and O += P V is
+//   m64n32k16. From DH 64 a row is DH/64 128-byte atoms (four at DH 256).
+//   At DH 256 (Gemma) O is 128 f32 registers a thread beside S's 32, and
+//   one bf16 tile is 32 KB: bf16 and int8 caches take a 2-stage ring (one
+//   block an SM), and f32 K/V (hi + lo operand tiles, 128 KB) take none:
+//   each tile is converted straight from device memory.
+// - A head dim dh between two instantiations runs in the next one up (24
+//   in 32, 200 in 256): the columns past dh of Q, K and V are zero-filled
+//   as they load (cp.async's src-size 0, or a zero store), so Q K^T is
+//   unchanged, and O's columns past dh are never stored. Every address,
+//   the output and the split scratch keep the true dh. An int8 row whose
+//   dh is not a multiple of 16 is only 8-byte aligned, and goes by 8-byte
+//   copies.
 // - KV tiles wholly above the causal diagonal or outside the window are
 //   never loaded; per-element masks run only on the diagonal, window-edge
 //   and ragged-C tiles. The loop is bound by instruction issue on the CUDA
@@ -139,6 +151,11 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool o
   // src-size 0 fills the 16 bytes with zeros (slots past C)
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 8 : 0));
 }
 
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
@@ -373,31 +390,44 @@ struct Smem {
   static constexpr bool QUANT = std::is_same<TKV, int8_t>::value;
   static constexpr bool QLO = std::is_same<TQ, float>::value;   // Q as hi + lo
   static constexpr bool KVLO = std::is_same<TKV, float>::value;  // K, V as hi + lo
+  // f32 K/V at DH 256: no ring (one raw stage would be 128 KB); each tile
+  // is converted into its operand tiles straight from device memory
+  static constexpr bool DIRECT = KVLO && DH > 128;
   static constexpr int TILE = BQ * DH * 2;  // one bf16 operand tile
-  static constexpr int RAW = BK * DH * static_cast<int>(sizeof(TKV));  // one ring tile
+  static constexpr int RAW = DIRECT ? 0 : BK * DH * static_cast<int>(sizeof(TKV));  // ring tile
   static constexpr int RING = (QLO ? 2 : 1) * TILE;                     // after Q (hi, lo)
   // ring depth: the most stages, up to 4, that keep two blocks on an SM
   // (228 KB, 1 KB reserved per block, 1 KB of alignment slack)
   static constexpr int FIXED = RING + (CONVERT ? (KVLO ? 4 : 2) * TILE : 0);
   static constexpr int PER_STAGE = 2 * RAW + (QUANT ? 2 * BK * 4 : 0);
-  static constexpr int STAGES = FIXED + 4 * PER_STAGE <= 114688   ? 4
+  static constexpr int STAGES = DIRECT                            ? 1
+                                : FIXED + 4 * PER_STAGE <= 114688 ? 4
                                 : FIXED + 3 * PER_STAGE <= 114688 ? 3
                                                                   : 2;
   static constexpr int OPS = RING + STAGES * 2 * RAW;  // converted K, V (f32: and lo halves)
   static constexpr int SCALES = OPS + (CONVERT ? (KVLO ? 4 : 2) * TILE : 0);  // [STAGES][k, v][BK]
   static constexpr int BYTES = SCALES + (QUANT ? STAGES * 2 * BK * 4 : 0);
   static constexpr int LAUNCH_BYTES = BYTES + 1024;  // room to align the base to 1024
+  static_assert(LAUNCH_BYTES <= 232448, "flash_fwd's layout passes 227 KB of shared memory");
 };
 
+// The instantiation a head dim runs in: the next of 32, 64, 128, 256 up
+// (0: none; dh must also be a multiple of 8).
+inline int head_dim_instance(int dh) {
+  if (dh <= 0 || dh % 8) return 0;
+  return dh <= 32 ? 32 : dh <= 64 ? 64 : dh <= 128 ? 128 : dh <= 256 ? 256 : 0;
+}
+
 // TQ: the query type; TKV: the cache type (TQ, or int8_t with per-(slot,
-// group) scales k_sc/v_sc). part: split scratch (acc [splits, S, H, DH],
-// then m and l [splits, S, H]), read when splits > 1.
+// group) scales k_sc/v_sc). DH: the instantiation; dh <= DH: the tensors'
+// head dim. part: split scratch (acc [splits, S, H, dh], then m and l
+// [splits, S, H]), read when splits > 1.
 template <typename TQ, typename TKV, int DH>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __restrict__ v,
           const float* __restrict__ k_sc, const float* __restrict__ v_sc,
           const int* __restrict__ q_positions, const float* __restrict__ sinks,
-          float* __restrict__ out, float* __restrict__ part, int S, int H, int G, int C,
+          float* __restrict__ out, float* __restrict__ part, int S, int H, int G, int C, int dh,
           float scale, float soft_cap, int window, int splits, int tiles_per_split) {
   using L = Smem<TQ, TKV, DH>;
   constexpr int CH = DH / 8;                               // bf16 chunks per row
@@ -431,7 +461,8 @@ flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __rest
   const int ntiles = (C + BK - 1) / BK;
   const int t_begin = max(kv_begin / BK, z * tiles_per_split);
   const int t_end = min((kv_end + BK - 1) / BK, min(ntiles, (z + 1) * tiles_per_split));
-  const size_t kv_stride = static_cast<size_t>(G) * DH;  // elements between slots
+  const size_t kv_stride = static_cast<size_t>(G) * dh;  // elements between slots
+  const int row_bytes = dh * static_cast<int>(sizeof(TKV));  // of one slot's K or V row
 
   constexpr int STAGES = L::STAGES;
   auto load_tile = [&](int t, int stage) {
@@ -439,16 +470,32 @@ flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __rest
     uint8_t* rk = ring + stage * 2 * L::RAW;
     const uint32_t dk = smem_u32(rk);
     const uint32_t dv = dk + L::RAW;
-    for (int i = tid; i < BK * CPR; i += THREADS) {
-      const int r = i / CPR;
-      const int c = i % CPR;
-      const bool ok = c0 + r < C;
-      const size_t off = ok ? ((static_cast<size_t>(c0 + r) * kv_stride +
-                                static_cast<size_t>(g) * DH) * sizeof(TKV) + c * 16)
-                            : 0;
-      const uint32_t dst = L::CONVERT ? static_cast<uint32_t>(i * 16) : swz<DH>(r, c);
-      cp_async16(dk + dst, reinterpret_cast<const uint8_t*>(k) + off, ok);
-      cp_async16(dv + dst, reinterpret_cast<const uint8_t*>(v) + off, ok);
+    const uint8_t* kb = reinterpret_cast<const uint8_t*>(k);
+    const uint8_t* vb = reinterpret_cast<const uint8_t*>(v);
+    const size_t gro = static_cast<size_t>(g) * row_bytes;
+    if constexpr (L::DIRECT) {
+      // no ring: the conversion below reads the tile from device memory
+    } else if (L::QUANT && (dh & 15)) {
+      // int8 rows of a dh that is not a multiple of 16: 8-byte copies
+      for (int i = tid; i < BK * CPR * 2; i += THREADS) {
+        const int r = i / (2 * CPR);
+        const int c = i % (2 * CPR);
+        const bool ok = c0 + r < C && c * 8 < row_bytes;
+        const size_t off = ok ? static_cast<size_t>(c0 + r) * kv_stride + gro + c * 8 : 0;
+        cp_async8(dk + i * 8, kb + off, ok);
+        cp_async8(dv + i * 8, vb + off, ok);
+      }
+    } else {
+      for (int i = tid; i < BK * CPR; i += THREADS) {
+        const int r = i / CPR;
+        const int c = i % CPR;
+        const bool ok = c0 + r < C && c * 16 < row_bytes;
+        const size_t off =
+            ok ? static_cast<size_t>(c0 + r) * kv_stride * sizeof(TKV) + gro + c * 16 : 0;
+        const uint32_t dst = L::CONVERT ? static_cast<uint32_t>(i * 16) : swz<DH>(r, c);
+        cp_async16(dk + dst, kb + off, ok);
+        cp_async16(dv + dst, vb + off, ok);
+      }
     }
     if constexpr (L::QUANT) {
       const int r = tid & (BK - 1);
@@ -465,17 +512,17 @@ flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __rest
     cp_async_commit();
   }
 
-  // Q tile [64, DH] as bf16, zero rows past R
+  // Q tile [64, DH] as bf16, zero rows past R and columns past dh
   for (int i = tid; i < BQ * CH; i += THREADS) {
     const int r = i / CH;
     const int c = i % CH;
     const int row = row0 + r;
     uint4 hi = make_uint4(0u, 0u, 0u, 0u);
     uint4 lo = hi;
-    if (row < R) {
+    if (row < R && c * 8 < dh) {
       const int s = row / rep;
       const int h = g * rep + row % rep;
-      const TQ* src = q + (static_cast<size_t>(s) * H + h) * DH + c * 8;
+      const TQ* src = q + (static_cast<size_t>(s) * H + h) * dh + c * 8;
       if constexpr (L::QLO) {
         load8_split(src, hi, lo);
       } else {
@@ -530,7 +577,21 @@ flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __rest
         const int r = i / CH;
         const int c = i % CH;
         const uint32_t at = swz<DH>(r, c);
-        if constexpr (L::KVLO) {
+        if constexpr (L::DIRECT) {
+          // f32 K/V from device memory, zero past C and past dh
+          const int slot = t * BK + r;
+          uint4 hi = make_uint4(0u, 0u, 0u, 0u), lo = hi, vh = hi, vl = hi;
+          if (slot < C && c * 8 < dh) {
+            const size_t off = static_cast<size_t>(slot) * kv_stride +
+                               static_cast<size_t>(g) * dh + c * 8;
+            load8_split(reinterpret_cast<const float*>(k) + off, hi, lo);
+            load8_split(reinterpret_cast<const float*>(v) + off, vh, vl);
+          }
+          *reinterpret_cast<uint4*>(sK + at) = hi;
+          *reinterpret_cast<uint4*>(sK + 2 * L::TILE + at) = lo;
+          *reinterpret_cast<uint4*>(sV + at) = vh;
+          *reinterpret_cast<uint4*>(sV + 2 * L::TILE + at) = vl;
+        } else if constexpr (L::KVLO) {
           uint4 hi, lo;
           load8_split(raw_k + r * DH + c * 8, hi, lo);
           *reinterpret_cast<uint4*>(sK + at) = hi;
@@ -716,23 +777,25 @@ flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __rest
         l = l * corr + exp2f(sk - m2);
       }
       mul /= fmaxf(l, 1e-30f);
-      dst = out + (static_cast<size_t>(s) * H + h) * DH;
+      dst = out + (static_cast<size_t>(s) * H + h) * dh;
     } else {
       const size_t pr = static_cast<size_t>(z) * SH + static_cast<size_t>(s) * H + h;
       if ((lane & 3) == 0) {
-        float* pm = part + static_cast<size_t>(splits) * SH * DH;
+        float* pm = part + static_cast<size_t>(splits) * SH * dh;
         pm[pr] = m > 0.5f * NEG ? m * LN2 : NEG;  // natural-log units
         pm[static_cast<size_t>(splits) * SH + pr] = l;
       }
-      dst = part + pr * DH;
+      dst = part + pr * dh;
     }
 #pragma unroll
     for (int n = 0; n < NH; ++n) {
 #pragma unroll
       for (int j = 0; j < OR / 4; ++j) {
+        const int col = n * ON + 8 * j + col_t;  // and col + 1: both below dh or neither
+        if (col >= dh) continue;
         const float2 val = make_float2(o[n][4 * j + 2 * half] * mul,
                                        o[n][4 * j + 2 * half + 1] * mul);
-        *reinterpret_cast<float2*>(dst + n * ON + 8 * j + col_t) = val;
+        *reinterpret_cast<float2*>(dst + col) = val;
       }
     }
   }
@@ -741,8 +804,8 @@ flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __rest
 template <typename TQ, typename TKV, int DH>
 int launch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
            const int* qpos, const float* sinks, float* out, float* part, int S, int H, int G,
-           int C, float scale, float soft_cap, int window, int splits, int tiles_per_split,
-           cudaStream_t stream) {
+           int C, int dh, float scale, float soft_cap, int window, int splits,
+           int tiles_per_split, cudaStream_t stream) {
   constexpr int smem = Smem<TQ, TKV, DH>::LAUNCH_BYTES;
   // the shared-memory attribute is per device: set it once on each
   constexpr int MAX_DEVICES = 64;
@@ -760,14 +823,14 @@ int launch(const void* q, const void* k, const void* v, const float* ks, const f
   const dim3 grid((R + BQ - 1) / BQ, G, splits);
   flash_fwd<TQ, TKV, DH><<<grid, THREADS, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v), ks,
-      vs, qpos, sinks, out, part, S, H, G, C, scale, soft_cap, window, splits,
+      vs, qpos, sinks, out, part, S, H, G, C, dh, scale, soft_cap, window, splits,
       tiles_per_split);
   if (splits > 1) {
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
     const int rows = S * H;
     uz_split::flash_combine<DH><<<(rows + 7) / 8, 256, 0, stream>>>(part, sinks, out, S, H,
-                                                                   splits);
+                                                                   dh, splits);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -775,36 +838,40 @@ int launch(const void* q, const void* k, const void* v, const float* ks, const f
 template <typename TQ, typename TKV>
 int dispatch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
              const int* qpos, const float* sk, float* o, float* part, int S, int H, int G,
-             int C, int DH, float scale, float soft_cap, int window, int splits, int tps,
+             int C, int dh, float scale, float soft_cap, int window, int splits, int tps,
              cudaStream_t s) {
-  if (DH == 32) {
-    return launch<TQ, TKV, 32>(q, k, v, ks, vs, qpos, sk, o, part, S, H, G, C, scale,
-                               soft_cap, window, splits, tps, s);
+  switch (head_dim_instance(dh)) {
+    case 32:
+      return launch<TQ, TKV, 32>(q, k, v, ks, vs, qpos, sk, o, part, S, H, G, C, dh, scale,
+                                 soft_cap, window, splits, tps, s);
+    case 64:
+      return launch<TQ, TKV, 64>(q, k, v, ks, vs, qpos, sk, o, part, S, H, G, C, dh, scale,
+                                 soft_cap, window, splits, tps, s);
+    case 128:
+      return launch<TQ, TKV, 128>(q, k, v, ks, vs, qpos, sk, o, part, S, H, G, C, dh, scale,
+                                  soft_cap, window, splits, tps, s);
+    case 256:
+      return launch<TQ, TKV, 256>(q, k, v, ks, vs, qpos, sk, o, part, S, H, G, C, dh, scale,
+                                  soft_cap, window, splits, tps, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (DH == 64) {
-    return launch<TQ, TKV, 64>(q, k, v, ks, vs, qpos, sk, o, part, S, H, G, C, scale,
-                               soft_cap, window, splits, tps, s);
-  }
-  if (DH == 128) {
-    return launch<TQ, TKV, 128>(q, k, v, ks, vs, qpos, sk, o, part, S, H, G, C, scale,
-                                soft_cap, window, splits, tps, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// Plain C entry points, bound with ctypes. The caller guarantees: q [S,H,DH]
-// and k/v [C,G,DH] contiguous, 16-byte aligned; H % G == 0; q_positions
+// Plain C entry points, bound with ctypes. The caller guarantees: q [S,H,dh]
+// and k/v [C,G,dh] contiguous, 16-byte aligned, dh a multiple of 8 up to
+// 256 (run in the next instantiation up); H % G == 0; q_positions
 // int32 on the device; sinks f32 [H] or nullptr; soft_cap <= 0 and
 // window <= 0 mean none; splits >= 1 ranges of tiles_per_split 64-slot
 // tiles covering [0, C), and for splits > 1 an f32 scratch of
-// splits * S * H * (DH + 2) values. K3: q, k, v of one dtype (bf16 or
+// splits * S * H * (dh + 2) values. K3: q, k, v of one dtype (bf16 or
 // f32). K4: k/v int8 codes with f32 scales [C,G]; q bf16 or f32. Each
 // returns cudaGetLastError() after its launches.
 extern "C" int uz_flash_attention(const void* q, const void* k, const void* v, int is_bf16,
                                   const void* q_positions, const void* sinks, void* out, int S,
-                                  int H, int G, int C, int DH, float scale, float soft_cap,
+                                  int H, int G, int C, int dh, float scale, float soft_cap,
                                   int window, int splits, int tiles_per_split, void* scratch,
                                   void* stream) {
   const int* qpos = static_cast<const int*>(q_positions);
@@ -814,17 +881,17 @@ extern "C" int uz_flash_attention(const void* q, const void* k, const void* v, i
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     return dispatch<__nv_bfloat16, __nv_bfloat16>(q, k, v, nullptr, nullptr, qpos, sk, o, part,
-                                                  S, H, G, C, DH, scale, soft_cap, window,
+                                                  S, H, G, C, dh, scale, soft_cap, window,
                                                   splits, tiles_per_split, s);
   }
-  return dispatch<float, float>(q, k, v, nullptr, nullptr, qpos, sk, o, part, S, H, G, C, DH,
+  return dispatch<float, float>(q, k, v, nullptr, nullptr, qpos, sk, o, part, S, H, G, C, dh,
                                 scale, soft_cap, window, splits, tiles_per_split, s);
 }
 
 extern "C" int uz_flash_attention_i8(const void* q, const void* k_codes, const void* k_scales,
                                      const void* v_codes, const void* v_scales, int is_bf16,
                                      const void* q_positions, const void* sinks, void* out,
-                                     int S, int H, int G, int C, int DH, float scale,
+                                     int S, int H, int G, int C, int dh, float scale,
                                      float soft_cap, int window, int splits,
                                      int tiles_per_split, void* scratch, void* stream) {
   const float* ks = static_cast<const float*>(k_scales);
@@ -836,9 +903,9 @@ extern "C" int uz_flash_attention_i8(const void* q, const void* k_codes, const v
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     return dispatch<__nv_bfloat16, int8_t>(q, k_codes, v_codes, ks, vs, qpos, sk, o, part, S,
-                                           H, G, C, DH, scale, soft_cap, window, splits,
+                                           H, G, C, dh, scale, soft_cap, window, splits,
                                            tiles_per_split, s);
   }
   return dispatch<float, int8_t>(q, k_codes, v_codes, ks, vs, qpos, sk, o, part, S, H, G, C,
-                                 DH, scale, soft_cap, window, splits, tiles_per_split, s);
+                                 dh, scale, soft_cap, window, splits, tiles_per_split, s);
 }

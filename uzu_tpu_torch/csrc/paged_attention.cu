@@ -71,6 +71,18 @@
 //   4-16-row query.
 // - The score pass is compiled once per case (soft cap or not, mask or
 //   not) and picked per 16 tokens with uniform branches.
+// - DH is 64, 128 or 256. At DH 256 (Gemma) a warp's O is 128 f32
+//   registers a thread, so Q's fragments go to shared memory (written once
+//   by warp 0) instead of registers, and K and V fragments are read one
+//   16-byte chunk at a time and used at once. The ring is 2 stages of bf16
+//   (one block an SM), 3 of int8, and 1 of f32 pools (a 128 KB stage: the
+//   copy of the next tile then waits for the current one's compute).
+// - A head dim dh between two instantiations runs in the next one up (24
+//   and 32 in 64, 200 in 256): Q's and the ring's columns past dh are
+//   zero-filled as they load, so Q K^T is unchanged, and O's columns past
+//   dh are never stored. Page rows, the output and the split scratch keep
+//   the true dh. An int8 row whose dh is not a multiple of 16 is only
+//   8-byte aligned, and goes by 8-byte copies.
 //
 // Rounding, as K3/K4 settle it (flash_attention.cu): bf16 q and k enter
 // Q K^T as they are and p is rounded to bf16 before P V, as the TPU kernel
@@ -127,6 +139,11 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool o
   asm volatile(
       "cp.async.cg.shared.global.L2::cache_hint.L2::256B [%0], [%1], 16, %2, %3;\n" ::"r"(dst),
       "l"(src), "r"(ok ? 16 : 0), "l"(pol));
+}
+
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 8 : 0));
 }
 
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
@@ -229,13 +246,29 @@ struct Layout {
   static constexpr int VB = RB / 8;   // V bytes of a token row one thread reads
   static constexpr int TILE = BT * RB;
   static constexpr int STAGE = 2 * TILE + (QUANT ? 2 * BT * 4 : 0);  // K, V, [k, v scales]
-  // the most stages, up to 4, that keep two blocks on an SM
-  static constexpr int STAGES = 4 * STAGE <= 114688 ? 4 : 3 * STAGE <= 114688 ? 3 : 2;
+  // DH 256: Q's A fragments [hi, lo][DH / 16 k-steps][32 lanes] in shared
+  // memory, after the ring (O's registers leave no room for them)
+  static constexpr bool QS = DH > 128;
+  static constexpr int QBYTES = QS ? (QLO ? 2 : 1) * (DH / 16) * 32 * 16 : 0;
+  // the most stages, up to 4, that keep two blocks on an SM; else 2, or 1
+  // where two do not fit (f32 pools at DH 256)
+  static constexpr int STAGES = 4 * STAGE <= 114688                ? 4
+                                : 3 * STAGE <= 114688              ? 3
+                                : 2 * STAGE + QBYTES <= 232448     ? 2
+                                                                   : 1;
   static constexpr int RING = STAGES * STAGE;
   // the warps' final states: O [WARPS][16][DH], m and l [WARPS][16], u [WARPS]
   static constexpr int MERGE = (WARPS * 16 * (DH + 2) + WARPS) * 4;
-  static constexpr int BYTES = RING > MERGE ? RING : MERGE;
+  static constexpr int BYTES = RING + QBYTES > MERGE ? RING + QBYTES : MERGE;
+  static_assert(BYTES <= 232448, "paged_decode's layout passes 227 KB of shared memory");
 };
+
+// The instantiation a head dim runs in: the next of 64, 128, 256 up (0:
+// none; dh must also be a multiple of 8).
+inline int head_dim_instance(int dh) {
+  if (dh <= 0 || dh % 8) return 0;
+  return dh <= 64 ? 64 : dh <= 128 ? 128 : dh <= 256 ? 256 : 0;
+}
 
 // Where 16-byte chunk c of token row r of a K tile lies in its row. A
 // thread reads chunks tig * KB/16 + i of row 8n + gid; the XOR puts the 8
@@ -286,18 +319,22 @@ __device__ __forceinline__ void score_pass(float (&sc)[2][4], const float2 (&ks2
 }
 
 // TQ: the query type; TKV: the pool type (TQ, or int8_t with scales ks/vs).
-// Block (b, g, z): slot b, KV group g, split z of `splits`: the tiles z,
-// z + splits, z + 2 splits, ... of the table's width. part: split scratch (acc [splits, B, H, DH], then
-// m and l [splits, B, H]), written when splits > 1.
-template <typename TQ, typename TKV, int DH>
+// DH: the instantiation; dh <= DH: the tensors' head dim (EXACT: dh ==
+// DH, compiled in, so the head-dim tests of the loads fold away: 2-5%
+// of the kernel's time at DH 64 and 128 on the H100). Block (b, g, z):
+// slot b, KV group g, split z of `splits`: the tiles z, z + splits, z + 2
+// splits, ... of the table's width. part: split scratch (acc [splits, B,
+// H, dh], then m and l [splits, B, H]), written when splits > 1.
+template <typename TQ, typename TKV, int DH, bool EXACT>
 __global__ void __launch_bounds__(THREADS)
 paged_decode(const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __restrict__ vp,
              const float* __restrict__ ks, const float* __restrict__ vs,
              const int* __restrict__ table, const int* __restrict__ lengths,
              const float* __restrict__ sinks, float* __restrict__ out, float* __restrict__ part,
-             int H, int G, int P, int page, int maxp, float scale, float soft_cap, int window,
-             int splits) {
+             int H, int G, int P, int page, int maxp, int dh, float scale, float soft_cap,
+             int window, int splits) {
   using L = Layout<TQ, TKV, DH>;
+  if constexpr (EXACT) dh = DH;
   constexpr int KS = DH / 16;       // k-steps of Q K^T
   constexpr int NT = DH / 8;        // n8 tiles of O
   constexpr int KW = L::KB / 16;    // 16-byte K chunks a thread reads per token
@@ -333,13 +370,15 @@ paged_decode(const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __
 
   if (t_begin >= t_end || lo >= hi) {
     for (int i = tid; i < rep * DH; i += THREADS) {
+      const int d = i % DH;
+      if (d >= dh) continue;
       const size_t row = static_cast<size_t>(b) * H + g * rep + i / DH;
       if (splits == 1) {
-        out[row * DH + i % DH] = 0.f;
+        out[row * dh + d] = 0.f;
       } else {
-        part[(z * BH + row) * DH + i % DH] = 0.f;
-        if (i % DH == 0) {
-          float* pm = part + splits * BH * DH;
+        part[(z * BH + row) * dh + d] = 0.f;
+        if (d == 0) {
+          float* pm = part + splits * BH * dh;
           pm[z * BH + row] = NEG;
           pm[splits * BH + z * BH + row] = 0.f;
         }
@@ -353,10 +392,12 @@ paged_decode(const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __
   const uint8_t* kbytes = reinterpret_cast<const uint8_t*>(kp);
   const uint8_t* vbytes = reinterpret_cast<const uint8_t*>(vp);
 
-  // Q as m16n8k16 A fragments, rows gid and gid + 8 (zero past rep); the
-  // contraction index is permuted: k-step kk, slots 2 tig (+1) and 8 + 2
-  // tig (+1) read q[tig * DH/4 + 4 kk + (0..3)], as K's fragments below.
+  // Q as m16n8k16 A fragments, rows gid and gid + 8 (zero past rep, and
+  // past dh); the contraction index is permuted: k-step kk, slots 2 tig
+  // (+1) and 8 + 2 tig (+1) read q[tig * DH/4 + 4 kk + (0..3)], as K's
+  // fragments below. DH 256: warp 0 stores them to shared memory.
   uint32_t qa[KS][4], ql[KS][4];
+  uint4* const qsm = reinterpret_cast<uint4*>(smem + L::RING);  // L::QS: [hi, lo][KS][32]
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = gid + 8 * half;
@@ -364,10 +405,12 @@ paged_decode(const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __
 #pragma unroll
     for (int i = 0; i < 2 * KS; ++i) w[i] = wl[i] = 0u;
     if (r < rep) {
-      const TQ* src = q + (static_cast<size_t>(b) * H + g * rep + r) * DH + tig * (DH / 4);
+      const int d0 = tig * (DH / 4);
+      const TQ* src = q + (static_cast<size_t>(b) * H + g * rep + r) * dh + d0;
       if constexpr (L::QLO) {
 #pragma unroll
         for (int i = 0; i < DH / 16; ++i) {
+          if (d0 + 4 * i >= dh) break;
           const float4 f = reinterpret_cast<const float4*>(src)[i];
           split_bf16x2(f.x, f.y, w[2 * i], wl[2 * i]);
           split_bf16x2(f.z, f.w, w[2 * i + 1], wl[2 * i + 1]);
@@ -375,6 +418,7 @@ paged_decode(const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __
       } else {
 #pragma unroll
         for (int i = 0; i < DH / 32; ++i) {
+          if (d0 + 8 * i >= dh) break;
           const uint4 u = reinterpret_cast<const uint4*>(src)[i];
           w[4 * i] = u.x;
           w[4 * i + 1] = u.y;
@@ -389,6 +433,17 @@ paged_decode(const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __
       qa[kk][2 + half] = w[2 * kk + 1];
       ql[kk][half] = wl[2 * kk];
       ql[kk][2 + half] = wl[2 * kk + 1];
+    }
+  }
+  if constexpr (L::QS) {
+    if (warp == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        qsm[kk * 32 + lane] = make_uint4(qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3]);
+        if constexpr (L::QLO) {
+          qsm[(KS + kk) * 32 + lane] = make_uint4(ql[kk][0], ql[kk][1], ql[kk][2], ql[kk][3]);
+        }
+      }
     }
   }
 
@@ -407,18 +462,38 @@ paged_decode(const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __
     const int pos = t * BT + lr;
     return (pos >= lo && pos < hi) ? __ldg(trow + pos / page) : -1;
   };
+  const int row_bytes = dh * static_cast<int>(sizeof(TKV));  // of one token's K or V row
   auto load_tile = [&](int t, int stage, int pg) {
     const uint32_t dk = smem_u32(ring + stage * L::STAGE);
     const uint32_t dv = dk + L::TILE;
     const bool ok = pg >= 0;
     const size_t row = ok ? (group_page + pg) * page + (t * BT + lr) % page : 0;
-    const uint8_t* ksrc = kbytes + row * L::RB;
-    const uint8_t* vsrc = vbytes + row * L::RB;
+    const uint8_t* ksrc = kbytes + row * row_bytes;
+    const uint8_t* vsrc = vbytes + row * row_bytes;
+    if (L::QUANT && (dh & 15)) {
+      // int8 rows of a dh that is not a multiple of 16: 8-byte copies
 #pragma unroll
-    for (int j = 0; j < L::NC / 2; ++j) {
-      const int c = 2 * j + lh;
-      cp_async16(dk + lr * L::RB + kswz<L::NC>(lr, c) * 16, ksrc + c * 16, ok, pol);
-      cp_async16(dv + lr * L::RB + vswz<L::NC, CPV>(lr, c) * 16, vsrc + c * 16, ok, pol);
+      for (int j = 0; j < L::NC / 2; ++j) {
+        const int c = 2 * j + lh;
+        const uint32_t kd = dk + lr * L::RB + kswz<L::NC>(lr, c) * 16;
+        const uint32_t vd = dv + lr * L::RB + vswz<L::NC, CPV>(lr, c) * 16;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool in = ok && c * 16 + 8 * e < row_bytes;
+          cp_async8(kd + 8 * e, ksrc + (in ? c * 16 + 8 * e : 0), in);
+          cp_async8(vd + 8 * e, vsrc + (in ? c * 16 + 8 * e : 0), in);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < L::NC / 2; ++j) {
+        const int c = 2 * j + lh;
+        const bool in = ok && c * 16 < row_bytes;
+        cp_async16(dk + lr * L::RB + kswz<L::NC>(lr, c) * 16, ksrc + (in ? c * 16 : 0), in,
+                   pol);
+        cp_async16(dv + lr * L::RB + vswz<L::NC, CPV>(lr, c) * 16, vsrc + (in ? c * 16 : 0),
+                   in, pol);
+      }
     }
     if constexpr (L::QUANT) {
       // [k scales][v scales] of the tile's 64 tokens
@@ -453,11 +528,15 @@ paged_decode(const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __
 
   for (int i = 0; i < n; ++i) {
     const int t = t_begin + i * splits;
-    cp_async_wait<STAGES - 2>();
+    if constexpr (STAGES > 1) cp_async_wait<STAGES - 2>();
     __syncthreads();  // tile i has landed; every warp is done with tile i - 1
     if (i + STAGES - 1 < n) load_tile(t + (STAGES - 1) * splits, (i + STAGES - 1) % STAGES, pg_next);
     cp_async_commit();
     if (i + STAGES < n) pg_next = page_of(t + STAGES * splits);  // used by the next tile's refill
+    if constexpr (STAGES == 1) {  // one stage: tile i was copied just now
+      cp_async_wait<0>();
+      __syncthreads();
+    }
 
     const int tok0 = t * BT + 16 * warp;
     if (tok0 + 16 <= lo || tok0 >= hi) continue;  // none of this warp's tokens is live
@@ -469,36 +548,58 @@ paged_decode(const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __
     const float* vsc = ksc + BT;
 
     // S = Q K^T: two n8 tiles of tokens; thread (gid, tig) reads token row
-    // 8 nt + gid, its quarter tig of the row
+    // 8 nt + gid, its quarter tig of the row as 16-byte chunks (WK fragment
+    // words each: k-steps c * WK/2 ...); all of them before the products
+    // up to DH 128, one at a time, used as it arrives, at DH 256
+    constexpr int WK = L::QUANT ? 8 : L::KVLO ? 2 : 4;
     float sc[2][4];
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) {
       const int r = 16 * warp + 8 * nt + gid;
-      uint32_t kw[2 * KS], kl[2 * KS];
+      auto kchunk = [&](int c) {
+        return *reinterpret_cast<const uint4*>(sk + r * L::RB + kswz<L::NC>(r, tig * KW + c) * 16);
+      };
+      uint4 kraw[L::QS ? 1 : KW];
+      if constexpr (!L::QS) {
 #pragma unroll
-      for (int c = 0; c < KW; ++c) {
-        const uint4 u = *reinterpret_cast<const uint4*>(
-            sk + r * L::RB + kswz<L::NC>(r, tig * KW + c) * 16);
-        const uint32_t x[4] = {u.x, u.y, u.z, u.w};
-        if constexpr (L::QUANT) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) codes4_bf16(x[e], kw[8 * c + 2 * e], kw[8 * c + 2 * e + 1]);
-        } else if constexpr (L::KVLO) {
-          split_bf16x2(__uint_as_float(x[0]), __uint_as_float(x[1]), kw[2 * c], kl[2 * c]);
-          split_bf16x2(__uint_as_float(x[2]), __uint_as_float(x[3]), kw[2 * c + 1],
-                       kl[2 * c + 1]);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) kw[4 * c + e] = x[e];
-        }
+        for (int c = 0; c < KW; ++c) kraw[c] = kchunk(c);
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        mma_bf16(sc[nt], qa[kk], kw[2 * kk], kw[2 * kk + 1]);
-        if constexpr (L::KVLO) mma_bf16(sc[nt], qa[kk], kl[2 * kk], kl[2 * kk + 1]);
-        if constexpr (L::QLO) mma_bf16(sc[nt], ql[kk], kw[2 * kk], kw[2 * kk + 1]);
+      for (int c = 0; c < KW; ++c) {
+        const uint4 u = L::QS ? kchunk(c) : kraw[L::QS ? 0 : c];
+        const uint32_t x[4] = {u.x, u.y, u.z, u.w};
+        uint32_t kw[WK], kl[WK];
+        if constexpr (L::QUANT) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) codes4_bf16(x[e], kw[2 * e], kw[2 * e + 1]);
+        } else if constexpr (L::KVLO) {
+          split_bf16x2(__uint_as_float(x[0]), __uint_as_float(x[1]), kw[0], kl[0]);
+          split_bf16x2(__uint_as_float(x[2]), __uint_as_float(x[3]), kw[1], kl[1]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) kw[e] = x[e];
+        }
+#pragma unroll
+        for (int i = 0; i < WK / 2; ++i) {
+          const int kk = c * (WK / 2) + i;
+          uint32_t a[4], al[4];
+          if constexpr (L::QS) {
+            const uint4 qv = qsm[kk * 32 + lane];
+            a[0] = qv.x, a[1] = qv.y, a[2] = qv.z, a[3] = qv.w;
+            if constexpr (L::QLO) {
+              const uint4 lv = qsm[(KS + kk) * 32 + lane];
+              al[0] = lv.x, al[1] = lv.y, al[2] = lv.z, al[3] = lv.w;
+            }
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) a[e] = qa[kk][e], al[e] = ql[kk][e];
+          }
+          mma_bf16(sc[nt], a, kw[2 * i], kw[2 * i + 1]);
+          if constexpr (L::KVLO) mma_bf16(sc[nt], a, kl[2 * i], kl[2 * i + 1]);
+          if constexpr (L::QLO) mma_bf16(sc[nt], al, kw[2 * i], kw[2 * i + 1]);
+        }
       }
     }
 
@@ -586,61 +687,81 @@ paged_decode(const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __
 
     // O += P V: V's B fragment of n8 tile j holds tokens 2 tig (+1) and
     // 8 + 2 tig (+1) at output column gid, which is dim gid * DH/8 + j; so
-    // a thread reads the contiguous eighth gid of its four token rows
-    uint32_t vw[4][VW];
-#pragma unroll
-    for (int rr = 0; rr < 4; ++rr) {
+    // a thread reads the contiguous eighth gid of its four token rows, in
+    // VR reads of VPR words a row: all of them before the products up to
+    // DH 128, one read of each row at a time at DH 256
+    constexpr int VR = CPV == 0 ? 1 : CPV;   // reads a thread makes per row
+    constexpr int VPR = CPV == 0 ? 2 : 4;    // words per read
+    static_assert(VR * VPR == VW, "V's reads cover the thread's words");
+    auto vread = [&](int rr, int c, uint32_t* dst) {
       const int r = 16 * warp + 2 * tig + (rr & 1) + 8 * (rr >> 1);
       const uint8_t* row = sv + r * L::RB;
       if constexpr (CPV == 0) {
         const uint2 u = *reinterpret_cast<const uint2*>(
             row + vswz<L::NC, 1>(r, gid >> 1) * 16 + (gid & 1) * 8);
-        vw[rr][0] = u.x;
-        vw[rr][1] = u.y;
+        dst[0] = u.x;
+        dst[1] = u.y;
       } else {
-#pragma unroll
-        for (int c = 0; c < CPV; ++c) {
-          const uint4 u = *reinterpret_cast<const uint4*>(
-              row + vswz<L::NC, CPV>(r, gid * CPV + c) * 16);
-          vw[rr][4 * c] = u.x;
-          vw[rr][4 * c + 1] = u.y;
-          vw[rr][4 * c + 2] = u.z;
-          vw[rr][4 * c + 3] = u.w;
-        }
+        const uint4 u = *reinterpret_cast<const uint4*>(
+            row + vswz<L::NC, CPV>(r, gid * CPV + c) * 16);
+        dst[0] = u.x;
+        dst[1] = u.y;
+        dst[2] = u.z;
+        dst[3] = u.w;
       }
+    };
+    uint32_t vall[4][L::QS ? 1 : VW];
+    if constexpr (!L::QS) {
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+        for (int c = 0; c < VR; ++c) vread(rr, c, &vall[rr][c * VPR]);
     }
-    if constexpr (L::QUANT) {
-      // codes: word k of a row holds dims 4k..4k+3 of the thread's eighth
 #pragma unroll
-      for (int k = 0; k < VW; ++k) {
-        uint32_t xl[2], xh[2];
+    for (int c = 0; c < VR; ++c) {
+      uint32_t vw[4][VPR];
 #pragma unroll
-        for (int pr = 0; pr < 2; ++pr) {
-          const uint32_t a = vw[2 * pr][k] ^ 0x80808080u;
-          const uint32_t c = vw[2 * pr + 1][k] ^ 0x80808080u;
-          xl[pr] = __byte_perm(a, c, 0x5140);  // a0 c0 a1 c1
-          xh[pr] = __byte_perm(a, c, 0x7362);  // a2 c2 a3 c3
+      for (int rr = 0; rr < 4; ++rr) {
+        if constexpr (L::QS) {
+          vread(rr, c, vw[rr]);
+        } else {
+#pragma unroll
+          for (int w = 0; w < VPR; ++w) vw[rr][w] = vall[rr][c * VPR + w];
         }
-        mma_f16(o[4 * k], pa, codes2_f16(xl[0], 0x4140), codes2_f16(xl[1], 0x4140));
-        mma_f16(o[4 * k + 1], pa, codes2_f16(xl[0], 0x4342), codes2_f16(xl[1], 0x4342));
-        mma_f16(o[4 * k + 2], pa, codes2_f16(xh[0], 0x4140), codes2_f16(xh[1], 0x4140));
-        mma_f16(o[4 * k + 3], pa, codes2_f16(xh[0], 0x4342), codes2_f16(xh[1], 0x4342));
       }
-    } else if constexpr (L::KVLO) {
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        uint32_t h0, l0w, h1, l1w;
-        split_bf16x2(__uint_as_float(vw[0][j]), __uint_as_float(vw[1][j]), h0, l0w);
-        split_bf16x2(__uint_as_float(vw[2][j]), __uint_as_float(vw[3][j]), h1, l1w);
-        mma_bf16(o[j], pa, h0, h1);
-        mma_bf16(o[j], pa, l0w, l1w);
-      }
-    } else {
+      for (int w = 0; w < VPR; ++w) {
+        const int k = c * VPR + w;  // word k of the thread's eighth of a row
+        if constexpr (L::QUANT) {
+          // codes: word k holds dims 4k..4k+3 of the thread's eighth
+          uint32_t xl[2], xh[2];
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const uint32_t sel = (j & 1) ? 0x7632 : 0x5410;
-        mma_bf16(o[j], pa, __byte_perm(vw[0][j >> 1], vw[1][j >> 1], sel),
-                 __byte_perm(vw[2][j >> 1], vw[3][j >> 1], sel));
+          for (int pr = 0; pr < 2; ++pr) {
+            const uint32_t a = vw[2 * pr][w] ^ 0x80808080u;
+            const uint32_t b2 = vw[2 * pr + 1][w] ^ 0x80808080u;
+            xl[pr] = __byte_perm(a, b2, 0x5140);  // a0 c0 a1 c1
+            xh[pr] = __byte_perm(a, b2, 0x7362);  // a2 c2 a3 c3
+          }
+          mma_f16(o[4 * k], pa, codes2_f16(xl[0], 0x4140), codes2_f16(xl[1], 0x4140));
+          mma_f16(o[4 * k + 1], pa, codes2_f16(xl[0], 0x4342), codes2_f16(xl[1], 0x4342));
+          mma_f16(o[4 * k + 2], pa, codes2_f16(xh[0], 0x4140), codes2_f16(xh[1], 0x4140));
+          mma_f16(o[4 * k + 3], pa, codes2_f16(xh[0], 0x4342), codes2_f16(xh[1], 0x4342));
+        } else if constexpr (L::KVLO) {
+          // f32: word k is dim k of the eighth, O's n8 tile k
+          uint32_t h0, l0w, h1, l1w;
+          split_bf16x2(__uint_as_float(vw[0][w]), __uint_as_float(vw[1][w]), h0, l0w);
+          split_bf16x2(__uint_as_float(vw[2][w]), __uint_as_float(vw[3][w]), h1, l1w);
+          mma_bf16(o[k], pa, h0, h1);
+          mma_bf16(o[k], pa, l0w, l1w);
+        } else {
+          // bf16: word k holds dims 2k, 2k + 1, O's n8 tiles 2k and 2k + 1
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const uint32_t sel = hf ? 0x7632 : 0x5410;
+            mma_bf16(o[2 * k + hf], pa, __byte_perm(vw[0][w], vw[1][w], sel),
+                     __byte_perm(vw[2][w], vw[3][w], sel));
+          }
+        }
       }
     }
   }
@@ -677,8 +798,9 @@ paged_decode(const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __
   __syncthreads();
 
   for (int i = tid; i < rep * DH; i += THREADS) {
-    const int r = i / DH;
+    const int r = i / DH;  // DH, not dh: a shift, not a division
     const int d = i % DH;
+    if (d >= dh) continue;
     float M = -CUDART_INF_F;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) M = fmaxf(M, sm[w * 16 + r]);
@@ -700,11 +822,11 @@ paged_decode(const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __
         acc *= corr;
         l = l * corr + exp2f(skl - m2);
       }
-      out[row * DH + d] = acc / fmaxf(l, 1e-30f);
+      out[row * dh + d] = acc / fmaxf(l, 1e-30f);
     } else {
-      part[(z * BH + row) * DH + d] = acc;
+      part[(z * BH + row) * dh + d] = acc;
       if (d == 0) {
-        float* pm = part + splits * BH * DH;
+        float* pm = part + splits * BH * dh;
         pm[z * BH + row] = M != -CUDART_INF_F ? M * LN2 : NEG;  // natural-log units
         pm[splits * BH + z * BH + row] = l;
       }
@@ -712,11 +834,11 @@ paged_decode(const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __
   }
 }
 
-template <typename TQ, typename TKV, int DH>
+template <typename TQ, typename TKV, int DH, bool EXACT>
 int launch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
            const int* table, const int* lengths, const float* sinks, float* out, float* part,
-           int B, int H, int G, int P, int page, int maxp, float scale, float soft_cap,
-           int window, int splits, cudaStream_t stream) {
+           int B, int H, int G, int P, int page, int maxp, int dh, float scale,
+           float soft_cap, int window, int splits, cudaStream_t stream) {
   constexpr int smem = Layout<TQ, TKV, DH>::BYTES;
   // the shared-memory attribute is per device: set it once on each
   constexpr int MAX_DEVICES = 64;
@@ -725,15 +847,15 @@ int launch(const void* q, const void* k, const void* v, const float* ks, const f
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (dev >= MAX_DEVICES || !attr[dev]) {
-    e = cudaFuncSetAttribute(paged_decode<TQ, TKV, DH>,
+    e = cudaFuncSetAttribute(paged_decode<TQ, TKV, DH, EXACT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     if (dev < MAX_DEVICES) attr[dev] = true;
   }
   const dim3 grid(B, G, splits);
-  paged_decode<TQ, TKV, DH><<<grid, THREADS, smem, stream>>>(
+  paged_decode<TQ, TKV, DH, EXACT><<<grid, THREADS, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v), ks,
-      vs, table, lengths, sinks, out, part, H, G, P, page, maxp, scale, soft_cap, window,
+      vs, table, lengths, sinks, out, part, H, G, P, page, maxp, dh, scale, soft_cap, window,
       splits);
   if (splits > 1) {
     e = cudaGetLastError();
@@ -750,45 +872,62 @@ int launch(const void* q, const void* k, const void* v, const float* ks, const f
     cfg.attrs = attr_pdl;
     cfg.numAttrs = 1;
     e = cudaLaunchKernelEx(&cfg, uz_split::flash_combine<DH>, static_cast<const float*>(part),
-                           sinks, out, B, H, splits);
+                           sinks, out, B, H, dh, splits);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename TQ, typename TKV, int DH>
+int launch_dh(const void* q, const void* k, const void* v, const float* ks, const float* vs,
+              const int* t, const int* len, const float* sk, float* o, float* part, int B,
+              int H, int G, int P, int page, int maxp, int dh, float scale, float soft_cap,
+              int window, int splits, cudaStream_t s) {
+  if (dh == DH) {
+    return launch<TQ, TKV, DH, true>(q, k, v, ks, vs, t, len, sk, o, part, B, H, G, P, page,
+                                     maxp, dh, scale, soft_cap, window, splits, s);
+  }
+  return launch<TQ, TKV, DH, false>(q, k, v, ks, vs, t, len, sk, o, part, B, H, G, P, page,
+                                    maxp, dh, scale, soft_cap, window, splits, s);
+}
+
 template <typename TQ, typename TKV>
-int dispatch(int DH, const void* q, const void* k, const void* v, const float* ks,
+int dispatch(int dh, const void* q, const void* k, const void* v, const float* ks,
              const float* vs, const int* t, const int* len, const float* sk, float* o,
              float* part, int B, int H, int G, int P, int page, int maxp, float scale,
              float soft_cap, int window, int splits, cudaStream_t s) {
-  if (DH == 64) {
-    return launch<TQ, TKV, 64>(q, k, v, ks, vs, t, len, sk, o, part, B, H, G, P, page, maxp,
-                               scale, soft_cap, window, splits, s);
+  switch (head_dim_instance(dh)) {
+    case 64:
+      return launch_dh<TQ, TKV, 64>(q, k, v, ks, vs, t, len, sk, o, part, B, H, G, P, page,
+                                    maxp, dh, scale, soft_cap, window, splits, s);
+    case 128:
+      return launch_dh<TQ, TKV, 128>(q, k, v, ks, vs, t, len, sk, o, part, B, H, G, P, page,
+                                     maxp, dh, scale, soft_cap, window, splits, s);
+    case 256:
+      return launch_dh<TQ, TKV, 256>(q, k, v, ks, vs, t, len, sk, o, part, B, H, G, P, page,
+                                     maxp, dh, scale, soft_cap, window, splits, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (DH == 128) {
-    return launch<TQ, TKV, 128>(q, k, v, ks, vs, t, len, sk, o, part, B, H, G, P, page, maxp,
-                                scale, soft_cap, window, splits, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // Plain C entry point, bound with ctypes. kv_kind: 0 = K/V of q's dtype
 // (bf16 or f32, K5), 1 = int8 codes with f32 k_scales/v_scales [G, P,
-// page] (K6). The caller guarantees: q [B,H,DH], pools [G,P,page,DH] and
-// scales contiguous and 16-byte aligned; 1 <= H / G <= 16 and H % G == 0;
+// page] (K6). The caller guarantees: q [B,H,dh], pools [G,P,page,dh] and
+// scales contiguous and 16-byte aligned, dh a multiple of 8 up to 256; 1 <= H / G <= 16 and H % G == 0;
 // table [B,maxp] and lengths [B] int32 on the device, every table entry a
 // valid physical page; sinks f32 [H] or nullptr; soft_cap <= 0 and
 // window <= 0 mean none; splits >= 1 (split z takes the 64-token tiles z,
 // z + splits, ... of [0, maxp * page)), and for splits > 1 an f32 scratch of
-// splits * B * H * (DH + 2) values. Returns cudaGetLastError() after its
+// splits * B * H * (dh + 2) values. Returns cudaGetLastError() after its
 // launches.
 extern "C" int uz_paged_attention(const void* q, const void* k, const void* v,
                                   const void* k_scales, const void* v_scales, int kv_kind,
                                   int q_is_bf16, const void* table, const void* lengths,
                                   const void* sinks, void* out, int B, int H, int G, int P,
-                                  int page, int maxp, int DH, float scale, float soft_cap,
+                                  int page, int maxp, int dh, float scale, float soft_cap,
                                   int window, int splits, void* scratch,
                                   void* stream) {
   if (G <= 0 || H % G != 0 || H / G > MAX_REP || H / G < 1 || splits < 1 ||
@@ -805,18 +944,18 @@ extern "C" int uz_paged_attention(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool i8 = kv_kind == 1;
   if (q_is_bf16 && i8) {
-    return dispatch<__nv_bfloat16, int8_t>(DH, q, k, v, ks, vs, t, len, sk, o, part, B, H, G,
+    return dispatch<__nv_bfloat16, int8_t>(dh, q, k, v, ks, vs, t, len, sk, o, part, B, H, G,
                                            P, page, maxp, scale, soft_cap, window, splits, s);
   }
   if (q_is_bf16) {
-    return dispatch<__nv_bfloat16, __nv_bfloat16>(DH, q, k, v, ks, vs, t, len, sk, o, part, B,
+    return dispatch<__nv_bfloat16, __nv_bfloat16>(dh, q, k, v, ks, vs, t, len, sk, o, part, B,
                                                   H, G, P, page, maxp, scale, soft_cap,
                                                   window, splits, s);
   }
   if (i8) {
-    return dispatch<float, int8_t>(DH, q, k, v, ks, vs, t, len, sk, o, part, B, H, G, P, page,
+    return dispatch<float, int8_t>(dh, q, k, v, ks, vs, t, len, sk, o, part, B, H, G, P, page,
                                    maxp, scale, soft_cap, window, splits, s);
   }
-  return dispatch<float, float>(DH, q, k, v, ks, vs, t, len, sk, o, part, B, H, G, P, page,
+  return dispatch<float, float>(dh, q, k, v, ks, vs, t, len, sk, o, part, B, H, G, P, page,
                                 maxp, scale, soft_cap, window, splits, s);
 }

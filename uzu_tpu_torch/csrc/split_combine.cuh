@@ -3,13 +3,14 @@
 //
 // A kernel that deals one row's keys to `splits` parts (K3/K4: ranges of
 // tiles; K5/K6: every splits-th tile) writes, per part and row, its
-// unnormalized state to f32 scratch: acc [splits, rows, DH], then m
+// unnormalized state to f32 scratch: acc [splits, rows, dh], then m
 // [splits, rows] (natural-log units; -1e30 where the part saw no key) and
-// l [splits, rows]. Rows are (s, h) for K3/K4 and (b, h) for
+// l [splits, rows]; dh is the tensors' head dim, DH >= dh the kernel's
+// instantiation. Rows are (s, h) for K3/K4 and (b, h) for
 // K5/K6, h fastest, so the head of a row is row % H. flash_combine merges
 // the parts of each row in a fixed order (no atomics: greedy output
 // repeats from run to run), folds the per-head sinks in once as one extra
-// logit, and normalizes into out [rows, DH]. It may be launched as a
+// logit, and normalizes into out [rows, dh]. It may be launched as a
 // programmatic dependent of the kernel that writes the partials (K5/K6
 // do): it then waits for that grid before it reads them; launched plainly
 // (K3/K4), the wait returns at once.
@@ -28,14 +29,14 @@ constexpr float NEG = -1e30f;
 template <int DH>
 __global__ void __launch_bounds__(256)
 flash_combine(const float* __restrict__ part, const float* __restrict__ sinks,
-              float* __restrict__ out, int S, int H, int splits) {
+              float* __restrict__ out, int S, int H, int dh, int splits) {
   asm volatile("griddepcontrol.wait;" ::: "memory");
   constexpr int PER = DH / 32;
   const size_t SH = static_cast<size_t>(S) * H;
   const size_t row = static_cast<size_t>(blockIdx.x) * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= SH) return;
-  const float* pm = part + static_cast<size_t>(splits) * SH * DH;
+  const float* pm = part + static_cast<size_t>(splits) * SH * dh;
   const float* pl = pm + static_cast<size_t>(splits) * SH;
   float M = NEG;
   for (int i = 0; i < splits; ++i) M = fmaxf(M, pm[i * SH + row]);
@@ -46,9 +47,11 @@ flash_combine(const float* __restrict__ part, const float* __restrict__ sinks,
   for (int i = 0; i < splits; ++i) {
     const float w = expf(pm[i * SH + row] - M);
     Lsum += pl[i * SH + row] * w;
-    const float* a = part + (i * SH + row) * DH;
+    const float* a = part + (i * SH + row) * dh;
 #pragma unroll
-    for (int d = 0; d < PER; ++d) acc[d] += w * a[lane + 32 * d];
+    for (int d = 0; d < PER; ++d) {
+      if (lane + 32 * d < dh) acc[d] += w * a[lane + 32 * d];
+    }
   }
   float mul = 1.f;
   if (sinks != nullptr) {
@@ -59,7 +62,9 @@ flash_combine(const float* __restrict__ part, const float* __restrict__ sinks,
   }
   mul /= fmaxf(Lsum, 1e-30f);
 #pragma unroll
-  for (int d = 0; d < PER; ++d) out[row * DH + lane + 32 * d] = acc[d] * mul;
+  for (int d = 0; d < PER; ++d) {
+    if (lane + 32 * d < dh) out[row * dh + lane + 32 * d] = acc[d] * mul;
+  }
 }
 
 }  // namespace uz_split

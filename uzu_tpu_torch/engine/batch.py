@@ -21,10 +21,14 @@ attention-only models).
   ordinary chunked prefill (one chunk per scheduler step for a long
   prompt, so live streams keep decoding), then inserted into its slot;
   a prompt sharing a prefix of 64+ tokens with a live slot's history
-  copies those KV rows instead (attention-only models: a recurrent state
-  cannot be cut at an arbitrary prefix length);
+  copies those KV rows instead (attention-only full-layout models: a
+  recurrent state cannot be cut at an arbitrary prefix length, and a ring
+  does not hold position j in slot j);
 - the KV capacity starts at one context bucket and grows when a slot
-  crosses it.
+  crosses it; with `ring_windows` it is pinned at max_context (a ring is
+  position-modulo and cannot be row-copied across capacities), and each
+  sliding-window layer keeps its ring of window + the largest prefill
+  bucket slots.
 
 Greedy outputs equal single-request generation up to summation order
 (tests pin the streams). The model runs where `lm` runs (the card unless
@@ -451,14 +455,15 @@ class BatchEngine(BatchEngineBase):
         the KV-row copy (0 turns sharing off); it applies to attention-only
         models only. admit_greedy: fill every free slot before a decode
         chunk (False: at most one admission between decode chunks)."""
-        if lm.ring_windows:
-            raise NotImplementedError("ring (sliding-window) KV caches are not ported yet")
         self._init_host_state(lm, batch_size, sampling, stop_token_ids)
         self.decode_chunk = decode_chunk
         self.admit_greedy = admit_greedy
         self.queue: deque[Request] = deque()
-        # KV capacity starts at one context bucket and grows on crossing
-        self._ctx_cap = lm._ctx_bucket(1) or lm.max_context
+        # KV capacity starts at one context bucket and grows on crossing;
+        # ring layouts are position-modulo and cannot be row-copied across
+        # capacities, so they pin it at max_context
+        self._ctx_cap = (lm.max_context if lm.ring_windows
+                         else lm._ctx_bucket(1) or lm.max_context)
         self._state = lm.new_state(batch_size=batch_size, ctx_capacity=self._ctx_cap)
         dev = lm.device
         self._tokens = torch.zeros(batch_size, dtype=torch.long, device=dev)
@@ -473,9 +478,10 @@ class BatchEngine(BatchEngineBase):
         # count penalties): only then do the chunk's rows leave the host
         self._samp_custom = np.zeros(batch_size, bool)
         self._default_rows = torch.as_tensor(self._samp, device=dev)
-        # shared-prefix admission: attention-only models (a recurrent
-        # state cannot be cut at an arbitrary prefix length)
-        self.prefix_min = prefix_min if all(
+        # shared-prefix admission: attention-only full-layout models (a
+        # recurrent state cannot be cut at an arbitrary prefix length, and
+        # a ring does not hold position j in slot j)
+        self.prefix_min = prefix_min if not lm.ring_windows and all(
             isinstance(lc.mixer_config, AttentionConfig)
             for lc in lm.decoder_config.transformer_config.layer_configs) else 0
         # work counts: prefill chunks run, decode chunks dispatched, prompt

@@ -8,9 +8,11 @@ runs every slot's token as a row of one [B, D] activation, so each linear
 is one product at M = B (K1's small route for quantized weights, whose
 rows are bitwise the M = 1 rows), and:
 
-- attention writes each slot's new K/V row at that slot's position and
-  reads the slot's own cache up to its position (`attention_decode_batched`,
-  plain einsums, as the JAX decode is an einsum);
+- attention writes each slot's new K/V row at that slot's position (a
+  ring: at position % c, recording the position in the slot's "pos" row)
+  and reads the slot's own cache up to its position, masked by the
+  per-slot positions on a ring (`attention_decode_batched`, plain
+  einsums, as the JAX decode is an einsum);
 - recurrent mixers advance [B, ...] states (`ssm_forward_batched` at S = 1);
 - a slot with `fed` 0 (halted or free) takes an identity transition: its
   position stays, its recurrent state is unchanged, and its K/V write
@@ -27,24 +29,37 @@ import torch
 
 from ..config.model import AttentionConfig, DecoderConfig
 from ..ops.attention import attention_decode_batched
-from .decoder import attention_output, embed, project_qkv, readout, residual_block
-from .kv_cache import is_quantized, quantize_rows
+from .decoder import (
+    attention_output,
+    embed,
+    ple_apply,
+    ple_layer_inputs,
+    project_qkv,
+    readout,
+    residual_block,
+)
+from .kv_cache import is_quantized, is_ring, quantize_rows
 from .ssm import ssm_forward_batched
 
 
 def _write_rows(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
                 positions: torch.Tensor) -> None:
     """Row b's K/V [G, Dh] into cache[b, positions[b]] (clamped into the
-    cache, as the single-sequence append clamps its start)."""
+    cache, as the single-sequence append clamps its start); on a ring into
+    cache[b, positions[b] % c], with pos[b, that slot] = positions[b]."""
     b = k_new.shape[0]
     c = next(iter(cache.values())).shape[1]
     rows = torch.arange(b, device=k_new.device)
-    idx = torch.clamp(positions.long(), 0, c - 1)
     if is_quantized(cache):
         (k_q, k_s), (v_q, v_s) = quantize_rows(k_new), quantize_rows(v_new)
         new = {"k_q": k_q, "k_s": k_s, "v_q": v_q, "v_s": v_s}
     else:
         new = {"k": k_new, "v": v_new}
+    if is_ring(cache):
+        idx = positions.long() % c
+        new["pos"] = positions.to(torch.int32)
+    else:
+        idx = torch.clamp(positions.long(), 0, c - 1)
     for name, t in new.items():
         cache[name].index_put_((rows, idx), t.to(cache[name].dtype))
 
@@ -56,7 +71,8 @@ def _attend(cfg: AttentionConfig, layer_cfg, params: dict, x: torch.Tensor,
         _write_rows(cache, k_new, v_new, positions)
     read = cache
     c_full = next(iter(cache.values())).shape[1]
-    if ctx_limit is not None and ctx_limit < c_full:
+    # a ring is already compact and is read whole, masked by its positions
+    if ctx_limit is not None and ctx_limit < c_full and not is_ring(cache):
         read = {name: t[:, :ctx_limit] for name, t in cache.items()}
     if is_quantized(read):
         k, v = read["k_q"], read["v_q"]
@@ -66,7 +82,8 @@ def _attend(cfg: AttentionConfig, layer_cfg, params: dict, x: torch.Tensor,
     scale = cfg.scale if cfg.scale is not None else float(cfg.head_dim) ** -0.5
     attn = attention_decode_batched(
         q, k, v, positions, scale=scale, sliding_window_size=cfg.sliding_window_size,
-        logit_soft_cap=cfg.logit_soft_cap, sinks=params.get("sinks"), **scales)
+        logit_soft_cap=cfg.logit_soft_cap, sinks=params.get("sinks"),
+        kv_positions=read.get("pos"), **scales)
     return attention_output(params, x, attn.reshape(x.shape[0], -1)), cache if owns else None
 
 
@@ -81,6 +98,7 @@ def batch_decode_step(
     """Advance every slot one token; returns (logits [B, V] f32, state)."""
     positions = state["pos"]
     x = embed(cfg, params, tokens)
+    per_layer = ple_layer_inputs(cfg, params, tokens, x)
     new_layers = []
     for i, layer_cfg in enumerate(cfg.transformer_config.layer_configs):
         m = layer_cfg.mixer_config
@@ -99,6 +117,7 @@ def batch_decode_step(
                 return out[:, 0], new_state
 
             x, new = residual_block(layer_cfg, p, x, recurrent)
+        x = ple_apply(layer_cfg, p, x, None if per_layer is None else per_layer[:, i])
         new_layers.append(new)
     logits = readout(cfg, params, x)
     return logits, {"layers": new_layers, "pos": positions + fed}

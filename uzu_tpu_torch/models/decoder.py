@@ -4,10 +4,11 @@ Counterpart of `uzu_tpu/models/decoder.py`. One code path serves prefill
 chunks and decode steps: tokens carry absolute positions derived from
 state["pos"] (a device tensor), the KV cache is slot-per-position, and
 causal masking makes end-padding invisible (padded rows sit at future
-slots that later writes overwrite). Recurrent mixers (`models/ssm.py`)
-take `true_length` and turn padded rows into identity transitions. Tree
-verification, sequence-parallel prefill, per-layer embeddings and deferred
-recurrent state wait for later slices of the port.
+slots that later writes overwrite; a sliding-window ring layout is
+compact, drops padded rows at write time and is read whole). Recurrent
+mixers (`models/ssm.py`) take `true_length` and turn padded rows into
+identity transitions. Tree verification, sequence-parallel prefill and
+deferred recurrent state wait for later slices of the port.
 
 Residual discipline:
     h = pre_mixer_norm(x)            (layer 0 may have no pre-norm)
@@ -15,6 +16,8 @@ Residual discipline:
     x = (x + a) * post_layer_scalar?
     m = post_mlp_norm(mlp(pre_mlp_norm(x))) * post_layer_scalar?
     x = x + m
+    x = ple_project(x, per_layer_input)   (PLE layers; post_layer_scalar
+                                           goes here instead of above)
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from ..ops.rope import apply_rope, inverse_frequencies, rope_tables
 from ..quant.format import QuantizedTensor, unpack_codes
 from .kv_cache import append as kv_append, is_quantized, read as kv_read, read_quantized
 from .moe import moe_forward
+from .ple import ple_inputs, ple_project
 from .ssm import ssm_forward
 
 
@@ -145,6 +149,7 @@ def attention_forward(
     new_kv = kv_append(kv, k_new, v_new, positions, true_length) if owns_cache else kv
 
     read_kv = new_kv
+    # ring layouts are already compact and are left alone
     if ctx_limit is not None and "pos" not in new_kv:
         c_full = next(iter(new_kv.values())).shape[0]
         if ctx_limit < c_full:
@@ -203,8 +208,9 @@ def _norm(params_key, cfg, params, x):
 def residual_block(layer_cfg: TransformerLayerConfig, params: dict, x: torch.Tensor,
                    mixer):
     """One layer's norms and residuals around `mixer(h) -> (a, state)`;
-    returns (x, state)."""
-    pls = params.get("post_layer_scalar")
+    returns (x, state). On a PLE layer the post-layer scalar scales
+    neither the residual nor the MLP output: `ple_apply` takes it."""
+    pls = params.get("post_layer_scalar") if layer_cfg.ple_config is None else None
     h = (_norm("pre_mixer_norm", layer_cfg.pre_mixer_norm_config, params, x)
          if layer_cfg.pre_mixer_norm_config else x)
     a, new_state = mixer(h)
@@ -226,6 +232,27 @@ def residual_block(layer_cfg: TransformerLayerConfig, params: dict, x: torch.Ten
     return x, new_state
 
 
+def ple_layer_inputs(cfg: DecoderConfig, params: dict, tokens: torch.Tensor,
+                     x: torch.Tensor):
+    """The per-layer embedding inputs [N, L, ple_dim] of tokens [N] with
+    their scaled embedding x [N, D]; None for a model without PLE."""
+    if cfg.ple_model_config is None:
+        return None
+    return ple_inputs(cfg.ple_model_config, params["per_layer_embedding"], tokens, x)
+
+
+def ple_apply(layer_cfg: TransformerLayerConfig, params: dict, x: torch.Tensor,
+              per_layer_input) -> torch.Tensor:
+    """A layer's PLE projection of its input [N, ple_dim] after the MLP
+    residual (x unchanged on a layer without one), scaled by the post-layer
+    scalar (1 without one)."""
+    if layer_cfg.ple_config is None:
+        return x
+    pls = params.get("post_layer_scalar")
+    return ple_project(layer_cfg.ple_config, params["ple"], x, per_layer_input,
+                       pls[0] if pls is not None else 1.0)
+
+
 def layer_forward(
     layer_cfg: TransformerLayerConfig,
     params: dict,
@@ -235,16 +262,19 @@ def layer_forward(
     shared_kv,
     true_length=None,
     ctx_limit=None,
+    per_layer_input=None,  # [N, ple_dim]: this layer's PLE input
 ):
     mixer_cfg = layer_cfg.mixer_config
     if not isinstance(mixer_cfg, AttentionConfig):
-        return residual_block(layer_cfg, params, x, lambda h: ssm_forward(
+        x, new_state = residual_block(layer_cfg, params, x, lambda h: ssm_forward(
             mixer_cfg, params["mixer"], h, positions, layer_state, true_length))
-    owns = layer_state is not None
-    x, new_state = residual_block(layer_cfg, params, x, lambda h: attention_forward(
-        mixer_cfg, layer_cfg, params["mixer"], h, positions,
-        layer_state if owns else shared_kv, owns, true_length, ctx_limit))
-    return x, new_state if owns else None
+    else:
+        owns = layer_state is not None
+        x, new_state = residual_block(layer_cfg, params, x, lambda h: attention_forward(
+            mixer_cfg, layer_cfg, params["mixer"], h, positions,
+            layer_state if owns else shared_kv, owns, true_length, ctx_limit))
+        new_state = new_state if owns else None
+    return ple_apply(layer_cfg, params, x, per_layer_input), new_state
 
 
 def embed(cfg: DecoderConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -282,14 +312,13 @@ def decoder_forward(
     identity transitions of the recurrent mixers. The KV caches in `state`
     are updated in place; recurrent states come back as new tensors.
     """
-    if cfg.ple_model_config is not None:
-        raise NotImplementedError("per-layer embeddings are not ported yet")
     tcfg = cfg.transformer_config
     s = tokens.shape[0]
     if true_length is None:
         true_length = s
     positions = state["pos"] + torch.arange(s, dtype=torch.int32, device=tokens.device)
     x = embed(cfg, params, tokens)
+    per_layer = ple_layer_inputs(cfg, params, tokens, x)
 
     new_layer_states = []
     for i, layer_cfg in enumerate(tcfg.layer_configs):
@@ -297,7 +326,7 @@ def decoder_forward(
         shared_kv = new_layer_states[src] if src is not None else None
         x, new_state = layer_forward(
             layer_cfg, params["layers"][i], x, positions, state["layers"][i], shared_kv,
-            true_length, ctx_limit,
+            true_length, ctx_limit, None if per_layer is None else per_layer[:, i],
         )
         new_layer_states.append(new_state)
 

@@ -4,9 +4,9 @@ Counterpart of `uzu_tpu/models/loader.py`, with the same tensor names,
 shapes and dtypes, so model directories written for the JAX package load
 unchanged. The parameters are a nested dict of torch tensors and
 `QuantizedTensor` leaves on one device, shaped like the JAX package's
-pytree; everything static lives in the config objects. Per-layer
-embeddings and HybridSpec linears wait for later slices of the port and
-raise `NotImplementedError`.
+pytree; everything static lives in the config objects. HybridSpec
+linears wait for a later slice of the port and raise
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -226,8 +226,6 @@ def load_layer(tree: ParameterTree, layer_cfg, model_dim: int, hidden_dim: int,
                device=None) -> dict:
     out: dict = {}
     mixer_cfg = layer_cfg.mixer_config
-    if layer_cfg.ple_config is not None:
-        raise NotImplementedError("per-layer embeddings are not ported yet")
     if isinstance(mixer_cfg, AttentionConfig):
         out["mixer"] = load_attention(tree.subtree("mixer"), mixer_cfg, model_dim, device)
     else:
@@ -244,15 +242,17 @@ def load_layer(tree: ParameterTree, layer_cfg, model_dim: int, hidden_dim: int,
         dt = tree.leaf_info("post_layer_scalar").dtype
         out["post_layer_scalar"] = to_torch(
             tree.leaf("post_layer_scalar", (1,), dt), device).float()
+    if layer_cfg.ple_config is not None:
+        from .ple import load_ple_layer
+
+        out["ple"] = load_ple_layer(tree, layer_cfg.ple_config, model_dim, device)
     return out
 
 
 def load_decoder(tree: ParameterTree, cfg: DecoderConfig, device=None) -> dict:
-    if cfg.ple_model_config is not None:
-        raise NotImplementedError("per-layer embeddings are not ported yet")
     tcfg = cfg.transformer_config
     model_dim = tcfg.model_dim
-    return {
+    params = {
         "embedding": load_embedding(tree, cfg.embedding_config, cfg.vocab_size, model_dim,
                                     device),
         "layers": [
@@ -263,3 +263,8 @@ def load_decoder(tree: ParameterTree, cfg: DecoderConfig, device=None) -> dict:
         "output_norm": load_norm(tree.subtree("transformer.output_norm"), model_dim,
                                  tcfg.output_norm_config, device),
     }
+    if cfg.ple_model_config is not None:
+        from .ple import load_ple
+
+        params["per_layer_embedding"] = load_ple(tree, cfg, tcfg, device)
+    return params

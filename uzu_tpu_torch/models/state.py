@@ -1,10 +1,14 @@
 """Decoding state: per-layer KV caches / recurrent states + global position.
 
 Counterpart of `uzu_tpu/models/state.py`: a fixed [C, G, Dh] cache of
-`max_context` slots per attention layer (slot j holds position j), the
+`max_context` slots per attention layer (slot j holds position j; with
+`ring_windows`, a sliding-window layer keeps a ring of window +
+ring_extra slots instead, `models/kv_cache.py`), the
 conv tail and recurrent state of each recurrent mixer (`models/ssm.py`),
 and the position as a 0-d int32 tensor on the device, so a decode step
 advances it without a host sync. KV-shared layers own no cache.
+`LanguageModel.new_state(batch_size=B)` stacks every leaf on a leading
+[B] dimension (a ring's caches [B, c, G, Dh] and positions [B, c]).
 """
 
 from __future__ import annotations

@@ -179,12 +179,13 @@ def attention_decode_batched(
     sinks: torch.Tensor | None = None,  # [H]
     k_scales: torch.Tensor | None = None,  # [B, C, G] f32: k/v are INT8 codes
     v_scales: torch.Tensor | None = None,
+    kv_positions: torch.Tensor | None = None,  # [B, C]: a ring's per-slot positions
 ) -> torch.Tensor:
     """One decode token per slot over each slot's own dense cache (slot j
-    holds position j), masked to that slot's positions: the einsum path of
-    `attention_reference` at S = 1 with a slot dimension written out (the
-    JAX package maps its einsum decode over slots). f32 throughout; an
-    INT8 cache is dequantized."""
+    holds position j, or kv_positions[b, j] on a ring), masked to that
+    slot's positions: the einsum path of `attention_reference` at S = 1
+    with a slot dimension written out (the JAX package maps its einsum
+    decode over slots). f32 throughout; an INT8 cache is dequantized."""
     if k_scales is not None:
         k_cache = dequantize_rows(k_cache, k_scales)
         v_cache = dequantize_rows(v_cache, v_scales)
@@ -196,7 +197,8 @@ def attention_decode_batched(
     if logit_soft_cap is not None:
         scores = logit_soft_cap * torch.tanh(scores / logit_soft_cap)
     qpos = positions.to(torch.int32)[:, None]  # [B, 1]
-    kpos = torch.arange(c, dtype=torch.int32, device=q.device)[None, :]
+    kpos = (torch.arange(c, dtype=torch.int32, device=q.device)[None, :]
+            if kv_positions is None else kv_positions.to(torch.int32))
     valid = kpos <= qpos
     if sliding_window_size is not None:
         valid = valid & (kpos > qpos - sliding_window_size)

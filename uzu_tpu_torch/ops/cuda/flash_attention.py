@@ -7,6 +7,12 @@ scales [C, G] given as `k_scales`/`v_scales`). A CPU tensor takes
 `flash_attention_plain`; a CUDA tensor launches the kernel or raises. Both
 return f32 [S, H, Dh]; queries sit at q_positions[0] + arange(S).
 
+The kernel is built for head dims 32, 64, 128 and 256 (`_HEAD_DIMS`). Any
+other Dh that is a multiple of 8 up to 256 runs in the next instantiation
+up (`head_dim_instance`: 24 in 32, 200 in 256), with the columns past Dh
+zero-filled on load and never stored; Dh past 256 or not a multiple of 8
+raises on the card.
+
 Where one block per (KV group, 64-row tile) cannot fill the card, the
 kernel splits the KV tiles into `split_plan` ranges and merges them in a
 fixed order. `flash_partials_plain` and `flash_combine_plain` are the plain
@@ -25,7 +31,7 @@ from .build import LAUNCHES, check, library
 # enough query rows per KV group to fill a block of the kernel; below this
 # the einsum path is cheap anyway (the JAX package's FLASH_MIN_ROWS)
 FLASH_MIN_ROWS = 64
-_HEAD_DIMS = (32, 64, 128)  # the kernel's instantiations (csrc dispatch)
+_HEAD_DIMS = (32, 64, 128, 256)  # the kernel's instantiations (csrc dispatch)
 NEG_INF = -1e30
 BQ = 64  # query rows per block of the kernel
 BK = 64  # KV slots per tile of the kernel
@@ -37,6 +43,14 @@ _ARGTYPES = [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
 _ARGTYPES_I8 = [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
                 _P, _P]
 _SMS: dict[int, int] = {}
+
+
+def head_dim_instance(dh: int, instances=_HEAD_DIMS) -> int | None:
+    """The instantiation a head dim runs in: the smallest of `instances`
+    at least `dh`, for a positive multiple of 8; None where there is none."""
+    if dh <= 0 or dh % 8:
+        return None
+    return next((i for i in instances if i >= dh), None)
 
 
 def supported(s, h, g, dh, c, *, is_causal, suffix_mask, kv_valid_length,
@@ -179,9 +193,9 @@ def flash_attention(q, k_cache, v_cache, q_positions, *, scale,
     if k_cache.shape != v_cache.shape or k_cache.shape[2] != dh or q_positions.numel() < 1:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k_cache.shape)}, "
                          f"v {tuple(v_cache.shape)} do not fit together")
-    if h % g or dh not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel needs H % G == 0 and Dh in "
-                         f"{_HEAD_DIMS} (H={h}, G={g}, Dh={dh})")
+    if h % g or head_dim_instance(dh) is None:
+        raise ValueError(f"flash_attention kernel needs H % G == 0 and Dh a multiple of 8 "
+                         f"up to {_HEAD_DIMS[-1]} (H={h}, G={g}, Dh={dh})")
     quantized = k_scales is not None or v_scales is not None
     kv_dtype = torch.int8 if quantized else q.dtype
     if q.dtype not in (torch.bfloat16, torch.float32) or k_cache.dtype != kv_dtype \

@@ -7,6 +7,10 @@ scales [G, P, page] given as `k_scales`/`v_scales`). A CPU tensor takes
 `paged_attention_plain`; a CUDA tensor launches the kernel or raises.
 Both return f32 [B, H, Dh].
 
+The kernel is built for head dims 64, 128 and 256 (`_HEAD_DIMS`); any
+other Dh that is a multiple of 8 up to 256 runs in the next one up
+(`head_dim_instance`: 24 and 32 in 64), as K3/K4 do.
+
 Where one block per (slot, KV group) cannot fill the card, the kernel
 deals the table's 64-token tiles to `paged_split_plan` splits and merges
 them in a fixed order (`flash_combine` of `csrc/split_combine.cuh`, shared
@@ -22,10 +26,11 @@ import torch
 
 from ...models.kv_cache import dequantize_rows
 from .build import LAUNCHES, check, library
+from .flash_attention import head_dim_instance as _instance
 from .flash_attention import num_sms as device_sms
 
 NEG_INF = -1e30
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 256)  # the kernel's instantiations (csrc dispatch)
 MAX_REP = 16  # query heads per KV group the kernel takes: the 16 rows of mma.sync's M
 TILE = 64  # tokens per tile of the kernel
 
@@ -34,6 +39,12 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
              _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P, _P]
+
+
+def head_dim_instance(dh: int) -> int | None:
+    """The instantiation of the paged kernel a head dim runs in (None: it
+    raises on the card)."""
+    return _instance(dh, _HEAD_DIMS)
 
 
 def paged_attention_plain(q, k_pool, v_pool, page_table, lengths, *, scale,
@@ -172,9 +183,9 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, lengths, *, scale,
                          f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}, table "
                          f"{tuple(page_table.shape)}, lengths {tuple(lengths.shape)} "
                          "do not fit together")
-    if h % g or not 1 <= h // g <= MAX_REP or dh not in _HEAD_DIMS:
+    if h % g or not 1 <= h // g <= MAX_REP or head_dim_instance(dh) is None:
         raise ValueError(f"paged attention kernel needs H % G == 0, H/G <= {MAX_REP} and "
-                         f"Dh in {_HEAD_DIMS} (H={h}, G={g}, Dh={dh})")
+                         f"Dh a multiple of 8 up to {_HEAD_DIMS[-1]} (H={h}, G={g}, Dh={dh})")
     quantized = k_scales is not None or v_scales is not None
     kv_dtype = torch.int8 if quantized else q.dtype
     if q.dtype not in (torch.bfloat16, torch.float32) or k_pool.dtype != kv_dtype \

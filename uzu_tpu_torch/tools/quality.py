@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.decoder import decoder_forward, embed, layer_forward, readout
+from ..models.decoder import decoder_forward, embed, layer_forward, ple_layer_inputs, readout
 from ..ops.norm import normalize
 
 
@@ -60,8 +60,6 @@ def capture_trace(lm, tokens) -> dict[str, np.ndarray]:
     output, each layer's hidden state, the final norm and the logits."""
     cfg = lm.decoder_config
     tcfg = cfg.transformer_config
-    if cfg.ple_model_config is not None:
-        raise NotImplementedError("per-layer embeddings are not ported yet")
     tokens = torch.as_tensor(np.asarray(tokens, np.int64), device=lm.device)
     state = lm.new_state()
     positions = torch.arange(tokens.shape[0], dtype=torch.int32, device=lm.device)
@@ -72,12 +70,15 @@ def capture_trace(lm, tokens) -> dict[str, np.ndarray]:
     out: dict[str, np.ndarray] = {}
     x = embed(cfg, lm.params, tokens)
     out["embedding"] = host(x)
+    per_layer = ple_layer_inputs(cfg, lm.params, tokens, x)
     states = []
     for i, lc in enumerate(tcfg.layer_configs):
         src = lc.kv_source_layer_index
         shared = states[src] if src is not None else None
         x, new_state = layer_forward(lc, lm.params["layers"][i], x, positions,
-                                     state["layers"][i], shared, tokens.shape[0])
+                                     state["layers"][i], shared, tokens.shape[0],
+                                     per_layer_input=None if per_layer is None
+                                     else per_layer[:, i])
         states.append(new_state)
         out[f"layers.{i}"] = host(x)
 

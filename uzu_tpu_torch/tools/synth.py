@@ -2,8 +2,8 @@
 
 Counterpart of `uzu_tpu/tools/synth.py` for the decoder shapes the port
 runs (attention, ShortConv, Mamba2 and Gated DeltaNet mixers, dense and
-mixture-of-experts MLPs, full-precision / IntSpec / MLXSpec weights, dense
-or symmetric-quantized expert stacks):
+mixture-of-experts MLPs, per-layer embeddings, full-precision / IntSpec /
+MLXSpec weights, dense or symmetric-quantized expert stacks):
 with the same seed, fill and specs it draws the same random numbers in the
 same order and writes the same bytes, bf16 included, without `ml_dtypes`.
 """
@@ -18,6 +18,7 @@ import numpy as np
 
 from ..config import dumps as config_dumps
 from ..config.model import (
+    GELU,
     AttentionConfig,
     DecoderConfig,
     DeltaNetConfig,
@@ -33,6 +34,8 @@ from ..config.model import (
     MixtureOfExpertsConfig,
     MLXSpec,
     NormalizationConfig,
+    PLELayerConfig,
+    PLEModelConfig,
     SeparableCausalConvConfig,
     ShortConvConfig,
     SiLU,
@@ -128,8 +131,6 @@ class ModelBuilder:
 
     def build_decoder(self, cfg: DecoderConfig, linear_spec, embedding_spec,
                       expert_spec=None) -> None:
-        if cfg.ple_model_config is not None:
-            raise NotImplementedError("per-layer embeddings are not ported yet")
         tcfg = cfg.transformer_config
         d = tcfg.model_dim
         if isinstance(cfg.embedding_config, TiedEmbeddingConfig):
@@ -141,12 +142,18 @@ class ModelBuilder:
             self.layer_tensors(f"transformer.layers.{i}", lc, d, tcfg.hidden_dim, linear_spec,
                                expert_spec)
         self.norm_scales("transformer.output_norm", d, tcfg.output_norm_config.has_biases)
+        if cfg.ple_model_config is not None:
+            pm = cfg.ple_model_config
+            total = pm.num_layers * pm.ple_dim
+            self.dense("per_layer_embedding.token_embedding", (pm.ple_vocab_size, total))
+            self.linear("per_layer_embedding.model_projection", d, total,
+                        FullPrecisionSpec(layout=Layout.OUTPUT_INPUT), False)
+            self.norm_scales("per_layer_embedding.projection_norm", pm.ple_dim,
+                             pm.norm_config.has_biases)
 
     def layer_tensors(self, p: str, lc, d: int, default_hidden: int, linear_spec,
                       expert_spec=None) -> None:
         m = lc.mixer_config
-        if lc.ple_config is not None:
-            raise NotImplementedError("per-layer embeddings are not ported yet")
         if isinstance(m, AttentionConfig):
             q_dim = m.num_heads * m.head_dim
             qkv_out = q_dim if m.is_kv_sharing else q_dim + 2 * m.num_groups * m.head_dim
@@ -172,6 +179,11 @@ class ModelBuilder:
         if lc.has_post_layer_scalar:
             self.tensors[f"{p}.post_layer_scalar"] = cast(np.full((1,), 1.0, np.float32),
                                                           self.dtype)
+        if lc.ple_config is not None:
+            pc = lc.ple_config
+            self.linear(f"{p}.ple.gate", d, pc.ple_dim, linear_spec, False)
+            self.linear(f"{p}.ple.projection", pc.ple_dim, d, linear_spec, False)
+            self.norm_scales(f"{p}.ple.norm", d, pc.norm_config.has_biases)
         mlp = lc.mlp_config
         hid = lc.hidden_dim or default_hidden
         if isinstance(mlp, DenseMLPConfig):
@@ -570,4 +582,237 @@ def qwen35_config(
         lambda i: None if (i % attn_every == attn_every - 1) else gdn,
         num_layers=num_layers, model_dim=model_dim, hidden_dim=hidden_dim,
         vocab_size=vocab_size,
+    )
+
+
+def qwen3_config(
+    *,
+    num_layers: int = 4,
+    model_dim: int = 256,
+    hidden_dim: int = 768,
+    num_heads: int = 8,
+    num_groups: int = 2,
+    head_dim: int = 64,
+    vocab_size: int = 1024,
+    max_seq: int = 4096,
+    qk_norm_eps: float = 1e-6,
+) -> LanguageModelConfig:
+    """Qwen3-style: GQA + per-head QK-norm, untied ok; tied by default."""
+    base = llama_config(
+        num_layers=num_layers,
+        model_dim=model_dim,
+        hidden_dim=hidden_dim,
+        num_heads=num_heads,
+        num_groups=num_groups,
+        head_dim=head_dim,
+        vocab_size=vocab_size,
+        max_seq=max_seq,
+        rope_base=1000000.0,
+    )
+    qk_norm = _rms(eps=qk_norm_eps, upcast=UpcastMode.FULL_LAYER)
+    layers = tuple(
+        TransformerLayerConfig(
+            pre_mixer_norm_config=lc.pre_mixer_norm_config,
+            mixer_config=AttentionConfig(
+                **{
+                    **{f: getattr(lc.mixer_config, f) for f in lc.mixer_config.__dataclass_fields__},
+                    "query_norm_config": qk_norm,
+                    "key_norm_config": qk_norm,
+                }
+            ),
+            post_mixer_norm_config=lc.post_mixer_norm_config,
+            pre_mlp_norm_config=lc.pre_mlp_norm_config,
+            mlp_config=lc.mlp_config,
+            post_mlp_norm_config=lc.post_mlp_norm_config,
+            hidden_dim=lc.hidden_dim,
+            ple_config=lc.ple_config,
+            has_post_layer_scalar=lc.has_post_layer_scalar,
+            kv_source_layer_index=lc.kv_source_layer_index,
+            rope_config=lc.rope_config,
+        )
+        for lc in base.decoder_config.transformer_config.layer_configs
+    )
+    decoder = DecoderConfig(
+        embedding_config=base.decoder_config.embedding_config,
+        transformer_config=TransformerConfig(
+            layer_configs=layers,
+            output_norm_config=base.decoder_config.transformer_config.output_norm_config,
+            model_dim=model_dim,
+            hidden_dim=hidden_dim,
+        ),
+        vocab_size=vocab_size,
+        ple_model_config=None,
+    )
+    return LanguageModelConfig(decoder_config=decoder, generation_config=base.generation_config)
+
+
+def windowed_config(
+    *, num_layers: int = 4, model_dim: int = 64, hidden_dim: int = 160,
+    vocab_size: int = 256, num_heads: int = 4, num_groups: int = 2,
+    head_dim: int = 16, sliding_window: int = 24, has_sinks: bool = True,
+    kv_share_last: int = 1, logit_soft_cap: float | None = 30.0,
+) -> LanguageModelConfig:
+    """gpt-oss/Gemma2-flavored feature mix WITHOUT PLE: alternating
+    sliding-window layers, attention sinks, tanh soft cap, and trailing
+    cross-layer KV sharing — the feature set the paged engine must cover
+    beyond plain GQA (ref attention config attention.rs:8-31)."""
+    norm = _rms(eps=1e-6)
+    rope = UnscaledRoPEConfig(base=10000.0, max_sequence_length=4096,
+                              head_dim=head_dim)
+    layers = []
+    kv_source = num_layers - kv_share_last - 1
+    for i in range(num_layers):
+        shared = kv_share_last > 0 and i >= num_layers - kv_share_last
+        attn = AttentionConfig(
+            qkv_projection_config=LinearConfig(),
+            out_projection_config=LinearConfig(),
+            query_norm_config=None,
+            key_norm_config=None,
+            num_heads=num_heads,
+            num_groups=num_groups,
+            head_dim=head_dim,
+            is_causal=True,
+            scale=None,
+            sliding_window_size=sliding_window if i % 2 == 0 else None,
+            logit_soft_cap=logit_soft_cap,
+            has_sinks=has_sinks,
+            has_qkv_biases=False,
+            has_out_biases=False,
+            gate_projection_config=None,
+            normalize_values=False,
+            is_kv_sharing=shared,
+        )
+        mlp = DenseMLPConfig(
+            linear_config=LinearConfig(),
+            activation=SiLU(alpha=1.0),
+            has_up_biases=False,
+            has_down_biases=False,
+            gate_clipping=None,
+            up_clipping=None,
+        )
+        layers.append(TransformerLayerConfig(
+            pre_mixer_norm_config=norm,
+            mixer_config=attn,
+            post_mixer_norm_config=None,
+            pre_mlp_norm_config=norm,
+            mlp_config=mlp,
+            post_mlp_norm_config=None,
+            hidden_dim=None,
+            ple_config=None,
+            has_post_layer_scalar=False,
+            kv_source_layer_index=kv_source if shared else None,
+            rope_config=rope,
+        ))
+    decoder = DecoderConfig(
+        embedding_config=TiedEmbeddingConfig(input_scale=None, logit_soft_cap=None),
+        transformer_config=TransformerConfig(
+            layer_configs=tuple(layers),
+            output_norm_config=_rms(eps=1e-6),
+            model_dim=model_dim,
+            hidden_dim=hidden_dim,
+        ),
+        vocab_size=vocab_size,
+        ple_model_config=None,
+    )
+    return LanguageModelConfig(
+        decoder_config=decoder,
+        generation_config=GenerationConfig(
+            stop_token_ids=(0,), temperature=None, top_k=None, top_p=None,
+            min_p=None, banned_tokens=None, repetition_penalty=None,
+            presence_penalty=None, frequency_penalty=None,
+            suffix_repetition_length=None,
+        ),
+    )
+
+
+def gemma_config(
+    *, num_layers: int = 4, model_dim: int = 96, hidden_dim: int = 192,
+    vocab_size: int = 512, num_heads: int = 4, num_groups: int = 2,
+    head_dim: int = 24, ple_dim: int = 16, ple_vocab: int = 256,
+    sliding_window: int = 16, kv_share_last: int = 1,
+) -> LanguageModelConfig:
+    """Gemma-3n/E4B-style config: PLE, per-layer scalars, sliding-window
+    attention with logit soft cap, GELU MLP, cross-layer KV sharing on the
+    trailing layers, untied embedding with input scale."""
+    norm = _rms(eps=1e-6)
+    ple_layer = PLELayerConfig(
+        linear_config=LinearConfig(),
+        norm_config=norm,
+        ple_dim=ple_dim,
+        activation=GELU(approximate=True),
+    )
+    layers = []
+    kv_source = num_layers - kv_share_last - 1
+    for i in range(num_layers):
+        shared = i >= num_layers - kv_share_last
+        attn = AttentionConfig(
+            qkv_projection_config=LinearConfig(),
+            out_projection_config=LinearConfig(),
+            query_norm_config=norm,
+            key_norm_config=None if shared else norm,
+            num_heads=num_heads,
+            num_groups=num_groups,
+            head_dim=head_dim,
+            is_causal=True,
+            scale=None,
+            sliding_window_size=sliding_window if i % 2 == 0 else None,
+            logit_soft_cap=50.0,
+            has_sinks=False,
+            has_qkv_biases=False,
+            has_out_biases=False,
+            gate_projection_config=None,
+            normalize_values=False,
+            is_kv_sharing=shared,
+        )
+        mlp = DenseMLPConfig(
+            linear_config=LinearConfig(),
+            activation=GELU(approximate=True),
+            has_up_biases=False,
+            has_down_biases=False,
+            gate_clipping=None,
+            up_clipping=None,
+        )
+        layers.append(TransformerLayerConfig(
+            pre_mixer_norm_config=norm,
+            mixer_config=attn,
+            post_mixer_norm_config=norm,
+            pre_mlp_norm_config=norm,
+            mlp_config=mlp,
+            post_mlp_norm_config=norm,
+            hidden_dim=None,
+            ple_config=ple_layer,
+            has_post_layer_scalar=True,
+            kv_source_layer_index=kv_source if shared else None,
+            rope_config=UnscaledRoPEConfig(base=10000.0, max_sequence_length=4096, head_dim=head_dim),
+        ))
+    decoder = DecoderConfig(
+        embedding_config=TiedEmbeddingConfig(
+            input_scale=float(model_dim) ** 0.5, logit_soft_cap=30.0
+        ),
+        transformer_config=TransformerConfig(
+            layer_configs=tuple(layers),
+            output_norm_config=norm,
+            model_dim=model_dim,
+            hidden_dim=hidden_dim,
+        ),
+        vocab_size=vocab_size,
+        ple_model_config=PLEModelConfig(
+            ple_dim=ple_dim,
+            num_layers=num_layers,
+            ple_vocab_size=ple_vocab,
+            ple_embed_scale=float(ple_dim) ** 0.5,
+            model_projection_scale=float(model_dim) ** -0.5,
+            input_scale=0.5,
+            linear_config=LinearConfig(),
+            norm_config=_rms(eps=1e-6),
+        ),
+    )
+    return LanguageModelConfig(
+        decoder_config=decoder,
+        generation_config=GenerationConfig(
+            stop_token_ids=(0,), temperature=None, top_k=None, top_p=None,
+            min_p=None, banned_tokens=None, repetition_penalty=None,
+            presence_penalty=None, frequency_penalty=None,
+            suffix_repetition_length=None,
+        ),
     )
