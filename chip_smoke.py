@@ -7,6 +7,7 @@
     python3 chip_smoke.py --qmm-only     # K1/K2's rows with K7-K10's (shared headers)
     python3 chip_smoke.py --grouped-only # K7-K10's rows alone, BN / kw sweeps, ptxas, row checks
     python3 chip_smoke.py --gemma-only   # phase 14 alone, with K3-K6's Gemma rows
+    python3 chip_smoke.py --hybrid-linear-only  # phase 15 alone, with K3-K6's rows past Dh 256
 
 Phases, each of which ends the run with a non-zero exit if it fails:
 
@@ -34,8 +35,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    with its split count and ptxas registers and spills),
    K3/K5 again at gpt-oss's heads (8 per KV group, window 128, sinks),
    K3-K6 at the Gemma models' heads at Dh 256 (4/1 and 8/2, window 512,
-   soft cap 50, f32 q and pools, the paged engine's 1536-token table) and
-   at Dh 24 and 16, which run in the next instantiation up,
+   soft cap 50, f32 q and pools, the paged engine's 1536-token table),
+   at Dh 24 and 16, which run in the next instantiation up, and past Dh
+   256 (512 and 264, the wide case: 256-column slices of the output) at
+   gemma_e4b_8l's heads,
    K7/K8 expert-gather GEMV (each row with the launch plan it ran; with
    --grouped-only also at every kw and against contiguous dealing; ptxas's
    registers and spills of every instantiation; and a row check: each
@@ -149,6 +152,25 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     step's logits per slot within TOL of the single stream's, and the
     check must fail with the PLE projection dropped from slot 1's row.
 
+15. the slice of HybridSpec linears, the engine API and Dh past 256:
+    the flagship with every linear HybridSpec (an INT4 g32 symmetric base,
+    a LowRank adapter of rank HYBRID_RANK, Hadamard incoherence in blocks
+    of 32 on input and output; INT4 tied embedding; random weights from
+    the port's synthesizer) through `from_dir` on the card: greedy twice,
+    identical, K1 launched 65 times a decode step, decode tok/s beside the
+    plain flagship's; card against host at 2 layers (f32 activations,
+    TOL); `PagedBatchEngine` over 4 requests under phase 4's rule;
+    `generate_resumable`: two turns under phase 4's rule against the
+    single stream over their whole history, `.state["pos"]`, and with
+    logprobs=5 each log-probability within LOGPROB_TOL of the f32
+    log-softmax of the card's teacher-forced logits; the recommended
+    context on the card with a state of that context allocated;
+    `read_many` against `read` over the model's file (bytes and times).
+    Then a synthetic 2-layer model at gemma_e4b_8l's other widths with Dh
+    512 (gemma_config: single stream, K3 at Dh 512, card against host in
+    f32) and its PLE-free windowed_config twin through `PagedBatchEngine`
+    (K5 at Dh 512, card against host).
+
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Full per-shape numbers also go to
 `.port_cache/chip_smoke.json`.
@@ -215,8 +237,23 @@ GEMMA_E4B = dict(num_layers=8, model_dim=2048, hidden_dim=16384, num_heads=8, nu
                  head_dim=256, vocab_size=262400, sliding_window=512, ple_dim=256,
                  ple_vocab=262144, kv_share_last=2)
 GEMMA_SOFT_CAP = 50.0  # gemma_config's attention logit soft cap
+# phase 15: the flagship with every linear HybridSpec (an INT4 g32
+# symmetric base, a LowRank adapter, Hadamard incoherence in blocks of 32
+# on input and output); the adapter's rank is a synthetic choice
+HYBRID_RANK = 16
+# a synthetic 2-layer model at gemma_e4b_8l's other widths with Dh 512
+# (Gemma-4's global layers' width): gemma_config single stream (PLE, K3),
+# and windowed_config without PLE for the paged engine (K5)
+WIDE_GEMMA = dict(GEMMA_E4B, num_layers=2, head_dim=512, kv_share_last=0)
+# nats: generation's log-probabilities against the f32 log-softmax of the
+# same path's teacher-forced logits (prefill, then one decode step per
+# token; the same kernels in the same order)
+LOGPROB_TOL = 1e-3
 # head dims between two kernel instantiations (the tiny configs' 24 and 16)
 ROUNDED_HEAD_DIMS = (24, 16)
+# past 256: Gemma-4's global layers' width, and the smallest Dh past 256
+# (both run in the Dh-256 layout's wide case, 2 column slices)
+WIDE_HEAD_DIMS = (512, 264)
 GEN_PROMPT, GEN_TOKENS = 128, 64
 REPS = 10
 # a greedy step whose single-stream top-2 logit margin is below this may
@@ -478,22 +515,26 @@ def demangled_usage(log_text: str) -> dict:
 
 
 def kernel_usage(log: str, kernel: str) -> dict:
-    """ptxas's registers and spills of each `kernel<TQ, TKV, DH>` (flash_fwd)
-    or `kernel<TQ, TKV, DH, EXACT>` (paged_decode; "/rounded" where EXACT
-    is false) and flash_combine instantiation ("bf16/int8/64",
-    "bf16/bf16/64/rounded", "combine/64", ...) from a build log."""
+    """ptxas's registers and spills of each `kernel<TQ, TKV, DH, WIDE>`
+    (flash_fwd; "/wide" where WIDE) or `kernel<TQ, TKV, DH, EXACT, WIDE>`
+    (paged_decode; "/rounded" where EXACT is false) and flash_combine
+    instantiation ("bf16/int8/64", "bf16/bf16/64/rounded",
+    "f32/f32/256/rounded/wide", "combine/64", ...) from a build log."""
     import re
 
     short = {"__nv_bfloat16": "bf16", "float": "f32", "signed char": "int8"}
     out = {}
     for dem, use in demangled_usage(log).items():
-        m = re.search(kernel + r"<([^,]+), ([^,]+), (\d+)(?:, (true|false))?>", dem)
-        c = re.search(r"flash_combine<(\d+)>", dem)
+        m = re.search(kernel + r"<([^,]+), ([^,]+), (\d+)((?:, (?:true|false))*)>", dem)
+        c = re.search(r"flash_combine<(\d+)(?:, (true|false))?>", dem)
         if m:
             key = "/".join((short.get(m[1], m[1]), short.get(m[2], m[2]), m[3]))
-            out[key + ("/rounded" if m[4] == "false" else "")] = use
+            flags = [f.strip() == "true" for f in m[4].split(",")[1:]]
+            exact = flags[0] if kernel == "paged_decode" and flags else True
+            wide = bool(flags) and flags[-1]
+            out[key + ("" if exact else "/rounded") + ("/wide" if wide else "")] = use
         elif c:
-            out["combine/" + c[1]] = use
+            out["combine/" + c[1] + ("/wide" if c[2] == "true" else "")] = use
     return out
 
 
@@ -513,7 +554,7 @@ def flash_row(torch, timer, rows, usage, q, kc, vc, pos0: int, variant: str, kw:
         flash_attention,
         flash_attention_plain,
         head_dim_instance,
-        split_plan,
+        launch_split_plan,
     )
 
     s, h, dh = q.shape
@@ -557,13 +598,15 @@ def flash_row(torch, timer, rows, usage, q, kc, vc, pos0: int, variant: str, kw:
             qt, kt, vt, attn_mask=mask, scale=scale)
         lib_ms, lib_dev_ms = timer.both(lib)
         del kt, vt, lib
-    splits, _ = split_plan(s, h, g, c, torch.cuda.get_device_properties(0).multi_processor_count)
+    splits, _ = launch_split_plan(s, h, g, c, dh,
+                                  torch.cuda.get_device_properties(0).multi_processor_count)
     kv_name = "int8" if quant else qname
     run = lambda: flash_attention(q, kc, vc, qpos, scale=scale, **kw)  # noqa: E731
     ms, dev_ms = timer.both(run)
     inst = head_dim_instance(dh)
     row = dict(kernel=kernel, S=s, H=h, G=g, Dh=dh, C=c, pos0=pos0, q=qname, variant=variant,
-               splits=splits, instance=inst, ptxas=usage.get(f"{qname}/{kv_name}/{inst}"),
+               splits=splits, instance=inst,
+               ptxas=usage.get(f"{qname}/{kv_name}/{inst}" + ("/wide" if dh > inst else "")),
                max_abs_err=abs_err, err_over_rms=err, tol=TOL,
                ms=ms, device_ms=dev_ms,
                plain_ms=timer.ms(lambda: flash_attention_plain(
@@ -647,9 +690,9 @@ def paged_row(torch, timer, rows, usage, q, k, v, table, lengths, lens_name: str
     from uzu_tpu_torch.ops.cuda import paged_attention as pa
     from uzu_tpu_torch.ops.cuda.paged_attention import (
         head_dim_instance,
+        launch_split_plan,
         paged_attention_plain,
         paged_decode_attention,
-        paged_split_plan,
     )
 
     b, h, dh = q.shape
@@ -659,8 +702,8 @@ def paged_row(torch, timer, rows, usage, q, k, v, table, lengths, lens_name: str
     kernel = "paged_attention_int8" if quant else "paged_attention"
     qname = "bf16" if q.dtype == torch.bfloat16 else "f32"
     kw = dict(kw, scale=dh ** -0.5)
-    plan = paged_split_plan(b, g, maxp * page,
-                            torch.cuda.get_device_properties(0).multi_processor_count)
+    plan = launch_split_plan(b, g, maxp * page, dh,
+                             torch.cuda.get_device_properties(0).multi_processor_count)
 
     def run():
         return paged_decode_attention(q, k, v, table, lengths, **kw)
@@ -725,7 +768,8 @@ def paged_row(torch, timer, rows, usage, q, k, v, table, lengths, lens_name: str
     row = dict(kernel=kernel, B=b, H=h, G=g, Dh=dh, page=page, width=maxp * page, q=qname,
                lengths=lens_name, variant=variant, live_tokens=live, splits=splits,
                tiles_per_split=per, instance=inst,
-               ptxas=usage.get(f"{qname}/{kv_name}/{inst}" + ("/rounded" if dh != inst else "")),
+               ptxas=usage.get(f"{qname}/{kv_name}/{inst}" + ("/rounded" if dh != inst else "")
+                               + ("/wide" if dh > inst else "")),
                max_abs_err=abs_err, err_over_rms=err, tol=TOL,
                ms=ms, device_ms=dev_ms,
                plain_ms=timer.ms(lambda: paged_attention_plain(
@@ -1158,13 +1202,16 @@ def check_paged_gptoss(torch, timer, rows, usage) -> None:
                       kw)
 
 
-def check_flash_gemma(torch, timer, rows, usage) -> None:
+def check_flash_gemma(torch, timer, rows, usage, parts=("256", "rounded", "wide")) -> None:
     """K3/K4 at the Gemma models' attention heads, Dh 256 (the
     instantiation this slice adds): a 256-row chunk over a 1024-slot cache
     at H/G 4/1 (gemma3_1b) and 8/2 (gemma_e4b_8l), plain, with the window of
     512 and with the soft cap of 50, bf16 and f32 q; the first chunk from
     position 0; a 16-row chunk over 4096 slots (split route); then the
-    head dims that run rounded up (24 and 16 in the Dh-32 instantiation)."""
+    head dims that run rounded up (24 and 16 in the Dh-32 instantiation);
+    then past Dh 256 (the wide case) at gemma_e4b_8l's heads: the plain
+    and windowed soft-capped chunk, the first chunk, the split route, f32.
+    `parts` picks among the three."""
     from uzu_tpu_torch.models.kv_cache import quantize_rows
 
     gen = torch.Generator(device="cuda").manual_seed(13)
@@ -1187,23 +1234,32 @@ def check_flash_gemma(torch, timer, rows, usage) -> None:
 
     h1, g1 = GEMMA3_1B["num_heads"], GEMMA3_1B["num_groups"]
     h4, g4 = GEMMA_E4B["num_heads"], GEMMA_E4B["num_groups"]
-    case(h1, g1, 256, 256, 1024, 765, ("plain", "window"))
-    case(h1, g1, 256, 256, 1024, 0, ("plain",))
-    case(h4, g4, 256, 256, 1024, 765, ("softcap", "window_softcap"))
-    case(h4, g4, 256, 256, 1024, 765, ("softcap",), dtype=torch.float32)
-    case(h1, g1, 256, 16, 4096, 4096 - 19, ("plain",))
-    for dh in ROUNDED_HEAD_DIMS:
-        case(h4, g4, dh, 256, 1024, 765, ("plain", "softcap"))
-        case(h4, g4, dh, 16, 4096, 4096 - 19, ("plain",), dtype=torch.float32)
+    if "256" in parts:
+        case(h1, g1, 256, 256, 1024, 765, ("plain", "window"))
+        case(h1, g1, 256, 256, 1024, 0, ("plain",))
+        case(h4, g4, 256, 256, 1024, 765, ("softcap", "window_softcap"))
+        case(h4, g4, 256, 256, 1024, 765, ("softcap",), dtype=torch.float32)
+        case(h1, g1, 256, 16, 4096, 4096 - 19, ("plain",))
+    if "rounded" in parts:
+        for dh in ROUNDED_HEAD_DIMS:
+            case(h4, g4, dh, 256, 1024, 765, ("plain", "softcap"))
+            case(h4, g4, dh, 16, 4096, 4096 - 19, ("plain",), dtype=torch.float32)
+    for dh in WIDE_HEAD_DIMS if "wide" in parts else ():
+        case(h4, g4, dh, 256, 1024, 765, ("plain", "window_softcap"))
+        case(h4, g4, dh, 256, 1024, 0, ("plain",), quants=(False,))
+        case(h4, g4, dh, 16, 4096, 4096 - 19, ("plain",))
+        case(h4, g4, dh, 256, 1024, 765, ("plain",), dtype=torch.float32, quants=(False,))
 
 
-def check_paged_gemma(torch, timer, rows, usage) -> None:
+def check_paged_gemma(torch, timer, rows, usage, parts=("256", "rounded", "wide")) -> None:
     """K5/K6 at the Gemma models' heads, Dh 256: 8 slots over 512-token
     pages at H/G 4/1 (the paged engine's 1536-token table of 8 x 1000
     tokens, and 8 x 1024 live tokens with the window of 512) and 8/2 with
     the soft cap; f32 q and pools (the one-stage ring); then the head dims
     that run rounded up (24 and 16 in the Dh-64 instantiation), ragged
-    lengths included."""
+    lengths included; then past Dh 256 (the wide case) at gemma_e4b_8l's
+    heads: the engine's 1536-token table, the window and ragged lengths
+    with the soft cap, f32 q and pools. `parts` picks among the three."""
     from uzu_tpu_torch.models.kv_cache import quantize_rows
 
     gen = torch.Generator(device="cuda").manual_seed(14)
@@ -1236,13 +1292,20 @@ def check_paged_gemma(torch, timer, rows, usage) -> None:
 
     h1, g1 = GEMMA3_1B["num_heads"], GEMMA3_1B["num_groups"]
     h4, g4 = GEMMA_E4B["num_heads"], GEMMA_E4B["num_groups"]
-    case(h1, g1, 256, ("plain",), width=1536, lens_cases=("uniform1000",))
-    case(h1, g1, 256, ("plain", "window"))
-    case(h4, g4, 256, ("softcap",), lens_cases=("uniform1024", "ragged"))
-    case(h1, g1, 256, ("plain",), dtype=torch.float32, quants=(False,))
-    for dh in ROUNDED_HEAD_DIMS:
-        case(h4, g4, dh, ("plain", "softcap"), lens_cases=("uniform1024", "ragged"))
-        case(h4, g4, dh, ("plain",), dtype=torch.float32, quants=(False,))
+    if "256" in parts:
+        case(h1, g1, 256, ("plain",), width=1536, lens_cases=("uniform1000",))
+        case(h1, g1, 256, ("plain", "window"))
+        case(h4, g4, 256, ("softcap",), lens_cases=("uniform1024", "ragged"))
+        case(h1, g1, 256, ("plain",), dtype=torch.float32, quants=(False,))
+    if "rounded" in parts:
+        for dh in ROUNDED_HEAD_DIMS:
+            case(h4, g4, dh, ("plain", "softcap"), lens_cases=("uniform1024", "ragged"))
+            case(h4, g4, dh, ("plain",), dtype=torch.float32, quants=(False,))
+    for dh in WIDE_HEAD_DIMS if "wide" in parts else ():
+        case(h4, g4, dh, ("plain",), width=1536, lens_cases=("uniform1000",))
+        case(h4, g4, dh, ("window", "softcap"), lens_cases=("ragged",))
+        case(h4, g4, dh, ("plain",), dtype=torch.float32, quants=(False,), width=1536,
+             lens_cases=("uniform1000",))
 
 
 def check_block_copy(torch, timer, rows) -> None:
@@ -1318,8 +1381,13 @@ def model_config(name: str):
         # layers sharing layer 5's KV. The repo's config has no AltUp and
         # no LAuReL.
         return gemma_config(**GEMMA_E4B)
+    if name == "gemma_dh512_2l":
+        return gemma_config(**WIDE_GEMMA)
+    if name == "windowed_dh512_2l":
+        g = {k: v for k, v in WIDE_GEMMA.items() if k not in ("ple_dim", "ple_vocab")}
+        return windowed_config(**g, has_sinks=False, logit_soft_cap=GEMMA_SOFT_CAP)
     if name.startswith("llama1b"):
-        return llama_config(**dict(FLAGSHIP, num_layers=16 if name == "llama1b_int4" else 2))
+        return llama_config(**dict(FLAGSHIP, num_layers=2 if name == "llama1b_int8_2l" else 16))
     if name.startswith("gptoss"):
         return gptoss_config(num_layers=4 if name == "gptoss_int4" else 2, **GPTOSS)
     if name == "qwen08_int4":
@@ -1337,8 +1405,15 @@ def synth_model(name: str) -> str:
     attention and untied embeddings; raw-bytes fill, seed 0), and the
     hybrids (the Qwen3.5-class model at full width, LFM2- and Mamba2-style
     ones at 4 layers; INT4 g32 linears and tied embedding; raw-bytes fill,
-    seed 0)."""
-    from uzu_tpu_torch.config.model import IntSpec, Layout
+    seed 0); the flagship with HybridSpec linears (normal fill, seed 0) and
+    the Dh-512 models (raw-bytes fill, seed 0)."""
+    from uzu_tpu_torch.config.model import (
+        HybridSpec,
+        IncoherenceProcessingMode,
+        IntSpec,
+        Layout,
+        LowRankSpec,
+    )
     from uzu_tpu_torch.tools.synth import synthesize
 
     out = os.path.join(REPO, ".port_cache", name)
@@ -1349,7 +1424,12 @@ def synth_model(name: str) -> str:
         return IntSpec(bits=bits, group_size=32, is_symmetric=True, layout=Layout.OUTPUT_INPUT)
 
     cfg = model_config(name)
-    if name.startswith("llama1b"):
+    if name == "llama1b_hybrid":
+        hybrid = HybridSpec(quantization_spec=spec(4), adapter_spec=LowRankSpec(rank=HYBRID_RANK),
+                            incoherence_block_size=32,
+                            incoherence_processing_mode=IncoherenceProcessingMode.INPUT_OUTPUT)
+        synthesize(cfg, out, seed=0, linear_spec=hybrid, embedding_spec=spec(4))
+    elif name.startswith("llama1b"):
         bits = 4 if name == "llama1b_int4" else 8
         synthesize(cfg, out, seed=0, linear_spec=spec(bits), embedding_spec=spec(4))
     elif name.startswith("gptoss"):
@@ -1361,8 +1441,9 @@ def synth_model(name: str) -> str:
 
 
 GEMMA_MODELS = ("gemma3_1b", "gemma_e4b_8l")
+SLICE_MODELS = ("llama1b_hybrid", "gemma_dh512_2l", "windowed_dh512_2l")
 MODELS = ("llama1b_int4", "llama1b_int8_2l", "gptoss_int4", "gptoss_int8_2l", "qwen08_int4",
-          "lfm2_4l", "mamba2_4l", *GEMMA_MODELS)
+          "lfm2_4l", "mamba2_4l", *GEMMA_MODELS, *SLICE_MODELS)
 
 
 def prompt_tokens(n: int, vocab: int):
@@ -2570,6 +2651,238 @@ def gemma_phases(torch, dirs: dict, info: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# -- phase 15: HybridSpec linears, the engine API, Dh past 256 ---------------------
+
+
+def path_hybrid_linear(torch, model_dir: str, info: dict):
+    """The flagship with every linear HybridSpec (INT4 base, rank-16
+    adapter, Hadamard incoherence) through `from_dir` on the card:
+    GEN_TOKENS greedy tokens after a GEN_PROMPT-token prompt, twice,
+    identical; K1 launched once per linear a decode step (4 a layer and
+    the readout: 65), as in the plain flagship; decode tok/s beside the
+    plain flagship's of this run."""
+    from uzu_tpu_torch.engine.engine import LanguageModel
+    from uzu_tpu_torch.quant.format import HybridLinear
+
+    lm = LanguageModel.from_dir(model_dir, device="cuda", max_context=4096)
+    w = lm.params["layers"][0]["mlp"]["up"]["w"]
+    if not isinstance(w, HybridLinear) or w.adapter_down.shape[0] != HYBRID_RANK:
+        raise AssertionError(f"the hybrid flagship's linears are not rank-{HYBRID_RANK} "
+                             f"HybridLinears: {type(w).__name__}")
+    # each row of an 8-row product is bitwise its one-row result (K1's
+    # rows are; the Hadamard and adapter products run in f64), so the
+    # batched engines' rows can match the single stream's
+    from uzu_tpu_torch.ops.linear import hybrid_apply
+
+    x = torch.randn((8, w.shape[1]), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(8)).to(torch.bfloat16)
+    rows_equal = torch.equal(hybrid_apply(w, x),
+                             torch.cat([hybrid_apply(w, x[i:i + 1]) for i in range(8)]))
+    log(f"HYBRID_ROWS {json.dumps(dict(m=8, bitwise_equal=rows_equal))}")
+    if not rows_equal:
+        raise AssertionError("hybrid_apply: a row of an 8-row product differs from its "
+                             "one-row result")
+    single_stream_run(torch, lm, FLAGSHIP["vocab_size"], "hybrid_linear_path",
+                      ("quant_matmul_int4", "flash_attention"), info)
+    rec = info["hybrid_linear_path"]
+    rec["rows_bitwise_equal"] = rows_equal
+    per_step = rec["launches_per_decode_step"]["quant_matmul_int4"]
+    expected = 4 * len(lm.params["layers"]) + 1
+    rec.update(adapter_rank=HYBRID_RANK, k1_per_decode_step_expected=expected,
+               plain_flagship_decode_tok_s=info.get("int4_path", {}).get("decode_tok_s"))
+    log("HYBRID_LINEAR " + json.dumps(dict(adapter_rank=HYBRID_RANK, k1_per_decode_step=per_step,
+                                           decode_tok_s=rec["decode_tok_s"],
+                                           plain_decode_tok_s=rec["plain_flagship_decode_tok_s"])))
+    if per_step != expected:
+        raise AssertionError(f"K1 launched {per_step} times a decode step, expected {expected}")
+    return lm
+
+
+def paged_few(torch, lm, vocab: int, key: str, info: dict, tokens: int = 32) -> dict:
+    """PagedBatchEngine (4 slots, 8-step chunks, 32 pages of 512 tokens)
+    over `lm`: 4 of phase 4's requests, `tokens` tokens each, held to the
+    single stream under phase 4's rule; K5 launched once per layer per
+    decode step."""
+    from uzu_tpu_torch.engine.paged_batch import PagedBatchEngine
+    from uzu_tpu_torch.ops.cuda.build import LAUNCHES, reset_launches
+
+    eng = PagedBatchEngine(lm, batch_size=4, decode_chunk=8, num_pages=32, stop_token_ids=[])
+    prompts = paged_prompts(vocab)[:4]
+    reset_launches()
+    reqs = [eng.submit(p, tokens) for p in prompts]
+    seconds, _ = drive(torch, eng)
+    launches = dict(LAUNCHES)
+    decode_steps = eng.stats["decode_chunks"] * eng.decode_chunk
+    layers = len(lm.params["layers"])
+    if launches["paged_attention"] != decode_steps * layers:
+        raise AssertionError(f"{key}: paged_attention launched {launches['paged_attention']} "
+                             f"times, expected {decode_steps} steps x {layers} layers")
+    if not all(r.finished and len(r.tokens) == tokens for r in reqs):
+        raise AssertionError(f"{key}: a paged request did not produce its tokens")
+    readings = stream_readings(torch, lm, prompts, [r.tokens for r in reqs])
+    log("COMPARED " + json.dumps(readings))
+    check_streams(readings)
+    info[key] = dict(requests=len(reqs), generated=sum(len(r.tokens) for r in reqs),
+                     seconds=seconds, decode_steps=decode_steps, **stream_summary(readings),
+                     launches=launches)
+    log("PATH_" + key.upper() + " " + json.dumps(info[key]))
+    return launches
+
+
+def logits_along(torch, lm, prompt, tokens):
+    """f32 logits [len(tokens), V] of the single-stream path fed `tokens`
+    after `prompt`: the prefill's last row, then one decode step per
+    token (the steps generation ran to choose them)."""
+    state = lm.new_state()
+    logits, state = lm.prefill(state, prompt)
+    rows = [logits.float()]
+    for i, tok in enumerate(tokens[:-1]):
+        logits, state, _ = lm._forward(torch.tensor([tok], device=logits.device), state, 1,
+                                       lm._ctx_bucket(len(prompt) + i + 1))
+        rows.append(logits.float())
+    return torch.stack(rows)
+
+
+def resumable_check(torch, lm, info: dict) -> None:
+    """`generate_resumable` on the card. Two turns (the second continuing
+    the first's state with its last token and a new prompt): `.state["pos"]`
+    counts every token consumed, and each turn's stream is held under
+    phase 4's rule to the single stream over its whole history, the
+    second's being one `generate` over the concatenation of the first
+    prompt, the first turn's tokens and the second prompt. With
+    `logprobs=5`, each reported log-probability against the f32
+    log-softmax of the card's own teacher-forced logits of the same
+    history fed through the single-stream path (prefill, then one decode
+    step per token: the kernels generation ran), within LOGPROB_TOL, and
+    each token the top alternative. The same against one prefill chunk
+    over the whole history is reported, with no limit: its K1 tile and K3
+    round bf16 activations elsewhere than the decode step's kernels, and
+    16 layers of such flips move the logits by a few percent (phase 10's
+    whole-path readings)."""
+    import numpy as np
+
+    import uzu_tpu_torch.models.decoder as dec
+
+    vocab = FLAGSHIP["vocab_size"]
+    p1 = prompt_tokens(100, vocab).tolist()
+    p2 = ((np.arange(40) * 53 + 9) % vocab).tolist()
+    s1 = lm.generate_resumable(None, p1, 24, stop_token_ids=[])
+    t1 = list(s1)
+    pos1 = int(s1.state["pos"])
+    s2 = lm.generate_resumable(s1.state, [t1[-1]] + p2, 24, stop_token_ids=[])
+    t2 = list(s2)
+    pos2 = int(s2.state["pos"])
+    whole = lm.generate_list(p1 + t1 + p2, 24, stop_token_ids=[])
+    if (pos1, pos2) != (len(p1) + len(t1) - 1, pos1 + 1 + len(p2) + len(t2) - 1):
+        raise AssertionError(f"resumable: state positions {pos1}, {pos2} do not count the "
+                             "tokens consumed")
+    readings = stream_readings(torch, lm, [p1, p1 + t1 + p2], [t1, t2])
+    log("COMPARED " + json.dumps(readings))
+    check_streams(readings)
+
+    s3 = lm.generate_resumable(None, p1, 16, stop_token_ids=[], logprobs=5)
+    t3 = list(s3)
+    along = torch.log_softmax(logits_along(torch, lm, p1, t3), dim=-1).cpu()
+    hist = torch.as_tensor(p1 + t3, dtype=torch.int64, device="cuda")
+    logits, _ = dec.decoder_forward(lm.decoder_config, lm.params, hist, lm.new_state(),
+                                    last_only=False)
+    chunk = torch.log_softmax(logits[len(p1) - 1:-1].float(), dim=-1).cpu()
+    lp_err, top_err, chunk_err = [], [], []
+    for i, (tok, (lp, tops)) in enumerate(zip(t3, s3.logprob_content)):
+        lp_err.append(abs(lp - float(along[i, tok])))
+        top_err.append(max(abs(v - float(along[i, j])) for j, v in tops))
+        chunk_err.append(max(abs(v - float(chunk[i, j])) for j, v in [(tok, lp), *tops]))
+        if tops[0][0] != tok or tops[0][1] != lp or len(tops) != 5:
+            raise AssertionError(f"resumable: logprob entry {i} does not lead with its token")
+    info["resumable"] = dict(
+        turn_tokens=[len(t1), len(t2)], positions=[pos1, pos2],
+        second_turn_equals_one_generate=sum(a == b for a, b in zip(t2, whole)),
+        **stream_summary(readings), logprob_entries=len(s3.logprob_content),
+        max_logprob_err=max(lp_err), max_top5_err=max(top_err), logprob_tol=LOGPROB_TOL,
+        max_err_against_one_chunk=max(chunk_err))
+    log("RESUMABLE " + json.dumps(info["resumable"]))
+    if len(s3.logprob_content) != len(t3) or max(lp_err + top_err) > LOGPROB_TOL:
+        raise AssertionError(f"resumable: logprobs {max(lp_err + top_err):.3e} from the "
+                             f"teacher-forced log-softmax (limit {LOGPROB_TOL})")
+
+
+def context_and_read_check(torch, lm, model_dir: str, info: dict) -> None:
+    """`recommended_max_context` for the hybrid flagship on the card (the
+    card's memory as the budget), a state of that context allocated; and
+    `read_many` against sequential `read` over the model's file: the same
+    bytes, both times."""
+    import numpy as np
+
+    from uzu_tpu_torch.engine.engine import LanguageModel
+    from uzu_tpu_torch.params.safetensors_io import SafetensorsFile
+
+    ctx = lm.recommended_max_context()
+    ctx4 = lm.recommended_max_context(batch_size=4)
+    lm_ctx = LanguageModel(lm.config, lm.params, device="cuda", max_context=ctx)
+    before = torch.cuda.memory_allocated()
+    state = lm_ctx.new_state()
+    torch.cuda.synchronize()
+    state_bytes = torch.cuda.memory_allocated() - before
+    del state, lm_ctx
+    f = SafetensorsFile(os.path.join(model_dir, "model.safetensors"))
+    t0 = time.perf_counter()
+    many = f.read_many()
+    t_many = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = {n: f.read(n) for n in f.tensors}
+    t_one = time.perf_counter() - t0
+    equal = all(np.array_equal(many[n].view(np.uint8), one[n].view(np.uint8)) for n in one)
+    nbytes = sum(a.nbytes for a in one.values())
+    info["context_and_read"] = dict(
+        recommended_max_context=ctx, recommended_max_context_batch4=ctx4,
+        card_total_bytes=torch.cuda.mem_get_info()[1], state_bytes=state_bytes,
+        file_bytes=nbytes, tensors=len(one), read_many_s=t_many, read_s=t_one,
+        read_many_equal=equal)
+    log("CONTEXT_AND_READ " + json.dumps(info["context_and_read"]))
+    if not equal:
+        raise AssertionError("read_many and read give different bytes")
+    if not (1024 <= ctx <= FLAGSHIP["max_seq"]) or state_bytes <= 0:
+        raise AssertionError(f"recommended_max_context {ctx}: no state allocated")
+
+
+def path_wide_heads(torch, dirs: dict, info: dict) -> None:
+    """The synthetic Dh-512 models (2 layers at gemma_e4b_8l's other
+    widths): gemma_config single stream, twice, identical, K3 at Dh 512
+    launched, and card against host (f32 activations, TOL);
+    windowed_config (no PLE) through PagedBatchEngine, K5 at Dh 512
+    launched, and card against host."""
+    from uzu_tpu_torch.engine.engine import LanguageModel
+
+    vocab = WIDE_GEMMA["vocab_size"]
+    lm = LanguageModel.from_dir(dirs["gemma_dh512_2l"], device="cuda", max_context=4096)
+    single_stream_run(torch, lm, vocab, "gemma_dh512", ("quant_matmul_int4", "flash_attention"),
+                      info, prompt=gemma_prompt(GEN_PROMPT, vocab, WIDE_GEMMA["ple_vocab"]))
+    whole_path_check(torch, lm, 2, vocab, "whole_path_gemma_dh512", info, True)
+    del lm
+    lm_w = LanguageModel.from_dir(dirs["windowed_dh512_2l"], device="cuda", max_context=4096)
+    paged_few(torch, lm_w, vocab, "paged_windowed_dh512", info)
+    whole_path_check(torch, lm_w, 2, vocab, "whole_path_windowed_dh512", info, True)
+    del lm_w
+    torch.cuda.empty_cache()
+
+
+def slice_phases(torch, dirs: dict, info: dict) -> None:
+    """Phase 15: the hybrid-linear flagship single stream, card against
+    host, paged; `generate_resumable` with logprobs; the recommended
+    context and the parallel read; the Dh-512 models."""
+    phase = functools.partial(timed_phase, info)
+    lm = phase("hybrid_linear", path_hybrid_linear, torch, dirs["llama1b_hybrid"], info)
+    phase("whole_path_hybrid_linear", whole_path_check, torch, lm, 2, FLAGSHIP["vocab_size"],
+          "whole_path_hybrid_linear", info, True)
+    phase("paged_hybrid_linear", paged_few, torch, lm, FLAGSHIP["vocab_size"],
+          "paged_hybrid_linear", info)
+    phase("resumable", resumable_check, torch, lm, info)
+    phase("context_and_read", context_and_read_check, torch, lm, dirs["llama1b_hybrid"], info)
+    del lm
+    torch.cuda.empty_cache()
+    phase("wide_heads", path_wide_heads, torch, dirs, info)
+
+
 def plain_allowed(torch, logits, sp, ring=None):
     """The tokens the plain sampling path allows from f32 logits [V]: the
     repetition penalty over `ring`, the temperature, then the top-k, top-p
@@ -2911,9 +3224,15 @@ def kernel_record(rows, info) -> list[dict]:
     # the Dh-32 instantiation, K5/K6 in the Dh-64 one); errors over the
     # rows of that Dh. A rounded Dh runs on no model path here: its
     # launches are its kernel's on the path that runs the kernel.
+    # Past Dh 256 (the wide case) at gemma_e4b_8l's heads, 8 over 2: Dh
+    # 512 on the synthetic Dh-512 models' paths (K3 single stream, K5
+    # paged; K4/K6 run on no Dh-512 path here), Dh 264 on none.
     for dh, paths_of in ((256, ("gemma3_1b", "gemma3_1b_kv_int8", "paged_gemma3_1b",
                                 "paged_int8_gemma3_1b")),
-                         (24, ("int4_path", "paged_int8", "paged_int4", "paged_int8"))):
+                         (24, ("int4_path", "paged_int8", "paged_int4", "paged_int8")),
+                         (512, ("gemma_dh512", "paged_int8", "paged_windowed_dh512",
+                                "paged_int8")),
+                         (264, ("int4_path", "paged_int8", "paged_int4", "paged_int8"))):
         at = dict(H=4, G=1) if dh == 256 else dict(H=8, G=2)
         for name, path in zip(("flash_attention", "flash_attention_int8", "paged_attention",
                                "paged_attention_int8"), paths_of):
@@ -2921,7 +3240,7 @@ def kernel_record(rows, info) -> list[dict]:
             where = (dict(S=256, C=1024, pos0=765, q="bf16", variant="gemma_plain")
                      if name.startswith("flash") else
                      dict(page=512, q="bf16", variant="gemma_plain",
-                          lengths="uniform1000" if dh == 256 else "uniform1024"))
+                          lengths="uniform1024" if dh == 24 else "uniform1000"))
             spec[f"{name}_dh{dh}"] = (src, replaces, dict(where, Dh=dh, **at), path, kernel)
     paths = [key for key, v in info.items()
              if isinstance(v, dict) and isinstance(v.get("launches"), dict)]
@@ -3026,6 +3345,32 @@ def main() -> int:
         log(f"{flag[2:].replace('-', '_').upper()} {len(rows)} rows")
         return 0
 
+    if "--hybrid-linear-only" in sys.argv[1:]:
+        # the slice of phase 15 alone: K3-K6's rows past Dh 256, the plain
+        # flagship's single stream (its decode tok/s beside the hybrid's),
+        # and phase 15
+        names = ("llama1b_int4", *SLICE_MODELS)
+        t0 = time.perf_counter()
+        with ProcessPoolExecutor(len(names), mp_context=multiprocessing.get_context("spawn")) as ex:
+            dirs = dict(zip(names, ex.map(synth_model, names)))
+        log(f"BUILD kernels built in {kbuild.build():.1f} s, models synthesized in "
+            f"{time.perf_counter() - t0:.1f} s")
+        timer, rows = Timer(torch), []
+        check_flash_gemma(torch, timer, rows,
+                          kernel_usage(kbuild.BUILD_LOGS.get("flash_attention", ""), "flash_fwd"),
+                          parts=("wide",))
+        check_paged_gemma(torch, timer, rows,
+                          kernel_usage(kbuild.BUILD_LOGS.get("paged_attention", ""),
+                                       "paged_decode"), parts=("wide",))
+        del timer
+        torch.cuda.empty_cache()
+        lm16 = timed_phase(info, "path_int4", path_int4, torch, dirs["llama1b_int4"], info)
+        del lm16
+        torch.cuda.empty_cache()
+        slice_phases(torch, dirs, info)
+        log("HYBRID_LINEAR_ONLY " + json.dumps(info["phase_seconds"]))
+        return 0
+
     if "--gemma-only" in sys.argv[1:]:
         # the Gemma slice alone: its kernel rows and phase 14
         t0 = time.perf_counter()
@@ -3035,10 +3380,11 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s")
         timer, rows = Timer(torch), []
         check_flash_gemma(torch, timer, rows,
-                          kernel_usage(kbuild.BUILD_LOGS.get("flash_attention", ""), "flash_fwd"))
+                          kernel_usage(kbuild.BUILD_LOGS.get("flash_attention", ""), "flash_fwd"),
+                          parts=("256", "rounded"))
         check_paged_gemma(torch, timer, rows,
                           kernel_usage(kbuild.BUILD_LOGS.get("paged_attention", ""),
-                                       "paged_decode"))
+                                       "paged_decode"), parts=("256", "rounded"))
         gemma_phases(torch, dirs, info)
         log("GEMMA_ONLY " + json.dumps(info["phase_seconds"]))
         return 0
@@ -3140,6 +3486,7 @@ def main() -> int:
     del lm_h
     torch.cuda.empty_cache()
     gemma_phases(torch, dirs, info)
+    slice_phases(torch, dirs, info)
     info["phase_seconds"]["total"] = time.perf_counter() - t_start
     log("PHASES " + json.dumps(info["phase_seconds"]))
 

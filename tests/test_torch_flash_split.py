@@ -223,12 +223,13 @@ def test_split_halves_at_head_dim_32(variant, quant):
 def test_kernel_head_dims_cover_the_chip_models():
     """Every attention layer of every model `chip_smoke.py` synthesizes (the
     port's synthesizer at the chip shapes) has a head dim the K3/K4 kernel
-    is built for: a prefill chunk of any of them launches the kernel, and
-    on the card the wrapper raises for any other head dim."""
+    runs: up to 256 one it is built for, past it (the synthetic Dh-512
+    models) the wide case of the Dh-256 layout; so a prefill chunk of any
+    of them launches the kernel."""
     import chip_smoke
 
     from uzu_tpu_torch.config.model import AttentionConfig
-    from uzu_tpu_torch.ops.cuda.flash_attention import _HEAD_DIMS
+    from uzu_tpu_torch.ops.cuda.flash_attention import _HEAD_DIMS, head_dim_instance
 
     seen = set()
     for name in chip_smoke.MODELS:
@@ -236,36 +237,49 @@ def test_kernel_head_dims_cover_the_chip_models():
         for lc in cfg.decoder_config.transformer_config.layer_configs:
             if isinstance(lc.mixer_config, AttentionConfig):
                 seen.add((name, lc.mixer_config.head_dim))
-    assert {dh for _, dh in seen} <= set(_HEAD_DIMS), sorted(seen)
+    assert {dh for _, dh in seen if dh <= 256} <= set(_HEAD_DIMS), sorted(seen)
+    assert all(head_dim_instance(dh) == 256 for _, dh in seen if dh > 256), sorted(seen)
+    assert {dh for _, dh in seen if dh > 256} == {512}
     assert {name for name, _ in seen} == set(chip_smoke.MODELS)
     assert chip_smoke.HYBRID_ATTN["head_dim"] in _HEAD_DIMS
 
 
 def test_gate_admits_head_dims_the_kernel_lacks(monkeypatch):
     """Repaired (ROADMAP §3): the flash gate, as the JAX gate (`dh % 8 ==
-    0`), admits every head dim, and every such Dh up to 256 now runs in an
-    instantiation at least as wide (32, 64, 128, 256; 16 and 24 in 32).
-    Past 256, or not a multiple of 8, the wrapper raises on the card
-    before any build."""
+    0`), admits every head dim, and every such Dh runs on the card: up to
+    256 in an instantiation at least as wide (32, 64, 128, 256; 16 and 24
+    in 32), past 256 (264, 512, 1032) in the Dh-256 layout's wide case,
+    `column_slices(dh)` blocks of 256 output columns. Not a multiple of 8,
+    the wrapper raises on the card before any build."""
     from uzu_tpu_torch.ops.cuda.flash_attention import (
         _HEAD_DIMS,
+        column_slices,
         flash_attention,
         head_dim_instance,
+        launch_split_plan,
         supported,
     )
 
     gate = dict(is_causal=True, suffix_mask=None, kv_valid_length=None)
     assert _HEAD_DIMS == (32, 64, 128, 256)
-    for dh in range(8, 257, 8):
+    for dh in range(8, 1033, 8):
         assert supported(64, 8, 2, dh, 1024, **gate)
         inst = head_dim_instance(dh)
-        assert inst in _HEAD_DIMS and inst >= dh
-        assert inst == min(i for i in _HEAD_DIMS if i >= dh)
+        assert inst in _HEAD_DIMS
+        if dh <= 256:
+            assert inst == min(i for i in _HEAD_DIMS if i >= dh) and column_slices(dh) == 1
+        else:
+            assert inst == 256 and column_slices(dh) == -(-dh // 256)
     assert head_dim_instance(16) == head_dim_instance(24) == 32
-    assert head_dim_instance(264) is None and head_dim_instance(20) is None
+    assert column_slices(264) == column_slices(512) == 2 and column_slices(1032) == 5
+    assert head_dim_instance(20) is None and head_dim_instance(0) is None
+    # the slices are blocks: the plan fills a card of that many times fewer SMs
+    assert launch_split_plan(256, 8, 2, 1024, 256, SMS) == split_plan(256, 8, 2, 1024, SMS)
+    assert launch_split_plan(256, 8, 2, 1024, 512, SMS) == split_plan(256, 8, 2, 1024,
+                                                                     -(-SMS // 2))
     before = dict(build.LAUNCHES)
     monkeypatch.setattr(torch.Tensor, "device", property(lambda t: torch.device("cuda")))
-    for dh in (264, 20):
+    for dh in (20, 12):
         q, k = torch.zeros((64, 8, dh)), torch.zeros((128, 2, dh))
         with pytest.raises(ValueError, match="multiple of 8"):
             flash_attention(q, k, k, torch.zeros(64, dtype=torch.int32), scale=0.1)

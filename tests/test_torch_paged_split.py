@@ -225,18 +225,29 @@ def test_split_route_matches_jax(variant, h, quant):
 def test_paged_kernel_takes_every_head_dim_the_gate_admits(monkeypatch):
     """Repaired (ROADMAP §3): `paged_supported` checks no head dim, as the
     reference's paged kernel takes any; every Dh that is a multiple of 8
-    up to 256 runs in an instantiation at least as wide (64, 128, 256; 16,
-    24 and 32 in 64). Past 256, or not a multiple of 8, the wrapper raises
-    on the card before any build."""
+    runs on the card: up to 256 in an instantiation at least as wide (64,
+    128, 256; 16, 24 and 32 in 64), past 256 (264, 512, 1032) in the
+    Dh-256 layout's wide case, `column_slices(dh)` blocks of 256 output
+    columns per (slot, group). Not a multiple of 8, the wrapper raises on
+    the card before any build."""
+    from uzu_tpu_torch.ops.cuda.paged_attention import column_slices, launch_split_plan
+
     assert _HEAD_DIMS == (64, 128, 256)
-    for dh in range(8, 257, 8):
+    for dh in range(8, 1033, 8):
         inst = head_dim_instance(dh)
-        assert inst == min(i for i in _HEAD_DIMS if i >= dh)
+        if dh <= 256:
+            assert inst == min(i for i in _HEAD_DIMS if i >= dh)
+        else:
+            assert inst == 256 and column_slices(dh) == -(-dh // 256)
     assert head_dim_instance(24) == head_dim_instance(32) == 64
-    assert head_dim_instance(264) is None and head_dim_instance(12) is None
+    assert head_dim_instance(264) == head_dim_instance(512) == 256
+    assert head_dim_instance(12) is None and head_dim_instance(-8) is None
+    assert launch_split_plan(8, 2, 1536, 256, SMS) == paged_split_plan(8, 2, 1536, SMS)
+    assert launch_split_plan(8, 2, 1536, 512, SMS) == paged_split_plan(8, 2, 1536,
+                                                                      -(-SMS // 2))
     before = dict(build.LAUNCHES)
     monkeypatch.setattr(torch.Tensor, "device", property(lambda t: torch.device("cuda")))
-    for dh in (264, 12):
+    for dh in (12, 20):
         q, pool = torch.zeros((2, 8, dh)), torch.zeros((2, 5, 16, dh))
         with pytest.raises(ValueError, match="multiple of 8"):
             paged_decode_attention(q, pool, pool, torch.zeros((2, 2), dtype=torch.int32),

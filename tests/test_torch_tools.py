@@ -445,3 +445,32 @@ def test_bisect_probe_on_the_cpu(capsys):
     for name in names[2:-1] + names[:1]:
         assert cells[name]["err_over_rms"] <= 1e-4, name
     assert cells["pad128_bf16"]["err_over_rms"] <= 1e-2
+
+
+def test_kernel_ab_compares_rows_present_in_every_log(tmp_path):
+    """`tools/kernel_ab.py` keys rows by kernel and shape, takes the
+    median device time of each version's runs (first and last log: A;
+    the middle ones: B) and reports B over A per kernel and head dim;
+    rows missing from a log and head dims not asked for are left out."""
+    import json as _json
+
+    from uzu_tpu_torch.tools import kernel_ab
+
+    def log(name, rows):
+        path = tmp_path / name
+        path.write_text("CARD x\n" + "".join(
+            "KERNEL " + _json.dumps(dict(kernel=k, Dh=dh, S=s, device_ms=t, ms=2 * t)) + "\n"
+            for k, dh, s, t in rows))
+        return str(path)
+
+    a1 = log("a1", [("flash", 64, 16, 1.0), ("flash", 64, 256, 2.0), ("paged", 512, 8, 5.0)])
+    b1 = log("b1", [("flash", 64, 16, 1.1), ("flash", 64, 256, 2.0), ("paged", 512, 8, 4.0)])
+    b2 = log("b2", [("flash", 64, 16, 0.9), ("flash", 64, 256, 2.4), ("paged", 512, 8, 4.0)])
+    a2 = log("a2", [("flash", 64, 16, 1.0), ("flash", 64, 256, 2.0)])
+    parsed = [kernel_ab.rows(p) for p in (a1, b1, b2, a2)]
+    out = kernel_ab.compare([parsed[0], parsed[-1]], parsed[1:-1])
+    assert set(out) == {"flash/Dh64", "all"}  # the paged row is missing from a2
+    assert out["flash/Dh64"]["rows"] == 2
+    assert out["flash/Dh64"]["min"] == pytest.approx(1.0)
+    assert out["flash/Dh64"]["max"] == pytest.approx(1.1)
+    assert kernel_ab.compare([parsed[0], parsed[-1]], parsed[1:-1], {128}) == {}

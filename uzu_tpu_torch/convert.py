@@ -15,7 +15,9 @@ both packages, and convert as such. A recurrent mixer's leaves (`conv_w`,
 `conv_b`, `a_log`, `dt_bias`, `norm_scales`, `gate_bias`, `skip_weight`)
 are f32 arrays in both packages and carry over as they are, and so do the
 per-layer embeddings (`"per_layer_embedding"` and each layer's `"ple"`:
-a table, linears and norm scales).
+a table, linears and norm scales). A HybridSpec linear (the attributes
+`base`, `adapter_down`, `adapter_up`, `input_signs`, `output_signs`)
+becomes a `HybridLinear` over its converted leaves.
 """
 
 from __future__ import annotations
@@ -25,9 +27,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from .quant.format import QuantizedTensor, StackedQuantized
+from .quant.format import HybridLinear, QuantizedTensor, StackedQuantized
 
 _SQ_FIELDS = ("codes", "scales", "bits", "group_size", "qbias_coeff")
+_HYBRID_FIELDS = ("base", "adapter_down", "adapter_up", "input_signs", "output_signs")
 
 
 def array_to_torch(a, device=None) -> torch.Tensor:
@@ -57,6 +60,9 @@ def _moe_without_lane_padding(mlp: dict) -> dict:
 
 def from_numpy_tree(tree, device=None):
     """Convert a nested dict/list/tuple tree with numpy and quantized leaves."""
+    if all(hasattr(tree, f) for f in _HYBRID_FIELDS):
+        return HybridLinear(**{f: from_numpy_tree(getattr(tree, f), device)
+                               for f in _HYBRID_FIELDS})
     if all(hasattr(tree, f) for f in _SQ_FIELDS):
         codes = array_to_torch(tree.codes, device)
         scales = array_to_torch(tree.scales, device)

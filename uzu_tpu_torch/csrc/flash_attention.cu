@@ -46,6 +46,19 @@
 //   one bf16 tile is 32 KB: bf16 and int8 caches take a 2-stage ring (one
 //   block an SM), and f32 K/V (hi + lo operand tiles, 128 KB) take none:
 //   each tile is converted straight from device memory.
+// - Past DH 256 (any dh that is a multiple of 8: 512 is Gemma-4's global
+//   layers' width) O no longer fits a warpgroup's registers, and a Q tile
+//   and a K tile of 512 columns with a V tile pass the shared memory. So a
+//   block owns one 256-column slice of O (grid.x is row tiles x
+//   ceil(dh / 256) slices; the split plan counts those blocks) and keeps
+//   the DH 256 operand layout: per KV tile, S = Q K^T is summed over dh in
+//   256-column pieces, each piece of Q and K converted into the operand
+//   tiles straight from device memory (bf16 copied, f32 split into hi +
+//   lo, int8 codes built as K4 builds them), then the slice's V columns
+//   are staged the same way and P V runs as at DH 256. Every slice repeats
+//   S (2x the score work at dh 512); there is no ring, so each piece's
+//   loads wait for the last piece's products. Simple and right first; this
+//   case is compiled apart (WIDE), so DH <= 256 keeps its code.
 // - A head dim dh between two instantiations runs in the next one up (24
 //   in 32, 200 in 256): the columns past dh of Q, K and V are zero-filled
 //   as they load (cp.async's src-size 0, or a zero store), so Q K^T is
@@ -384,15 +397,16 @@ __device__ __forceinline__ void score_pass(float (&sc)[32], const float2 (&ks2)[
   }
 }
 
-template <typename TQ, typename TKV, int DH>
+template <typename TQ, typename TKV, int DH, bool WIDE>
 struct Smem {
-  static constexpr bool CONVERT = !std::is_same<TKV, __nv_bfloat16>::value;
+  // WIDE: bf16 K/V are staged into the operand tiles too (no ring)
+  static constexpr bool CONVERT = !std::is_same<TKV, __nv_bfloat16>::value || WIDE;
   static constexpr bool QUANT = std::is_same<TKV, int8_t>::value;
   static constexpr bool QLO = std::is_same<TQ, float>::value;   // Q as hi + lo
   static constexpr bool KVLO = std::is_same<TKV, float>::value;  // K, V as hi + lo
   // f32 K/V at DH 256: no ring (one raw stage would be 128 KB); each tile
   // is converted into its operand tiles straight from device memory
-  static constexpr bool DIRECT = KVLO && DH > 128;
+  static constexpr bool DIRECT = (KVLO && DH > 128) || WIDE;
   static constexpr int TILE = BQ * DH * 2;  // one bf16 operand tile
   static constexpr int RAW = DIRECT ? 0 : BK * DH * static_cast<int>(sizeof(TKV));  // ring tile
   static constexpr int RING = (QLO ? 2 : 1) * TILE;                     // after Q (hi, lo)
@@ -411,25 +425,33 @@ struct Smem {
   static_assert(LAUNCH_BYTES <= 232448, "flash_fwd's layout passes 227 KB of shared memory");
 };
 
-// The instantiation a head dim runs in: the next of 32, 64, 128, 256 up
-// (0: none; dh must also be a multiple of 8).
+// The instantiation a head dim runs in: the next of 32, 64, 128, 256 up;
+// past 256 the WIDE case of the DH 256 layout, in 256-column slices (0:
+// none, dh must be a positive multiple of 8).
+constexpr int SLICE = 256;
 inline int head_dim_instance(int dh) {
   if (dh <= 0 || dh % 8) return 0;
-  return dh <= 32 ? 32 : dh <= 64 ? 64 : dh <= 128 ? 128 : dh <= 256 ? 256 : 0;
+  return dh <= 32 ? 32 : dh <= 64 ? 64 : dh <= 128 ? 128 : 256;
+}
+__host__ __device__ inline int column_slices(int dh) {
+  return dh > SLICE ? (dh + SLICE - 1) / SLICE : 1;
 }
 
 // TQ: the query type; TKV: the cache type (TQ, or int8_t with per-(slot,
 // group) scales k_sc/v_sc). DH: the instantiation; dh <= DH: the tensors'
-// head dim. part: split scratch (acc [splits, S, H, dh], then m and l
-// [splits, S, H]), read when splits > 1.
-template <typename TQ, typename TKV, int DH>
+// head dim, or WIDE: dh > DH = 256, and the block owns O's columns [cs *
+// DH, cs * DH + DH) of cs = blockIdx.x % column_slices(dh). part: split
+// scratch (acc [splits, S, H, dh], then m and l [splits, S, H]), read when
+// splits > 1.
+template <typename TQ, typename TKV, int DH, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __restrict__ v,
           const float* __restrict__ k_sc, const float* __restrict__ v_sc,
           const int* __restrict__ q_positions, const float* __restrict__ sinks,
           float* __restrict__ out, float* __restrict__ part, int S, int H, int G, int C, int dh,
           float scale, float soft_cap, int window, int splits, int tiles_per_split) {
-  using L = Smem<TQ, TKV, DH>;
+  using L = Smem<TQ, TKV, DH, WIDE>;
+  static_assert(!WIDE || DH == SLICE, "the wide case keeps the DH 256 layout");
   constexpr int CH = DH / 8;                               // bf16 chunks per row
   constexpr int CPR = DH * static_cast<int>(sizeof(TKV)) / 16;  // cp.async per ring row
   constexpr int ON = DH < 64 ? DH : 64;                    // columns of one O block
@@ -446,7 +468,9 @@ flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __rest
   const int R = S * rep;
   const int g = blockIdx.y;
   const int z = blockIdx.z;
-  const int row0 = blockIdx.x * BQ;
+  const int ncs = WIDE ? column_slices(dh) : 1;
+  const int cs = WIDE ? static_cast<int>(blockIdx.x) % ncs : 0;  // O's column slice
+  const int row0 = (WIDE ? static_cast<int>(blockIdx.x) / ncs : blockIdx.x) * BQ;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -512,26 +536,30 @@ flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __rest
     cp_async_commit();
   }
 
-  // Q tile [64, DH] as bf16, zero rows past R and columns past dh
-  for (int i = tid; i < BQ * CH; i += THREADS) {
-    const int r = i / CH;
-    const int c = i % CH;
-    const int row = row0 + r;
-    uint4 hi = make_uint4(0u, 0u, 0u, 0u);
-    uint4 lo = hi;
-    if (row < R && c * 8 < dh) {
-      const int s = row / rep;
-      const int h = g * rep + row % rep;
-      const TQ* src = q + (static_cast<size_t>(s) * H + h) * dh + c * 8;
-      if constexpr (L::QLO) {
-        load8_split(src, hi, lo);
-      } else {
-        hi = load8_bf16(src);
+  // Q tile [64, DH] as bf16, zero rows past R and columns past dh; from
+  // column col0 on (WIDE: one 256-column piece of dh)
+  auto stage_q = [&](int col0) {
+    for (int i = tid; i < BQ * CH; i += THREADS) {
+      const int r = i / CH;
+      const int c = i % CH;
+      const int row = row0 + r;
+      uint4 hi = make_uint4(0u, 0u, 0u, 0u);
+      uint4 lo = hi;
+      if (row < R && col0 + c * 8 < dh) {
+        const int s = row / rep;
+        const int h = g * rep + row % rep;
+        const TQ* src = q + (static_cast<size_t>(s) * H + h) * dh + col0 + c * 8;
+        if constexpr (L::QLO) {
+          load8_split(src, hi, lo);
+        } else {
+          hi = load8_bf16(src);
+        }
       }
+      *reinterpret_cast<uint4*>(sQ + swz<DH>(r, c)) = hi;
+      if constexpr (L::QLO) *reinterpret_cast<uint4*>(sQ + L::TILE + swz<DH>(r, c)) = lo;
     }
-    *reinterpret_cast<uint4*>(sQ + swz<DH>(r, c)) = hi;
-    if constexpr (L::QLO) *reinterpret_cast<uint4*>(sQ + L::TILE + swz<DH>(r, c)) = lo;
-  }
+  };
+  if constexpr (!WIDE) stage_q(0);
 
   // this thread's two rows of every accumulator fragment: lr0 and lr0 + 8
   const int lr0 = 16 * warp + (lane >> 2);
@@ -563,71 +591,137 @@ flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __rest
     if (t + STAGES - 1 < t_end) load_tile(t + STAGES - 1, (stage + STAGES - 1) % STAGES);
     cp_async_commit();
     cp_async_wait<STAGES - 1>();
-    uint8_t* rk = ring + stage * 2 * L::RAW;
-    uint32_t k_base = smem_u32(rk);
-    uint32_t v_base = k_base + L::RAW;
-    if constexpr (L::CONVERT) {
-      __syncthreads();  // every thread's copies of this stage have landed
-      using TR = typename std::conditional<L::QUANT, int8_t, float>::type;
-      const TR* raw_k = reinterpret_cast<const TR*>(rk);
-      const TR* raw_v = reinterpret_cast<const TR*>(rk + L::RAW);
+    float sc[32];
+    uint32_t v_base;
+    if constexpr (WIDE) {
+      // S over dh in 256-column pieces of Q and K, each converted into the
+      // operand tiles from device memory; V's slice cs with the first
       uint8_t* sK = base + L::OPS;
       uint8_t* sV = sK + L::TILE;
-      for (int i = tid; i < BK * CH; i += THREADS) {
-        const int r = i / CH;
-        const int c = i % CH;
-        const uint32_t at = swz<DH>(r, c);
-        if constexpr (L::DIRECT) {
-          // f32 K/V from device memory, zero past C and past dh
-          const int slot = t * BK + r;
-          uint4 hi = make_uint4(0u, 0u, 0u, 0u), lo = hi, vh = hi, vl = hi;
-          if (slot < C && c * 8 < dh) {
-            const size_t off = static_cast<size_t>(slot) * kv_stride +
-                               static_cast<size_t>(g) * dh + c * 8;
-            load8_split(reinterpret_cast<const float*>(k) + off, hi, lo);
-            load8_split(reinterpret_cast<const float*>(v) + off, vh, vl);
+      // 8 values of slot `slot`, columns [col, col + 8) of k or v, as
+      // operand chunks (hi, and f32's lo); zero past C and past dh
+      auto kv8 = [&](const TKV* src, bool is_v, int slot, int col, uint4& hi, uint4& lo) {
+        hi = lo = make_uint4(0u, 0u, 0u, 0u);
+        if (slot < C && col < dh) {
+          const size_t off = static_cast<size_t>(slot) * kv_stride +
+                             static_cast<size_t>(g) * dh + col;
+          if constexpr (L::KVLO) {
+            load8_split(reinterpret_cast<const float*>(src) + off, hi, lo);
+          } else if constexpr (L::QUANT) {
+            const int8_t* codes = reinterpret_cast<const int8_t*>(src) + off;
+            hi = is_v ? codes8_f16(codes) : codes8_bf16(codes);
+          } else {
+            hi = load8_bf16(reinterpret_cast<const __nv_bfloat16*>(src) + off);
           }
-          *reinterpret_cast<uint4*>(sK + at) = hi;
-          *reinterpret_cast<uint4*>(sK + 2 * L::TILE + at) = lo;
-          *reinterpret_cast<uint4*>(sV + at) = vh;
-          *reinterpret_cast<uint4*>(sV + 2 * L::TILE + at) = vl;
-        } else if constexpr (L::KVLO) {
+        }
+      };
+      for (int p = 0; p < ncs; ++p) {
+        __syncthreads();  // the last piece's products have read Q and K (p = 0: the scales landed)
+        stage_q(p * DH);
+        for (int i = tid; i < BK * CH; i += THREADS) {
+          const int r = i / CH;
+          const int c = i % CH;
+          const uint32_t at = swz<DH>(r, c);
           uint4 hi, lo;
-          load8_split(raw_k + r * DH + c * 8, hi, lo);
+          kv8(k, false, t * BK + r, p * DH + c * 8, hi, lo);
           *reinterpret_cast<uint4*>(sK + at) = hi;
-          *reinterpret_cast<uint4*>(sK + 2 * L::TILE + at) = lo;
-          load8_split(raw_v + r * DH + c * 8, hi, lo);
-          *reinterpret_cast<uint4*>(sV + at) = hi;
-          *reinterpret_cast<uint4*>(sV + 2 * L::TILE + at) = lo;
-        } else {
-          *reinterpret_cast<uint4*>(sK + at) = codes8_bf16(raw_k + r * DH + c * 8);
-          *reinterpret_cast<uint4*>(sV + at) = codes8_f16(raw_v + r * DH + c * 8);
+          if constexpr (L::KVLO) *reinterpret_cast<uint4*>(sK + 2 * L::TILE + at) = lo;
+          if (p == 0) {
+            kv8(v, true, t * BK + r, cs * DH + c * 8, hi, lo);
+            *reinterpret_cast<uint4*>(sV + at) = hi;
+            if constexpr (L::KVLO) *reinterpret_cast<uint4*>(sV + 2 * L::TILE + at) = lo;
+          }
+        }
+        fence_async_smem();
+        __syncthreads();
+        const uint32_t k_base = smem_u32(sK);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk) {
+          const uint32_t off = (kk >> 2) * SW_ATOM + (kk & 3) * 32;
+          const uint64_t qd = sw_desc<DH>(q_base + off, 16, 8 * ROWB);
+          const uint64_t kd = sw_desc<DH>(k_base + off, 16, 8 * ROWB);
+          wgmma_ss(sc, qd, kd, p > 0 || kk > 0);
+          if constexpr (L::KVLO) {
+            wgmma_ss(sc, qd, sw_desc<DH>(k_base + 2 * L::TILE + off, 16, 8 * ROWB), 1);
+          }
+          if constexpr (L::QLO) {
+            wgmma_ss(sc, sw_desc<DH>(q_base + L::TILE + off, 16, 8 * ROWB), kd, 1);
+          }
+        }
+        wg_commit();
+        wg_wait0();
+        fence_regs(sc);
+      }
+      v_base = smem_u32(sV);
+    } else {
+      uint8_t* rk = ring + stage * 2 * L::RAW;
+      uint32_t k_base = smem_u32(rk);
+      v_base = k_base + L::RAW;
+      if constexpr (L::CONVERT) {
+        __syncthreads();  // every thread's copies of this stage have landed
+        using TR = typename std::conditional<L::QUANT, int8_t, float>::type;
+        const TR* raw_k = reinterpret_cast<const TR*>(rk);
+        const TR* raw_v = reinterpret_cast<const TR*>(rk + L::RAW);
+        uint8_t* sK = base + L::OPS;
+        uint8_t* sV = sK + L::TILE;
+        for (int i = tid; i < BK * CH; i += THREADS) {
+          const int r = i / CH;
+          const int c = i % CH;
+          const uint32_t at = swz<DH>(r, c);
+          if constexpr (L::DIRECT) {
+            // f32 K/V from device memory, zero past C and past dh
+            const int slot = t * BK + r;
+            uint4 hi = make_uint4(0u, 0u, 0u, 0u), lo = hi, vh = hi, vl = hi;
+            if (slot < C && c * 8 < dh) {
+              const size_t off = static_cast<size_t>(slot) * kv_stride +
+                                 static_cast<size_t>(g) * dh + c * 8;
+              load8_split(reinterpret_cast<const float*>(k) + off, hi, lo);
+              load8_split(reinterpret_cast<const float*>(v) + off, vh, vl);
+            }
+            *reinterpret_cast<uint4*>(sK + at) = hi;
+            *reinterpret_cast<uint4*>(sK + 2 * L::TILE + at) = lo;
+            *reinterpret_cast<uint4*>(sV + at) = vh;
+            *reinterpret_cast<uint4*>(sV + 2 * L::TILE + at) = vl;
+          } else if constexpr (L::KVLO) {
+            uint4 hi, lo;
+            load8_split(raw_k + r * DH + c * 8, hi, lo);
+            *reinterpret_cast<uint4*>(sK + at) = hi;
+            *reinterpret_cast<uint4*>(sK + 2 * L::TILE + at) = lo;
+            load8_split(raw_v + r * DH + c * 8, hi, lo);
+            *reinterpret_cast<uint4*>(sV + at) = hi;
+            *reinterpret_cast<uint4*>(sV + 2 * L::TILE + at) = lo;
+          } else {
+            *reinterpret_cast<uint4*>(sK + at) = codes8_bf16(raw_k + r * DH + c * 8);
+            *reinterpret_cast<uint4*>(sV + at) = codes8_f16(raw_v + r * DH + c * 8);
+          }
+        }
+        k_base = smem_u32(sK);
+        v_base = smem_u32(sV);
+      }
+      fence_async_smem();
+      __syncthreads();
+
+      // S = Q K^T over DH in steps of 16 (32 bytes inside a swizzled row);
+      // a group of 8 rows is 8 * ROWB bytes
+      wg_fence();
+  #pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const uint32_t off = (kk >> 2) * SW_ATOM + (kk & 3) * 32;
+        const uint64_t qd = sw_desc<DH>(q_base + off, 16, 8 * ROWB);
+        const uint64_t kd = sw_desc<DH>(k_base + off, 16, 8 * ROWB);
+        wgmma_ss(sc, qd, kd, kk > 0);
+        if constexpr (L::KVLO) {
+          wgmma_ss(sc, qd, sw_desc<DH>(k_base + 2 * L::TILE + off, 16, 8 * ROWB), 1);
+        }
+        if constexpr (L::QLO) {
+          wgmma_ss(sc, sw_desc<DH>(q_base + L::TILE + off, 16, 8 * ROWB), kd, 1);
         }
       }
-      k_base = smem_u32(sK);
-      v_base = smem_u32(sV);
+      wg_commit();
+      wg_wait0();
+      fence_regs(sc);
     }
-    fence_async_smem();
-    __syncthreads();
-
-    // S = Q K^T over DH in steps of 16 (32 bytes inside a swizzled row);
-    // a group of 8 rows is 8 * ROWB bytes
-    float sc[32];
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      const uint32_t off = (kk >> 2) * SW_ATOM + (kk & 3) * 32;
-      const uint64_t qd = sw_desc<DH>(q_base + off, 16, 8 * ROWB);
-      const uint64_t kd = sw_desc<DH>(k_base + off, 16, 8 * ROWB);
-      wgmma_ss(sc, qd, kd, kk > 0);
-      if constexpr (L::KVLO) {
-        wgmma_ss(sc, qd, sw_desc<DH>(k_base + 2 * L::TILE + off, 16, 8 * ROWB), 1);
-      }
-      if constexpr (L::QLO) wgmma_ss(sc, sw_desc<DH>(q_base + L::TILE + off, 16, 8 * ROWB), kd, 1);
-    }
-    wg_commit();
-    wg_wait0();
-    fence_regs(sc);
 
     const int c0 = t * BK;
     const bool full = c0 + BK - 1 <= q_lo && c0 + BK <= C && (window <= 0 || c0 > q_hi - window);
@@ -780,7 +874,7 @@ flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __rest
       dst = out + (static_cast<size_t>(s) * H + h) * dh;
     } else {
       const size_t pr = static_cast<size_t>(z) * SH + static_cast<size_t>(s) * H + h;
-      if ((lane & 3) == 0) {
+      if ((lane & 3) == 0 && cs == 0) {
         float* pm = part + static_cast<size_t>(splits) * SH * dh;
         pm[pr] = m > 0.5f * NEG ? m * LN2 : NEG;  // natural-log units
         pm[static_cast<size_t>(splits) * SH + pr] = l;
@@ -791,7 +885,7 @@ flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __rest
     for (int n = 0; n < NH; ++n) {
 #pragma unroll
       for (int j = 0; j < OR / 4; ++j) {
-        const int col = n * ON + 8 * j + col_t;  // and col + 1: both below dh or neither
+        const int col = cs * DH + n * ON + 8 * j + col_t;  // col + 1: below dh with col
         if (col >= dh) continue;
         const float2 val = make_float2(o[n][4 * j + 2 * half] * mul,
                                        o[n][4 * j + 2 * half + 1] * mul);
@@ -801,12 +895,12 @@ flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __rest
   }
 }
 
-template <typename TQ, typename TKV, int DH>
+template <typename TQ, typename TKV, int DH, bool WIDE = false>
 int launch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
            const int* qpos, const float* sinks, float* out, float* part, int S, int H, int G,
            int C, int dh, float scale, float soft_cap, int window, int splits,
            int tiles_per_split, cudaStream_t stream) {
-  constexpr int smem = Smem<TQ, TKV, DH>::LAUNCH_BYTES;
+  constexpr int smem = Smem<TQ, TKV, DH, WIDE>::LAUNCH_BYTES;
   // the shared-memory attribute is per device: set it once on each
   constexpr int MAX_DEVICES = 64;
   static bool attr[MAX_DEVICES] = {};
@@ -814,14 +908,15 @@ int launch(const void* q, const void* k, const void* v, const float* ks, const f
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (dev >= MAX_DEVICES || !attr[dev]) {
-    e = cudaFuncSetAttribute(flash_fwd<TQ, TKV, DH>,
+    e = cudaFuncSetAttribute(flash_fwd<TQ, TKV, DH, WIDE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     if (dev < MAX_DEVICES) attr[dev] = true;
   }
   const int R = S * (H / G);
-  const dim3 grid((R + BQ - 1) / BQ, G, splits);
-  flash_fwd<TQ, TKV, DH><<<grid, THREADS, smem, stream>>>(
+  const int ncs = WIDE ? column_slices(dh) : 1;
+  const dim3 grid((R + BQ - 1) / BQ * ncs, G, splits);
+  flash_fwd<TQ, TKV, DH, WIDE><<<grid, THREADS, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v), ks,
       vs, qpos, sinks, out, part, S, H, G, C, dh, scale, soft_cap, window, splits,
       tiles_per_split);
@@ -829,8 +924,8 @@ int launch(const void* q, const void* k, const void* v, const float* ks, const f
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
     const int rows = S * H;
-    uz_split::flash_combine<DH><<<(rows + 7) / 8, 256, 0, stream>>>(part, sinks, out, S, H,
-                                                                   dh, splits);
+    uz_split::flash_combine<DH, WIDE><<<dim3((rows + 7) / 8, ncs), 256, 0, stream>>>(
+        part, sinks, out, S, H, dh, splits);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -851,6 +946,10 @@ int dispatch(const void* q, const void* k, const void* v, const float* ks, const
       return launch<TQ, TKV, 128>(q, k, v, ks, vs, qpos, sk, o, part, S, H, G, C, dh, scale,
                                   soft_cap, window, splits, tps, s);
     case 256:
+      if (dh > SLICE) {
+        return launch<TQ, TKV, 256, true>(q, k, v, ks, vs, qpos, sk, o, part, S, H, G, C, dh,
+                                          scale, soft_cap, window, splits, tps, s);
+      }
       return launch<TQ, TKV, 256>(q, k, v, ks, vs, qpos, sk, o, part, S, H, G, C, dh, scale,
                                   soft_cap, window, splits, tps, s);
     default:
@@ -861,8 +960,9 @@ int dispatch(const void* q, const void* k, const void* v, const float* ks, const
 }  // namespace
 
 // Plain C entry points, bound with ctypes. The caller guarantees: q [S,H,dh]
-// and k/v [C,G,dh] contiguous, 16-byte aligned, dh a multiple of 8 up to
-// 256 (run in the next instantiation up); H % G == 0; q_positions
+// and k/v [C,G,dh] contiguous, 16-byte aligned, dh a positive multiple
+// of 8 (up to 256 run in the next instantiation up, past it in 256-column
+// slices: splits counts blocks of every slice); H % G == 0; q_positions
 // int32 on the device; sinks f32 [H] or nullptr; soft_cap <= 0 and
 // window <= 0 mean none; splits >= 1 ranges of tiles_per_split 64-slot
 // tiles covering [0, C), and for splits > 1 an f32 scratch of

@@ -77,6 +77,17 @@
 //   16-byte chunk at a time and used at once. The ring is 2 stages of bf16
 //   (one block an SM), 3 of int8, and 1 of f32 pools (a 128 KB stage: the
 //   copy of the next tile then waits for the current one's compute).
+// - Past DH 256 (any dh that is a multiple of 8; 512 is Gemma-4's global
+//   layers' width) a warp's O would be 256 registers a thread and a K/V
+//   stage 128-256 KB. So a block owns one 256-column slice of O (grid.y
+//   is G x ceil(dh / 256) slices; the split plan counts those blocks) and
+//   keeps the DH 256 layout (WIDE): per tile, S = Q K^T is summed over dh
+//   in 256-column pieces, each piece's K columns copied into one ring
+//   stage and its Q fragments written to shared memory by warp 0; the
+//   slice's V columns (and K6's scales) come with the first piece, and
+//   P V runs as at DH 256. No ring: each piece's copy waits for the last
+//   piece's products, and every slice repeats S. Simple and right first;
+//   compiled apart, so DH <= 256 keeps its code.
 // - A head dim dh between two instantiations runs in the next one up (24
 //   and 32 in 64, 200 in 256): Q's and the ring's columns past dh are
 //   zero-filled as they load, so Q K^T is unchanged, and O's columns past
@@ -235,7 +246,7 @@ __device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4], u
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <typename TQ, typename TKV, int DH>
+template <typename TQ, typename TKV, int DH, bool WIDE>
 struct Layout {
   static constexpr bool QUANT = std::is_same<TKV, int8_t>::value;
   static constexpr bool KVLO = std::is_same<TKV, float>::value;  // K, V as hi + lo
@@ -252,7 +263,8 @@ struct Layout {
   static constexpr int QBYTES = QS ? (QLO ? 2 : 1) * (DH / 16) * 32 * 16 : 0;
   // the most stages, up to 4, that keep two blocks on an SM; else 2, or 1
   // where two do not fit (f32 pools at DH 256)
-  static constexpr int STAGES = 4 * STAGE <= 114688                ? 4
+  static constexpr int STAGES = WIDE                              ? 1
+                                : 4 * STAGE <= 114688              ? 4
                                 : 3 * STAGE <= 114688              ? 3
                                 : 2 * STAGE + QBYTES <= 232448     ? 2
                                                                    : 1;
@@ -263,11 +275,16 @@ struct Layout {
   static_assert(BYTES <= 232448, "paged_decode's layout passes 227 KB of shared memory");
 };
 
-// The instantiation a head dim runs in: the next of 64, 128, 256 up (0:
-// none; dh must also be a multiple of 8).
+// The instantiation a head dim runs in: the next of 64, 128, 256 up; past
+// 256 the WIDE case of the DH 256 layout, in 256-column slices (0: none,
+// dh must be a positive multiple of 8).
+constexpr int SLICE = 256;
 inline int head_dim_instance(int dh) {
   if (dh <= 0 || dh % 8) return 0;
-  return dh <= 64 ? 64 : dh <= 128 ? 128 : dh <= 256 ? 256 : 0;
+  return dh <= 64 ? 64 : dh <= 128 ? 128 : 256;
+}
+__host__ __device__ inline int column_slices(int dh) {
+  return dh > SLICE ? (dh + SLICE - 1) / SLICE : 1;
 }
 
 // Where 16-byte chunk c of token row r of a K tile lies in its row. A
@@ -321,11 +338,13 @@ __device__ __forceinline__ void score_pass(float (&sc)[2][4], const float2 (&ks2
 // TQ: the query type; TKV: the pool type (TQ, or int8_t with scales ks/vs).
 // DH: the instantiation; dh <= DH: the tensors' head dim (EXACT: dh ==
 // DH, compiled in, so the head-dim tests of the loads fold away: 2-5%
-// of the kernel's time at DH 64 and 128 on the H100). Block (b, g, z):
+// of the kernel's time at DH 64 and 128 on the H100), or WIDE: dh > DH =
+// 256, and block (b, g * column_slices(dh) + cs, z) owns O's columns [cs
+// * DH, cs * DH + DH). Block (b, g, z):
 // slot b, KV group g, split z of `splits`: the tiles z, z + splits, z + 2
 // splits, ... of the table's width. part: split scratch (acc [splits, B,
 // H, dh], then m and l [splits, B, H]), written when splits > 1.
-template <typename TQ, typename TKV, int DH, bool EXACT>
+template <typename TQ, typename TKV, int DH, bool EXACT, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 paged_decode(const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __restrict__ vp,
              const float* __restrict__ ks, const float* __restrict__ vs,
@@ -333,7 +352,8 @@ paged_decode(const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __
              const float* __restrict__ sinks, float* __restrict__ out, float* __restrict__ part,
              int H, int G, int P, int page, int maxp, int dh, float scale, float soft_cap,
              int window, int splits) {
-  using L = Layout<TQ, TKV, DH>;
+  using L = Layout<TQ, TKV, DH, WIDE>;
+  static_assert(!WIDE || (DH == SLICE && !EXACT), "the wide case keeps the DH 256 layout");
   if constexpr (EXACT) dh = DH;
   constexpr int KS = DH / 16;       // k-steps of Q K^T
   constexpr int NT = DH / 8;        // n8 tiles of O
@@ -343,7 +363,9 @@ paged_decode(const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __
   extern __shared__ __align__(16) uint8_t smem[];
 
   const int b = blockIdx.x;
-  const int g = blockIdx.y;
+  const int ncs = WIDE ? column_slices(dh) : 1;
+  const int g = WIDE ? static_cast<int>(blockIdx.y) / ncs : blockIdx.y;
+  const int cs = WIDE ? static_cast<int>(blockIdx.y) % ncs : 0;  // O's column slice
   const int z = blockIdx.z;
   const int B = gridDim.x;
   const int rep = H / G;
@@ -370,7 +392,7 @@ paged_decode(const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __
 
   if (t_begin >= t_end || lo >= hi) {
     for (int i = tid; i < rep * DH; i += THREADS) {
-      const int d = i % DH;
+      const int d = cs * DH + i % DH;
       if (d >= dh) continue;
       const size_t row = static_cast<size_t>(b) * H + g * rep + i / DH;
       if (splits == 1) {
@@ -394,58 +416,62 @@ paged_decode(const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __
 
   // Q as m16n8k16 A fragments, rows gid and gid + 8 (zero past rep, and
   // past dh); the contraction index is permuted: k-step kk, slots 2 tig
-  // (+1) and 8 + 2 tig (+1) read q[tig * DH/4 + 4 kk + (0..3)], as K's
-  // fragments below. DH 256: warp 0 stores them to shared memory.
+  // (+1) and 8 + 2 tig (+1) read q[col0 + tig * DH/4 + 4 kk + (0..3)], as
+  // K's fragments below. DH 256: warp 0 stores them to shared memory.
+  // col0: 0, or WIDE's piece of dh.
   uint32_t qa[KS][4], ql[KS][4];
   uint4* const qsm = reinterpret_cast<uint4*>(smem + L::RING);  // L::QS: [hi, lo][KS][32]
+  auto build_q = [&](int col0) {
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = gid + 8 * half;
-    uint32_t w[2 * KS], wl[2 * KS];
+    for (int half = 0; half < 2; ++half) {
+      const int r = gid + 8 * half;
+      uint32_t w[2 * KS], wl[2 * KS];
 #pragma unroll
-    for (int i = 0; i < 2 * KS; ++i) w[i] = wl[i] = 0u;
-    if (r < rep) {
-      const int d0 = tig * (DH / 4);
-      const TQ* src = q + (static_cast<size_t>(b) * H + g * rep + r) * dh + d0;
-      if constexpr (L::QLO) {
+      for (int i = 0; i < 2 * KS; ++i) w[i] = wl[i] = 0u;
+      if (r < rep) {
+        const int d0 = col0 + tig * (DH / 4);
+        const TQ* src = q + (static_cast<size_t>(b) * H + g * rep + r) * dh + d0;
+        if constexpr (L::QLO) {
 #pragma unroll
-        for (int i = 0; i < DH / 16; ++i) {
-          if (d0 + 4 * i >= dh) break;
-          const float4 f = reinterpret_cast<const float4*>(src)[i];
-          split_bf16x2(f.x, f.y, w[2 * i], wl[2 * i]);
-          split_bf16x2(f.z, f.w, w[2 * i + 1], wl[2 * i + 1]);
-        }
-      } else {
+          for (int i = 0; i < DH / 16; ++i) {
+            if (d0 + 4 * i >= dh) break;
+            const float4 f = reinterpret_cast<const float4*>(src)[i];
+            split_bf16x2(f.x, f.y, w[2 * i], wl[2 * i]);
+            split_bf16x2(f.z, f.w, w[2 * i + 1], wl[2 * i + 1]);
+          }
+        } else {
 #pragma unroll
-        for (int i = 0; i < DH / 32; ++i) {
-          if (d0 + 8 * i >= dh) break;
-          const uint4 u = reinterpret_cast<const uint4*>(src)[i];
-          w[4 * i] = u.x;
-          w[4 * i + 1] = u.y;
-          w[4 * i + 2] = u.z;
-          w[4 * i + 3] = u.w;
+          for (int i = 0; i < DH / 32; ++i) {
+            if (d0 + 8 * i >= dh) break;
+            const uint4 u = reinterpret_cast<const uint4*>(src)[i];
+            w[4 * i] = u.x;
+            w[4 * i + 1] = u.y;
+            w[4 * i + 2] = u.z;
+            w[4 * i + 3] = u.w;
+          }
         }
       }
-    }
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      qa[kk][half] = w[2 * kk];
-      qa[kk][2 + half] = w[2 * kk + 1];
-      ql[kk][half] = wl[2 * kk];
-      ql[kk][2 + half] = wl[2 * kk + 1];
-    }
-  }
-  if constexpr (L::QS) {
-    if (warp == 0) {
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
-        qsm[kk * 32 + lane] = make_uint4(qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3]);
-        if constexpr (L::QLO) {
-          qsm[(KS + kk) * 32 + lane] = make_uint4(ql[kk][0], ql[kk][1], ql[kk][2], ql[kk][3]);
+        qa[kk][half] = w[2 * kk];
+        qa[kk][2 + half] = w[2 * kk + 1];
+        ql[kk][half] = wl[2 * kk];
+        ql[kk][2 + half] = wl[2 * kk + 1];
+      }
+    }
+    if constexpr (L::QS) {
+      if (warp == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          qsm[kk * 32 + lane] = make_uint4(qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3]);
+          if constexpr (L::QLO) {
+            qsm[(KS + kk) * 32 + lane] = make_uint4(ql[kk][0], ql[kk][1], ql[kk][2], ql[kk][3]);
+          }
         }
       }
     }
-  }
+  };
+  if constexpr (!WIDE) build_q(0);
 
   // thread tid copies token row tid / 2 of every tile: chunks 2j + (tid &
   // 1), so a pair of threads reads 32 contiguous bytes, and for K6 the
@@ -463,13 +489,19 @@ paged_decode(const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __
     return (pos >= lo && pos < hi) ? __ldg(trow + pos / page) : -1;
   };
   const int row_bytes = dh * static_cast<int>(sizeof(TKV));  // of one token's K or V row
-  auto load_tile = [&](int t, int stage, int pg) {
+  // WIDE: K's columns from kcol on, V's from vcol on (and K6's scales)
+  // where with_v
+  auto load_tile = [&](int t, int stage, int pg, int kcol = 0, int vcol = 0,
+                       bool with_v = true) {
     const uint32_t dk = smem_u32(ring + stage * L::STAGE);
     const uint32_t dv = dk + L::TILE;
     const bool ok = pg >= 0;
     const size_t row = ok ? (group_page + pg) * page + (t * BT + lr) % page : 0;
-    const uint8_t* ksrc = kbytes + row * row_bytes;
-    const uint8_t* vsrc = vbytes + row * row_bytes;
+    constexpr int ES = static_cast<int>(sizeof(TKV));
+    const uint8_t* ksrc = kbytes + row * row_bytes + kcol * ES;
+    const uint8_t* vsrc = vbytes + row * row_bytes + vcol * ES;
+    const int kbytes_left = row_bytes - kcol * ES;
+    const int vbytes_left = row_bytes - vcol * ES;
     if (L::QUANT && (dh & 15)) {
       // int8 rows of a dh that is not a multiple of 16: 8-byte copies
 #pragma unroll
@@ -479,25 +511,29 @@ paged_decode(const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __
         const uint32_t vd = dv + lr * L::RB + vswz<L::NC, CPV>(lr, c) * 16;
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const bool in = ok && c * 16 + 8 * e < row_bytes;
+          const bool in = ok && c * 16 + 8 * e < kbytes_left;
           cp_async8(kd + 8 * e, ksrc + (in ? c * 16 + 8 * e : 0), in);
-          cp_async8(vd + 8 * e, vsrc + (in ? c * 16 + 8 * e : 0), in);
+          const bool vin = ok && c * 16 + 8 * e < vbytes_left;
+          if (with_v) cp_async8(vd + 8 * e, vsrc + (vin ? c * 16 + 8 * e : 0), vin);
         }
       }
     } else {
 #pragma unroll
       for (int j = 0; j < L::NC / 2; ++j) {
         const int c = 2 * j + lh;
-        const bool in = ok && c * 16 < row_bytes;
+        const bool in = ok && c * 16 < kbytes_left;
         cp_async16(dk + lr * L::RB + kswz<L::NC>(lr, c) * 16, ksrc + (in ? c * 16 : 0), in,
                    pol);
-        cp_async16(dv + lr * L::RB + vswz<L::NC, CPV>(lr, c) * 16, vsrc + (in ? c * 16 : 0),
-                   in, pol);
+        const bool vin = ok && c * 16 < vbytes_left;
+        if (with_v) {
+          cp_async16(dv + lr * L::RB + vswz<L::NC, CPV>(lr, c) * 16,
+                     vsrc + (vin ? c * 16 : 0), vin, pol);
+        }
       }
     }
     if constexpr (L::QUANT) {
       // [k scales][v scales] of the tile's 64 tokens
-      cp_async4(dk + 2 * L::TILE + (lh * BT + lr) * 4, (lh ? vs : ks) + row, ok);
+      if (with_v) cp_async4(dk + 2 * L::TILE + (lh * BT + lr) * 4, (lh ? vs : ks) + row, ok);
     }
   };
 
@@ -526,33 +562,13 @@ paged_decode(const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __
   float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;  // running max of rows gid, gid + 8 (log2)
   float l0 = 0.f, l1 = 0.f;  // this thread's part of the running sums
 
-  for (int i = 0; i < n; ++i) {
-    const int t = t_begin + i * splits;
-    if constexpr (STAGES > 1) cp_async_wait<STAGES - 2>();
-    __syncthreads();  // tile i has landed; every warp is done with tile i - 1
-    if (i + STAGES - 1 < n) load_tile(t + (STAGES - 1) * splits, (i + STAGES - 1) % STAGES, pg_next);
-    cp_async_commit();
-    if (i + STAGES < n) pg_next = page_of(t + STAGES * splits);  // used by the next tile's refill
-    if constexpr (STAGES == 1) {  // one stage: tile i was copied just now
-      cp_async_wait<0>();
-      __syncthreads();
-    }
-
-    const int tok0 = t * BT + 16 * warp;
-    if (tok0 + 16 <= lo || tok0 >= hi) continue;  // none of this warp's tokens is live
-    const bool full = tok0 >= lo && tok0 + 16 <= hi;
-    const uint8_t* st = smem + (i % STAGES) * L::STAGE;
-    const uint8_t* sk = st;
-    const uint8_t* sv = st + L::TILE;
-    const float* ksc = reinterpret_cast<const float*>(st + 2 * L::TILE) + 16 * warp;
-    const float* vsc = ksc + BT;
-
-    // S = Q K^T: two n8 tiles of tokens; thread (gid, tig) reads token row
-    // 8 nt + gid, its quarter tig of the row as 16-byte chunks (WK fragment
-    // words each: k-steps c * WK/2 ...); all of them before the products
-    // up to DH 128, one at a time, used as it arrives, at DH 256
-    constexpr int WK = L::QUANT ? 8 : L::KVLO ? 2 : 4;
-    float sc[2][4];
+  // S += Q K^T of this warp's 16 tokens of the K tile at sk: two n8
+  // tiles of tokens; thread (gid, tig) reads token row 8 nt + gid, its
+  // quarter tig of the row as 16-byte chunks (WK fragment words each:
+  // k-steps c * WK/2 ...); all of them before the products up to DH 128,
+  // one at a time, used as it arrives, at DH 256
+  constexpr int WK = L::QUANT ? 8 : L::KVLO ? 2 : 4;
+  auto qk = [&](const uint8_t* sk, float (&sc)[2][4]) {
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) {
       const int r = 16 * warp + 8 * nt + gid;
@@ -564,8 +580,6 @@ paged_decode(const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __
 #pragma unroll
         for (int c = 0; c < KW; ++c) kraw[c] = kchunk(c);
       }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
 #pragma unroll
       for (int c = 0; c < KW; ++c) {
         const uint4 u = L::QS ? kchunk(c) : kraw[L::QS ? 0 : c];
@@ -602,6 +616,48 @@ paged_decode(const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __
         }
       }
     }
+  };
+
+  for (int i = 0; i < n; ++i) {
+    const int t = t_begin + i * splits;
+    const int tok0 = t * BT + 16 * warp;
+    const bool live = tok0 + 16 > lo && tok0 < hi;  // some of this warp's tokens are live
+    float sc[2][4] = {};
+    const uint8_t* st = smem;
+    if constexpr (WIDE) {
+      // S over dh in 256-column pieces: each piece's K columns into the
+      // one stage and its Q fragments into shared memory (warp 0), summed
+      // on the accumulators; V's slice cs and K6's scales with the first
+      const int pg_t = page_of(t);
+      for (int p = 0; p < ncs; ++p) {
+        __syncthreads();  // every warp is done with the last piece (and tile)
+        build_q(p * DH);
+        load_tile(t, 0, pg_t, p * DH, cs * DH, p == 0);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        if (live) qk(st, sc);
+      }
+    } else {
+      if constexpr (STAGES > 1) cp_async_wait<STAGES - 2>();
+      __syncthreads();  // tile i has landed; every warp is done with tile i - 1
+      if (i + STAGES - 1 < n) {
+        load_tile(t + (STAGES - 1) * splits, (i + STAGES - 1) % STAGES, pg_next);
+      }
+      cp_async_commit();
+      if (i + STAGES < n) pg_next = page_of(t + STAGES * splits);  // the next tile's refill
+      if constexpr (STAGES == 1) {  // one stage: tile i was copied just now
+        cp_async_wait<0>();
+        __syncthreads();
+      }
+      st = smem + (i % STAGES) * L::STAGE;
+      if (live) qk(st, sc);
+    }
+    if (!live) continue;  // none of this warp's tokens is live
+    const bool full = tok0 >= lo && tok0 + 16 <= hi;
+    const uint8_t* sv = st + L::TILE;
+    const float* ksc = reinterpret_cast<const float*>(st + 2 * L::TILE) + 16 * warp;
+    const float* vsc = ksc + BT;
 
     float2 ks2[2], vs2[2];
     float inv_u = 1.f, u_ratio = 1.f;
@@ -800,7 +856,7 @@ paged_decode(const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __
   for (int i = tid; i < rep * DH; i += THREADS) {
     const int r = i / DH;  // DH, not dh: a shift, not a division
     const int d = i % DH;
-    if (d >= dh) continue;
+    if (cs * DH + d >= dh) continue;
     float M = -CUDART_INF_F;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) M = fmaxf(M, sm[w * 16 + r]);
@@ -813,6 +869,7 @@ paged_decode(const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __
         acc += so[(w * 16 + r) * DH + d] * (c * su[w]);
       }
     }
+    const int col = cs * DH + d;
     const size_t row = static_cast<size_t>(b) * H + g * rep + r;
     if (splits == 1) {
       if (sinks != nullptr) {
@@ -822,10 +879,10 @@ paged_decode(const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __
         acc *= corr;
         l = l * corr + exp2f(skl - m2);
       }
-      out[row * dh + d] = acc / fmaxf(l, 1e-30f);
+      out[row * dh + col] = acc / fmaxf(l, 1e-30f);
     } else {
-      part[(z * BH + row) * dh + d] = acc;
-      if (d == 0) {
+      part[(z * BH + row) * dh + col] = acc;
+      if (col == 0) {
         float* pm = part + splits * BH * dh;
         pm[z * BH + row] = M != -CUDART_INF_F ? M * LN2 : NEG;  // natural-log units
         pm[splits * BH + z * BH + row] = l;
@@ -834,12 +891,12 @@ paged_decode(const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __
   }
 }
 
-template <typename TQ, typename TKV, int DH, bool EXACT>
+template <typename TQ, typename TKV, int DH, bool EXACT, bool WIDE = false>
 int launch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
            const int* table, const int* lengths, const float* sinks, float* out, float* part,
            int B, int H, int G, int P, int page, int maxp, int dh, float scale,
            float soft_cap, int window, int splits, cudaStream_t stream) {
-  constexpr int smem = Layout<TQ, TKV, DH>::BYTES;
+  constexpr int smem = Layout<TQ, TKV, DH, WIDE>::BYTES;
   // the shared-memory attribute is per device: set it once on each
   constexpr int MAX_DEVICES = 64;
   static bool attr[MAX_DEVICES] = {};
@@ -847,13 +904,14 @@ int launch(const void* q, const void* k, const void* v, const float* ks, const f
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (dev >= MAX_DEVICES || !attr[dev]) {
-    e = cudaFuncSetAttribute(paged_decode<TQ, TKV, DH, EXACT>,
+    e = cudaFuncSetAttribute(paged_decode<TQ, TKV, DH, EXACT, WIDE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     if (dev < MAX_DEVICES) attr[dev] = true;
   }
-  const dim3 grid(B, G, splits);
-  paged_decode<TQ, TKV, DH, EXACT><<<grid, THREADS, smem, stream>>>(
+  const int ncs = WIDE ? column_slices(dh) : 1;
+  const dim3 grid(B, G * ncs, splits);
+  paged_decode<TQ, TKV, DH, EXACT, WIDE><<<grid, THREADS, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v), ks,
       vs, table, lengths, sinks, out, part, H, G, P, page, maxp, dh, scale, soft_cap, window,
       splits);
@@ -863,7 +921,7 @@ int launch(const void* q, const void* k, const void* v, const float* ks, const f
     // launched as a programmatic dependent: its blocks are scheduled while
     // this grid runs, and wait in the kernel for its results
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((B * H + 7) / 8);
+    cfg.gridDim = dim3((B * H + 7) / 8, ncs);
     cfg.blockDim = dim3(256);
     cfg.stream = stream;
     cudaLaunchAttribute attr_pdl[1];
@@ -871,7 +929,8 @@ int launch(const void* q, const void* k, const void* v, const float* ks, const f
     attr_pdl[0].val.programmaticStreamSerializationAllowed = 1;
     cfg.attrs = attr_pdl;
     cfg.numAttrs = 1;
-    e = cudaLaunchKernelEx(&cfg, uz_split::flash_combine<DH>, static_cast<const float*>(part),
+    e = cudaLaunchKernelEx(&cfg, uz_split::flash_combine<DH, WIDE>,
+                           static_cast<const float*>(part),
                            sinks, out, B, H, dh, splits);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
@@ -883,6 +942,13 @@ int launch_dh(const void* q, const void* k, const void* v, const float* ks, cons
               const int* t, const int* len, const float* sk, float* o, float* part, int B,
               int H, int G, int P, int page, int maxp, int dh, float scale, float soft_cap,
               int window, int splits, cudaStream_t s) {
+  if constexpr (DH == SLICE) {
+    if (dh > SLICE) {
+      return launch<TQ, TKV, DH, false, true>(q, k, v, ks, vs, t, len, sk, o, part, B, H, G, P,
+                                              page, maxp, dh, scale, soft_cap, window, splits,
+                                              s);
+    }
+  }
   if (dh == DH) {
     return launch<TQ, TKV, DH, true>(q, k, v, ks, vs, t, len, sk, o, part, B, H, G, P, page,
                                      maxp, dh, scale, soft_cap, window, splits, s);
@@ -916,7 +982,9 @@ int dispatch(int dh, const void* q, const void* k, const void* v, const float* k
 // Plain C entry point, bound with ctypes. kv_kind: 0 = K/V of q's dtype
 // (bf16 or f32, K5), 1 = int8 codes with f32 k_scales/v_scales [G, P,
 // page] (K6). The caller guarantees: q [B,H,dh], pools [G,P,page,dh] and
-// scales contiguous and 16-byte aligned, dh a multiple of 8 up to 256; 1 <= H / G <= 16 and H % G == 0;
+// scales contiguous and 16-byte aligned, dh a positive multiple of 8
+// (past 256 in 256-column slices: splits counts blocks of every slice);
+// 1 <= H / G <= 16 and H % G == 0;
 // table [B,maxp] and lengths [B] int32 on the device, every table entry a
 // valid physical page; sinks f32 [H] or nullptr; soft_cap <= 0 and
 // window <= 0 mean none; splits >= 1 (split z takes the 64-token tiles z,

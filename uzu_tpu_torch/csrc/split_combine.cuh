@@ -6,7 +6,9 @@
 // unnormalized state to f32 scratch: acc [splits, rows, dh], then m
 // [splits, rows] (natural-log units; -1e30 where the part saw no key) and
 // l [splits, rows]; dh is the tensors' head dim, DH >= dh the kernel's
-// instantiation. Rows are (s, h) for K3/K4 and (b, h) for
+// instantiation, or WIDE: dh > DH, and each block merges DH columns,
+// [blockIdx.y * DH, blockIdx.y * DH + DH) of dh (ceil(dh / DH) block
+// columns, as the wide kernels' column slices). Rows are (s, h) for K3/K4 and (b, h) for
 // K5/K6, h fastest, so the head of a row is row % H. flash_combine merges
 // the parts of each row in a fixed order (no atomics: greedy output
 // repeats from run to run), folds the per-head sinks in once as one extra
@@ -26,7 +28,7 @@ constexpr float NEG = -1e30f;
 
 // Merge the split ranges of each (s, h) row in a fixed order, fold the
 // sinks once, normalize. One warp per row.
-template <int DH>
+template <int DH, bool WIDE = false>
 __global__ void __launch_bounds__(256)
 flash_combine(const float* __restrict__ part, const float* __restrict__ sinks,
               float* __restrict__ out, int S, int H, int dh, int splits) {
@@ -35,6 +37,7 @@ flash_combine(const float* __restrict__ part, const float* __restrict__ sinks,
   const size_t SH = static_cast<size_t>(S) * H;
   const size_t row = static_cast<size_t>(blockIdx.x) * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
+  const int col0 = (WIDE ? static_cast<int>(blockIdx.y) * DH : 0) + lane;  // its first column
   if (row >= SH) return;
   const float* pm = part + static_cast<size_t>(splits) * SH * dh;
   const float* pl = pm + static_cast<size_t>(splits) * SH;
@@ -50,7 +53,7 @@ flash_combine(const float* __restrict__ part, const float* __restrict__ sinks,
     const float* a = part + (i * SH + row) * dh;
 #pragma unroll
     for (int d = 0; d < PER; ++d) {
-      if (lane + 32 * d < dh) acc[d] += w * a[lane + 32 * d];
+      if (col0 + 32 * d < dh) acc[d] += w * a[col0 + 32 * d];
     }
   }
   float mul = 1.f;
@@ -63,7 +66,7 @@ flash_combine(const float* __restrict__ part, const float* __restrict__ sinks,
   mul /= fmaxf(Lsum, 1e-30f);
 #pragma unroll
   for (int d = 0; d < PER; ++d) {
-    if (lane + 32 * d < dh) out[row * dh + lane + 32 * d] = acc[d] * mul;
+    if (col0 + 32 * d < dh) out[row * dh + col0 + 32 * d] = acc[d] * mul;
   }
 }
 

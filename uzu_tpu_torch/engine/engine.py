@@ -1,7 +1,7 @@
 """The inference engine: model load, chunked prefill, chunked decode, stream.
 
 Counterpart of `uzu_tpu/engine/engine.py` (`LanguageModel`,
-`StreamMetrics`), redesigned for PyTorch's eager execution:
+`StreamMetrics`, `TokenStream`), redesigned for PyTorch's eager execution:
 
 - prefill runs in fixed-size chunks; a ragged tail pads up to a small
   bucket set — padding lands in future cache slots the causal mask hides,
@@ -12,6 +12,10 @@ Counterpart of `uzu_tpu/engine/engine.py` (`LanguageModel`,
   (the JAX package fuses the same K steps into one `lax.scan` dispatch);
 - attention reads only the smallest power-of-two context bucket covering
   the current position (CTX_BUCKET_MIN upward);
+- `generate_resumable` continues an existing decoding state and returns a
+  `TokenStream` with the final state and, on request, each token's
+  log-probability and top alternatives (computed on the device inside the
+  chunk, read with its tokens);
 - the first prefill chunk and the first decode chunk can be captured by
   the profiler (`tools/profile.py`, armed by UZU_TPU_PROFILE).
 
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from ..config import LanguageModelConfig, load_language_model_config
+from ..config.model import AttentionConfig
 from ..models.decoder import decoder_forward
 from ..models.loader import load_decoder
 from ..models.state import init_state
@@ -88,10 +93,14 @@ class LanguageModel:
     # -- loading ---------------------------------------------------------
 
     @classmethod
-    def from_dir(cls, model_dir: str, *, device=None, **kw) -> "LanguageModel":
+    def from_dir(cls, model_dir: str, *, device=None, random_seed: int | None = None,
+                 **kw) -> "LanguageModel":
+        """`random_seed`: fill every tensor with the loader's seeded random
+        content (the JAX package's bytes) instead of reading the file's."""
         device = resolve_device(device)
         config = load_language_model_config(os.path.join(model_dir, "config.json"))
-        loader = ParameterLoader(os.path.join(model_dir, "model.safetensors"))
+        loader = ParameterLoader(os.path.join(model_dir, "model.safetensors"),
+                                 random_seed=random_seed)
         tree = loader.tree()
         params = load_decoder(tree, config.decoder_config, device=device)
         tree.assert_all_validated()
@@ -117,6 +126,45 @@ class LanguageModel:
                 batch_size, *([1] * t.dim())))
         return state
 
+    def recommended_max_context(self, memory_budget_bytes: int | None = None,
+                                batch_size: int = 1) -> int:
+        """Largest max_context the device memory supports for this model,
+        the JAX package's formula: 90% of the budget less the weights and a
+        workspace reserve, over the KV bytes per token (KV-sharing layers
+        skipped) times `batch_size`, rounded down to a power of two in
+        [1k, 1M] and clamped to the RoPE config's trained context. The
+        budget defaults to the card's total memory (the counterpart of
+        JAX's `bytes_limit`); off the card it must be given."""
+        if memory_budget_bytes is None:
+            if self.device.type != "cuda":
+                raise ValueError("recommended_max_context needs memory_budget_bytes "
+                                 f"on {self.device.type}: only the card reports its memory")
+            memory_budget_bytes = torch.cuda.mem_get_info(self.device)[1]
+        weight_bytes = sum(t.numel() * t.element_size() for t in _tensors(self.params))
+        kv_per_token = 0
+        for lc in self.decoder_config.transformer_config.layer_configs:
+            m = lc.mixer_config
+            if isinstance(m, AttentionConfig) and not m.is_kv_sharing \
+                    and lc.kv_source_layer_index is None:
+                dtype_bytes = 1 if self.kv_quant else 2
+                kv_per_token += 2 * m.num_groups * m.head_dim * dtype_bytes
+        workspace = max(256 * 1024**2, weight_bytes // 8)
+        avail = int(memory_budget_bytes * 0.9) - weight_bytes - workspace
+        if kv_per_token <= 0 or avail <= 0:
+            ctx = 4096 if avail > 0 else 1024
+        else:
+            ctx = avail // (kv_per_token * max(1, batch_size))
+        p = 1024
+        while p * 2 <= ctx and p < (1 << 20):
+            p *= 2
+        ctx = p
+        for lc in self.decoder_config.transformer_config.layer_configs:
+            trained = getattr(lc.rope_config, "max_sequence_length", None)
+            if trained:
+                ctx = min(ctx, trained)
+                break
+        return max(1024, ctx)
+
     def _ctx_bucket(self, needed: int) -> int | None:
         """Smallest context bucket covering `needed` slots; None = full."""
         if self.max_context <= CTX_BUCKET_MIN:
@@ -137,19 +185,22 @@ class LanguageModel:
 
     def _decode_chunk(self, state, token, halted, remaining, steps: int,
                       sampling: SamplingParams, stop_ids: torch.Tensor | None,
-                      ctx_bucket, generator):
+                      ctx_bucket, generator, logprobs: int = 0):
         """`steps` decode steps with the device-side halt: after a stop token
         or past the budget every remaining step is an identity transition
         (true_length 0: pos frozen, the KV write lands in the invisible slot
         at pos). Returns (state, tokens [steps], halted), all on the
-        device."""
-        emitted = []
+        device; with `logprobs` > 0 the tokens are (tokens [steps], their
+        f32 log-softmax [steps], top values [steps, n], top ids [steps, n])."""
+        emitted, lps = [], []
         for _ in range(steps):
             true_length = (~halted).to(torch.int32)
             logits, state, ring = self._forward(token.reshape(1), state, true_length,
                                                 ctx_bucket)
             next_token = sample(logits, sampling, generator=generator, ring=ring)
             next_token = torch.where(halted, token, next_token)
+            if logprobs:
+                lps.append(_logprobs(logits, next_token, logprobs))
             if ring is not None:
                 state["ring"] = torch.where(halted, ring, push_ring(ring, next_token))
             remaining = remaining - true_length
@@ -158,7 +209,10 @@ class LanguageModel:
                 halted = halted | torch.isin(next_token, stop_ids)
             emitted.append(next_token)
             token = next_token
-        return state, torch.stack(emitted), halted
+        toks = torch.stack(emitted)
+        if logprobs:
+            toks = (toks, *(torch.stack(x) for x in zip(*lps)))
+        return state, toks, halted
 
     # -- public API --------------------------------------------------------
 
@@ -192,21 +246,50 @@ class LanguageModel:
 
     def generate(self, prompt_tokens, max_new_tokens: int,
                  sampling: SamplingParams | None = None, stop_token_ids=None,
-                 seed: int = 0, metrics: StreamMetrics | None = None):
-        """Token generator. Yields ints; stops on a stop token or the limit."""
+                 seed: int = 0, metrics: StreamMetrics | None = None) -> "TokenStream":
+        """Token stream from a fresh state. Yields ints; stops on a stop
+        token or the limit."""
+        return self.generate_resumable(None, prompt_tokens, max_new_tokens, sampling=sampling,
+                                       stop_token_ids=stop_token_ids, seed=seed,
+                                       metrics=metrics)
+
+    def generate_resumable(self, state: dict | None, prompt_tokens, max_new_tokens: int,
+                           sampling: SamplingParams | None = None, stop_token_ids=None,
+                           seed: int = 0, metrics: StreamMetrics | None = None,
+                           logprobs: int = 0) -> "TokenStream":
+        """Like generate(), but continues an existing decoding state (a
+        chat session's prefix cache: the state holds every token but the
+        last one yielded) and sets the final state as `.state` on the
+        returned TokenStream once iteration finishes. `logprobs` > 0 fills
+        `.logprob_content` with one (token_logprob, [(alt_id,
+        alt_logprob), ...]) entry per yielded token."""
+        return TokenStream(self, state, prompt_tokens, max_new_tokens, sampling,
+                           stop_token_ids, seed, metrics, logprobs)
+
+    def _generate_impl(self, init_state, prompt_tokens, max_new_tokens: int, sampling,
+                       stop_token_ids, seed: int, metrics, logprobs: int, out: "TokenStream"):
         sampling = sampling or SamplingParams.from_generation_config(
             self.config.generation_config)
         stop = set(stop_token_ids if stop_token_ids is not None
                    else self.config.generation_config.stop_token_ids)
         ring_size = sampling.suffix_repetition_length if sampling.repetition_penalty else 0
-        state = self.new_state(ring_size=ring_size)
         dev = self.device
+        if init_state is None:
+            state = self.new_state(ring_size=ring_size)
+        else:
+            state = init_state
+            if ring_size and "ring" not in state:
+                state["ring"] = torch.full((ring_size,), -1, dtype=torch.int32, device=dev)
+        start_pos = int(state["pos"])
 
         t0 = time.perf_counter()
         logits, state = self.prefill(state, prompt_tokens)
         gen = torch.Generator(device=dev).manual_seed(seed)
         token = sample(logits, sampling, generator=gen, ring=state.get("ring"))
         val = int(token)
+        if logprobs:
+            out.logprob_content.append(_logprob_entry(
+                *(x.tolist() for x in _logprobs(logits, token, logprobs))))
         t1 = time.perf_counter()
         if metrics is not None:
             metrics.num_tokens_prefilled += len(prompt_tokens)
@@ -219,7 +302,8 @@ class LanguageModel:
         if state.get("ring") is not None:
             state["ring"] = push_ring(state["ring"], token)
         # stop before the KV cache would overflow (one slot per step)
-        budget = min(max_new_tokens, self.max_context - len(prompt_tokens))
+        base = start_pos + len(prompt_tokens)
+        budget = min(max_new_tokens, self.max_context - base)
         produced = 1
         t2 = time.perf_counter()
         yield val
@@ -234,32 +318,87 @@ class LanguageModel:
             while k // 2 >= rem:
                 k //= 2
             chunk_idx += 1
-            ctx = self._ctx_bucket(len(prompt_tokens) + produced + k)
-            state, toks, halted = profiled(
+            ctx = self._ctx_bucket(base + produced + k)
+            state, emitted, halted = profiled(
                 "decode", self._decode_chunk, state, token, halted,
                 torch.tensor(rem, dtype=torch.int32, device=dev), k, sampling, stop_ids, ctx,
-                gen)
+                gen, logprobs)
+            toks = emitted[0] if logprobs else emitted
             token = toks[-1]
             if metrics is not None:
                 metrics.num_forward_passes += k
-            for v in toks.tolist():  # the chunk's one host sync
+            # the chunk's one host sync (its log-probabilities come after it)
+            rows = zip(*(x.tolist() for x in emitted)) if logprobs else \
+                ((v,) for v in toks.tolist())
+            for row in rows:
+                if logprobs:
+                    out.logprob_content.append(_logprob_entry(*row[1:]))
                 produced += 1
-                yield v
-                if v in stop or produced >= budget:
+                yield row[0]
+                if row[0] in stop or produced >= budget:
                     done = True
                     break
         if metrics is not None:
             metrics.num_tokens_generated += produced
             metrics.decode_seconds += time.perf_counter() - t2
+        out.state = state
 
     def generate_list(self, prompt_tokens, max_new_tokens: int, **kw) -> list[int]:
         return list(self.generate(prompt_tokens, max_new_tokens, **kw))
+
+
+class TokenStream:
+    """Iterable of generated token ids; `.state` holds the final decoding
+    state once iteration completes (the session layer's prefix cache), and
+    `.logprob_content` one entry per yielded token when logprobs were
+    asked for."""
+
+    def __init__(self, lm, state, prompt_tokens, max_new_tokens, sampling, stop_token_ids,
+                 seed, metrics, logprobs: int = 0):
+        self.state = None
+        self.logprob_content: list = []
+        self._gen = lm._generate_impl(state, prompt_tokens, max_new_tokens, sampling,
+                                      stop_token_ids, seed, metrics, logprobs, self)
+
+    def __iter__(self):
+        return self._gen
+
+    def __next__(self):
+        return next(self._gen)
+
+
+def _logprobs(logits: torch.Tensor, token: torch.Tensor, n: int):
+    """(the f32 log-softmax of `logits` at `token`, the top `n` values and
+    their ids), on the device."""
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    top_v, top_i = torch.topk(lp, n)
+    return lp[token], top_v, top_i
+
+
+def _logprob_entry(lp, top_v, top_i) -> tuple:
+    return float(lp), [(int(i), float(v)) for i, v in zip(top_i, top_v)]
 
 
 def _ring_push_chunk(ring: torch.Tensor, tokens: np.ndarray) -> torch.Tensor:
     """Push a chunk's real tokens into the recent-token ring."""
     new = torch.as_tensor(tokens, dtype=ring.dtype, device=ring.device)
     return torch.cat([ring, new])[-ring.shape[0]:]
+
+
+def _tensors(tree):
+    """Every tensor of a parameter tree, inside quantized and hybrid
+    leaves too."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _tensors(v)
+    elif dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            yield from _tensors(getattr(tree, f.name))
 
 
 def _map_leaves(tree, fn):

@@ -4,9 +4,9 @@ Counterpart of `uzu_tpu/models/loader.py`, with the same tensor names,
 shapes and dtypes, so model directories written for the JAX package load
 unchanged. The parameters are a nested dict of torch tensors and
 `QuantizedTensor` leaves on one device, shaped like the JAX package's
-pytree; everything static lives in the config objects. HybridSpec
-linears wait for a later slice of the port and raise
-`NotImplementedError`.
+pytree; everything static lives in the config objects. A HybridSpec
+linear becomes a `HybridLinear` leaf (quantized base, LowRank adapter,
+Hadamard signs).
 """
 
 from __future__ import annotations
@@ -20,8 +20,10 @@ from ..config.model import (
     DenseMLPConfig,
     FullPrecisionSpec,
     HybridSpec,
+    IncoherenceProcessingMode,
     IntSpec,
     Layout,
+    LowRankSpec,
     MLXSpec,
     MixtureOfExpertsConfig,
     NormalizationConfig,
@@ -30,7 +32,7 @@ from ..config.model import (
 )
 from ..params.safetensors_io import BF16, to_torch
 from ..params.tree import ParameterError, ParameterTree
-from ..quant.format import StackedQuantized, from_disk_tensors
+from ..quant.format import HybridLinear, StackedQuantized, from_disk_tensors
 
 _FLOAT_DTYPES = {
     BF16: torch.bfloat16,
@@ -60,7 +62,7 @@ def load_linear(tree: ParameterTree, input_dim: int, output_dim: int, has_biases
     elif isinstance(spec, (IntSpec, MLXSpec)):
         out["w"] = _load_quantized(spec, weights_tree, input_dim, output_dim, device)
     elif isinstance(spec, HybridSpec):
-        raise NotImplementedError("HybridSpec linears are not ported yet")
+        out["w"] = _load_hybrid(spec, weights_tree, input_dim, output_dim, has_biases, device)
     else:
         raise ParameterError(f"unsupported weight spec {type(spec).__name__}")
     if has_biases:
@@ -92,6 +94,47 @@ def _load_quantized(spec, weights_tree: ParameterTree, input_dim: int, output_di
         zero_points = weights_tree.leaf("zero_points", (output_dim, -(-kg // pack)), np.uint8)
     return from_disk_tensors(method, codes, scales, bits, group, zero_points=zero_points,
                              biases=biases, dtype=_FLOAT_DTYPES[dt], device=device)
+
+
+def _load_hybrid(spec: HybridSpec, weights_tree: ParameterTree, input_dim: int,
+                 output_dim: int, has_biases: bool, device=None) -> HybridLinear:
+    """HybridSpec, as `uzu_tpu/models/loader.py::_load_hybrid`: the
+    quantized base under "quantized", an optional LowRank adapter under
+    "adapter" in the file's own dtype, optional incoherence signs (int32 on
+    disk, f32 in memory)."""
+    base_spec = spec.quantization_spec
+    if not isinstance(base_spec, (IntSpec, MLXSpec)):
+        raise ParameterError(f"unsupported hybrid base {type(base_spec).__name__}")
+    base = _load_quantized(base_spec, weights_tree.subtree("quantized"), input_dim, output_dim,
+                           device)
+
+    adapter_down = adapter_up = None
+    if spec.adapter_spec is not None:
+        if has_biases:
+            raise ParameterError("QLoRA linear with biases is not supported")
+        if not isinstance(spec.adapter_spec, LowRankSpec):
+            raise ParameterError(f"unsupported adapter {type(spec.adapter_spec).__name__}")
+        rank = spec.adapter_spec.rank
+        dt = _weights_dtype(weights_tree, "adapter.down_projection")
+        adapter_down = to_torch(
+            weights_tree.leaf("adapter.down_projection", (rank, input_dim), dt), device)
+        adapter_up = to_torch(
+            weights_tree.leaf("adapter.up_projection", (output_dim, rank), dt), device)
+
+    input_signs = output_signs = None
+    if spec.incoherence_block_size is not None:
+        if spec.incoherence_block_size != 32:
+            raise ParameterError(f"unsupported incoherence block {spec.incoherence_block_size}")
+        if spec.incoherence_processing_mode != IncoherenceProcessingMode.INPUT_OUTPUT:
+            raise ParameterError(
+                f"unsupported incoherence mode {spec.incoherence_processing_mode}")
+        input_signs = to_torch(weights_tree.leaf(
+            "incoherence_signs.input_signs", (input_dim,), np.int32), device).float()
+        output_signs = to_torch(weights_tree.leaf(
+            "incoherence_signs.output_signs", (output_dim,), np.int32), device).float()
+
+    return HybridLinear(base=base, adapter_down=adapter_down, adapter_up=adapter_up,
+                        input_signs=input_signs, output_signs=output_signs)
 
 
 def load_norm(tree: ParameterTree, dim: int, cfg: NormalizationConfig, device=None) -> dict:

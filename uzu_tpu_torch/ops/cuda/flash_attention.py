@@ -10,7 +10,10 @@ return f32 [S, H, Dh]; queries sit at q_positions[0] + arange(S).
 The kernel is built for head dims 32, 64, 128 and 256 (`_HEAD_DIMS`). Any
 other Dh that is a multiple of 8 up to 256 runs in the next instantiation
 up (`head_dim_instance`: 24 in 32, 200 in 256), with the columns past Dh
-zero-filled on load and never stored; Dh past 256 or not a multiple of 8
+zero-filled on load and never stored. A Dh past 256 (264, 512, ...) runs
+in the kernel's wide case of the Dh-256 layout: `column_slices(dh)`
+blocks per row tile, each owning 256 columns of the output and summing
+the scores over Dh in 256-column pieces. A Dh that is not a multiple of 8
 raises on the card.
 
 Where one block per (KV group, 64-row tile) cannot fill the card, the
@@ -32,6 +35,7 @@ from .build import LAUNCHES, check, library
 # the einsum path is cheap anyway (the JAX package's FLASH_MIN_ROWS)
 FLASH_MIN_ROWS = 64
 _HEAD_DIMS = (32, 64, 128, 256)  # the kernel's instantiations (csrc dispatch)
+SLICE = 256  # output columns a block of the wide case (Dh > 256) owns
 NEG_INF = -1e30
 BQ = 64  # query rows per block of the kernel
 BK = 64  # KV slots per tile of the kernel
@@ -47,10 +51,17 @@ _SMS: dict[int, int] = {}
 
 def head_dim_instance(dh: int, instances=_HEAD_DIMS) -> int | None:
     """The instantiation a head dim runs in: the smallest of `instances`
-    at least `dh`, for a positive multiple of 8; None where there is none."""
+    at least `dh`, and past the widest (256) the widest itself, in
+    `column_slices(dh)` slices; None unless dh is a positive multiple of 8."""
     if dh <= 0 or dh % 8:
         return None
-    return next((i for i in instances if i >= dh), None)
+    return next((i for i in instances if i >= dh), instances[-1])
+
+
+def column_slices(dh: int) -> int:
+    """Blocks the kernel gives each row tile (K3/K4) or (slot, group)
+    (K5/K6): one up to Dh 256, else one per 256 output columns."""
+    return -(-dh // SLICE) if dh > SLICE else 1
 
 
 def supported(s, h, g, dh, c, *, is_causal, suffix_mask, kv_valid_length,
@@ -96,6 +107,14 @@ def flash_attention_plain(q, k_cache, v_cache, q_positions, *, scale,
         probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("grsc,cgd->sgrd", probs, v_cache.float())
     return out.reshape(s, h, dh)
+
+
+def launch_split_plan(s: int, h: int, g: int, c: int, dh: int,
+                      num_sms: int) -> tuple[int, int]:
+    """The wrapper's `split_plan`: past Dh 256 every (row tile, group)
+    block is `column_slices(dh)` blocks, so the plan fills a card of that
+    many times fewer SMs."""
+    return split_plan(s, h, g, c, -(-num_sms // column_slices(dh)))
 
 
 def split_plan(s: int, h: int, g: int, c: int, num_sms: int) -> tuple[int, int]:
@@ -194,8 +213,8 @@ def flash_attention(q, k_cache, v_cache, q_positions, *, scale,
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k_cache.shape)}, "
                          f"v {tuple(v_cache.shape)} do not fit together")
     if h % g or head_dim_instance(dh) is None:
-        raise ValueError(f"flash_attention kernel needs H % G == 0 and Dh a multiple of 8 "
-                         f"up to {_HEAD_DIMS[-1]} (H={h}, G={g}, Dh={dh})")
+        raise ValueError(f"flash_attention kernel needs H % G == 0 and Dh a positive "
+                         f"multiple of 8 (H={h}, G={g}, Dh={dh})")
     quantized = k_scales is not None or v_scales is not None
     kv_dtype = torch.int8 if quantized else q.dtype
     if q.dtype not in (torch.bfloat16, torch.float32) or k_cache.dtype != kv_dtype \
@@ -221,7 +240,7 @@ def flash_attention(q, k_cache, v_cache, q_positions, *, scale,
     if sinks is not None:
         sk = sinks.to(device=q.device, dtype=torch.float32).contiguous()
     out = torch.empty((s, h, dh), dtype=torch.float32, device=q.device)
-    splits, per = split_plan(s, h, g, c, num_sms(q.device))
+    splits, per = launch_split_plan(s, h, g, c, dh, num_sms(q.device))
     scratch = None
     if splits > 1:
         scratch = torch.empty(splits * s * h * (dh + 2), dtype=torch.float32, device=q.device)

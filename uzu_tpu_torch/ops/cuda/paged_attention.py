@@ -9,7 +9,9 @@ Both return f32 [B, H, Dh].
 
 The kernel is built for head dims 64, 128 and 256 (`_HEAD_DIMS`); any
 other Dh that is a multiple of 8 up to 256 runs in the next one up
-(`head_dim_instance`: 24 and 32 in 64), as K3/K4 do.
+(`head_dim_instance`: 24 and 32 in 64), and a Dh past 256 in the wide case
+of the Dh-256 layout, `column_slices(dh)` blocks per (slot, group), each
+owning 256 output columns, as K3/K4 do.
 
 Where one block per (slot, KV group) cannot fill the card, the kernel
 deals the table's 64-token tiles to `paged_split_plan` splits and merges
@@ -26,6 +28,7 @@ import torch
 
 from ...models.kv_cache import dequantize_rows
 from .build import LAUNCHES, check, library
+from .flash_attention import column_slices
 from .flash_attention import head_dim_instance as _instance
 from .flash_attention import num_sms as device_sms
 
@@ -81,6 +84,13 @@ def paged_attention_plain(q, k_pool, v_pool, page_table, lengths, *, scale,
         probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgrc,bgcd->bgrd", probs, v.float())
     return out.reshape(bsz, h, dh)
+
+
+def launch_split_plan(b: int, g: int, width_tokens: int, dh: int,
+                      num_sms: int) -> tuple[int, int]:
+    """The wrapper's `paged_split_plan`: past Dh 256 every (slot, group)
+    block is `column_slices(dh)` blocks."""
+    return paged_split_plan(b, g, width_tokens, -(-num_sms // column_slices(dh)))
 
 
 def paged_split_plan(b: int, g: int, width_tokens: int, num_sms: int) -> tuple[int, int]:
@@ -185,7 +195,7 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, lengths, *, scale,
                          "do not fit together")
     if h % g or not 1 <= h // g <= MAX_REP or head_dim_instance(dh) is None:
         raise ValueError(f"paged attention kernel needs H % G == 0, H/G <= {MAX_REP} and "
-                         f"Dh a multiple of 8 up to {_HEAD_DIMS[-1]} (H={h}, G={g}, Dh={dh})")
+                         f"Dh a positive multiple of 8 (H={h}, G={g}, Dh={dh})")
     quantized = k_scales is not None or v_scales is not None
     kv_dtype = torch.int8 if quantized else q.dtype
     if q.dtype not in (torch.bfloat16, torch.float32) or k_pool.dtype != kv_dtype \
@@ -211,7 +221,7 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, lengths, *, scale,
     lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     sk = None if sinks is None else sinks.to(device=q.device, dtype=torch.float32).contiguous()
     out = torch.empty((bsz, h, dh), dtype=torch.float32, device=q.device)
-    splits, _ = paged_split_plan(bsz, g, maxp * page, device_sms(q.device))
+    splits, _ = launch_split_plan(bsz, g, maxp * page, dh, device_sms(q.device))
     scratch = None
     if splits > 1:
         scratch = torch.empty(splits * bsz * h * (dh + 2), dtype=torch.float32,

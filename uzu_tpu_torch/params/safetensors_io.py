@@ -9,12 +9,15 @@ byte-identical to the JAX package's.
 
 The format: u64 little-endian header length, then a JSON header mapping
 tensor names to {dtype, shape, data_offsets}, optionally a "__metadata__"
-string map, then the raw tensor bytes. Reads are sequential.
+string map, then the raw tensor bytes. `read` reads one tensor;
+`read_many` reads many at once through the parallel reader
+(`uzu_tpu_torch/native/io_loader.cpp`, built with g++ at first use).
 """
 
 from __future__ import annotations
 
 import json
+import os
 import struct
 from dataclasses import dataclass
 
@@ -133,6 +136,36 @@ class SafetensorsFile:
         count = info.nbytes // info.dtype.itemsize
         return np.fromfile(self.path, dtype=info.dtype, count=count,
                            offset=info.offset).reshape(info.shape)
+
+    def read_many(self, names=None, threads: int = 0) -> dict[str, np.ndarray]:
+        """Read many tensors (default: all) in one pass of the native
+        parallel reader, each into its own numpy buffer; `threads` <= 0
+        takes the host's hardware concurrency. The same arrays as `read`."""
+        import ctypes
+
+        from ..native import io_loader
+
+        names = list(names if names is not None else self.tensors)
+        lib = io_loader()
+        arrays: dict[str, np.ndarray] = {}
+        offs = (ctypes.c_uint64 * len(names))()
+        sizes = (ctypes.c_uint64 * len(names))()
+        dests = (ctypes.c_void_p * len(names))()
+        for i, n in enumerate(names):
+            info = self.tensors[n]
+            expected = int(np.prod(info.shape, dtype=np.int64)) * info.dtype.itemsize
+            if expected != info.nbytes:
+                raise ValueError(
+                    f"tensor {n}: byte size {info.nbytes} != shape {info.shape} @ {info.dtype}")
+            arr = np.empty(info.shape, dtype=info.dtype)
+            arrays[n] = arr
+            offs[i] = info.offset
+            sizes[i] = info.nbytes
+            dests[i] = arr.ctypes.data
+        rc = lib.uz_read_parallel(self.path.encode(), len(names), offs, sizes, dests, threads)
+        if rc != 0:
+            raise OSError(-rc, f"parallel read of {self.path} failed: {os.strerror(-rc)}")
+        return arrays
 
 
 def save_file(path: str, tensors: dict[str, np.ndarray], metadata: dict[str, str] | None = None) -> None:

@@ -2,9 +2,11 @@
 
 Counterpart of `uzu_tpu/params/tree.py`: strict shape+dtype validation on
 every leaf, subtree prefixes, per-prefix JSON metadata (quantization
-`spec`), and a completeness assertion that flags any tensor the model graph
-never consumed. Leaves stay numpy arrays (BF16 as raw bits); the model
-loader moves them to torch.
+`spec`), a seeded-random mode that builds a full model from a header alone
+(the same bytes as the JAX package's), one parallel read of every tensor
+up front (`SafetensorsFile.read_many`), and a completeness assertion that
+flags any tensor the model graph never consumed. Leaves stay numpy arrays
+(BF16 as raw bits); the model loader moves them to torch.
 """
 
 from __future__ import annotations
@@ -15,19 +17,41 @@ from typing import Any
 import numpy as np
 
 from ..config.serde import Family, parse
-from .safetensors_io import SafetensorsFile, TensorInfo, dtype_name
+from .safetensors_io import BF16, SafetensorsFile, TensorInfo, cast, dtype_name
+
+_FLOAT_KINDS = (np.dtype(np.float32), np.dtype(np.float64), np.dtype(np.float16), BF16)
 
 
 class ParameterError(ValueError):
     pass
 
 
-class ParameterLoader:
-    """Loads tensors by dotted name with validation + consumption tracking."""
+def _fill_random(info: TensorInfo, seed: int) -> np.ndarray:
+    """Deterministic pseudo-random tensor content keyed on the tensor's
+    file offset (floats in [-0.1, 0.1), raw random bits for integer
+    tensors): the JAX package's `_fill_random`, byte for byte."""
+    rng = np.random.default_rng(seed ^ (info.offset * 2654435761 % (1 << 63)))
+    n = int(np.prod(info.shape, dtype=np.int64))
+    if info.dtype in _FLOAT_KINDS:
+        vals = rng.uniform(-0.1, 0.1, size=n).astype(np.float32)
+        return cast(vals, info.dtype).reshape(info.shape)
+    raw = rng.integers(0, 256, size=n * info.dtype.itemsize, dtype=np.uint8)
+    return raw.view(info.dtype).reshape(info.shape)
 
-    def __init__(self, path: str):
+
+class ParameterLoader:
+    """Loads tensors by dotted name with validation + consumption tracking.
+    `random_seed`: every tensor is `_fill_random`'s, and the file's bytes
+    past its header are never read. `prefetch`: every tensor is read at
+    once by the parallel reader (not in random mode)."""
+
+    def __init__(self, path: str, random_seed: int | None = None, prefetch: bool = True):
         self._file = SafetensorsFile(path)
+        self._random_seed = random_seed
         self._validated: set[str] = set()
+        self._prefetched: dict[str, np.ndarray] | None = None
+        if prefetch and random_seed is None:
+            self._prefetched = self._file.read_many()
 
     @property
     def metadata(self) -> dict[str, str]:
@@ -48,6 +72,11 @@ class ParameterLoader:
             raise ParameterError(f"array with key {key!r} not found") from None
 
     def _read(self, key: str) -> np.ndarray:
+        info = self._info(key)
+        if self._random_seed is not None:
+            return _fill_random(info, self._random_seed)
+        if self._prefetched is not None:
+            return self._prefetched[key]
         return self._file.read(key)
 
 

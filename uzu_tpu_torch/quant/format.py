@@ -94,6 +94,43 @@ class StackedQuantized:
                                    scales=self.scales.to(device))
 
 
+@dataclasses.dataclass
+class HybridLinear:
+    """HybridSpec weights, the JAX package's `HybridLinear`: a quantized
+    base stored in the incoherence-transformed domain, an optional
+    low-rank adapter and optional per-dim Hadamard sign vectors.
+
+    Forward (`ops/linear.py::hybrid_apply`):
+        inter = x @ adapter_down^T                (on the raw input)
+        y = base @ input_rht(x)                   (signs present)
+        y += inter @ adapter_up^T
+        y = output_rht(y)                         (signs present)
+    """
+
+    base: QuantizedTensor
+    adapter_down: torch.Tensor | None  # [rank, K]
+    adapter_up: torch.Tensor | None  # [N, rank]
+    input_signs: torch.Tensor | None  # [K] f32 (+-1)
+    output_signs: torch.Tensor | None  # [N] f32 (+-1)
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return self.base.shape
+
+    @property
+    def dtype(self):
+        return self.base.dtype
+
+    def to(self, device) -> "HybridLinear":
+        def move(t):
+            return None if t is None else t.to(device)
+
+        return HybridLinear(base=self.base.to(device), adapter_down=move(self.adapter_down),
+                            adapter_up=move(self.adapter_up),
+                            input_signs=move(self.input_signs),
+                            output_signs=move(self.output_signs))
+
+
 def dequantize_stacked(sq: StackedQuantized, dtype=torch.bfloat16) -> torch.Tensor:
     """Dense [E, N, K]: (code - 2^(bits-1)) * scale in f32, then cast; the
     JAX package's `dequantize_stacked` operation for operation."""

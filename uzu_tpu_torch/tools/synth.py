@@ -3,7 +3,7 @@
 Counterpart of `uzu_tpu/tools/synth.py` for the decoder shapes the port
 runs (attention, ShortConv, Mamba2 and Gated DeltaNet mixers, dense and
 mixture-of-experts MLPs, per-layer embeddings, full-precision / IntSpec /
-MLXSpec weights, dense or symmetric-quantized expert stacks):
+MLXSpec / HybridSpec weights, dense or symmetric-quantized expert stacks):
 with the same seed, fill and specs it draws the same random numbers in the
 same order and writes the same bytes, bf16 included, without `ml_dtypes`.
 """
@@ -25,6 +25,7 @@ from ..config.model import (
     DenseMLPConfig,
     FullPrecisionSpec,
     GenerationConfig,
+    HybridSpec,
     IntSpec,
     LanguageModelConfig,
     Layout,
@@ -49,6 +50,7 @@ from ..config.model import (
 )
 from ..config.serde import dump as dump_cfg
 from ..params.safetensors_io import BF16, cast, save_file
+from ..ops.rht import transform_weight_for_storage
 from ..quant.format import quantize_reference
 
 
@@ -109,8 +111,27 @@ class ModelBuilder:
                                        dtype=self.dtype)
             for leaf, arr in parts.items():
                 self.tensors[f"{prefix}.weights.{leaf}"] = arr
+        elif isinstance(spec, HybridSpec):
+            # the JAX synthesizer's draws in its order: the weights, the
+            # input and output signs, then the adapter
+            base = spec.quantization_spec
+            stored = self._random((output_dim, input_dim), self.weight_scale)
+            if spec.incoherence_block_size is not None:
+                si = self.rng.choice([-1, 1], input_dim).astype(np.int32)
+                so = self.rng.choice([-1, 1], output_dim).astype(np.int32)
+                self.tensors[f"{prefix}.weights.incoherence_signs.input_signs"] = si
+                self.tensors[f"{prefix}.weights.incoherence_signs.output_signs"] = so
+                stored = transform_weight_for_storage(stored, si, so)
+            parts = quantize_reference(stored, base.bits, base.group_size, _method(base),
+                                       dtype=self.dtype)
+            for leaf, arr in parts.items():
+                self.tensors[f"{prefix}.weights.quantized.{leaf}"] = arr
+            if spec.adapter_spec is not None:
+                rank = spec.adapter_spec.rank
+                self.dense(f"{prefix}.weights.adapter.down_projection", (rank, input_dim))
+                self.dense(f"{prefix}.weights.adapter.up_projection", (output_dim, rank))
         else:
-            raise NotImplementedError(f"{type(spec).__name__} weights are not ported yet")
+            raise ValueError(f"unsupported spec {type(spec).__name__}")
         if has_biases:
             self.dense(f"{prefix}.biases", (output_dim,))
 
