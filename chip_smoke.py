@@ -8,11 +8,12 @@
     python3 chip_smoke.py --grouped-only # K7-K10's rows alone, BN / kw sweeps, ptxas, row checks
     python3 chip_smoke.py --gemma-only   # phase 14 alone, with K3-K6's Gemma rows
     python3 chip_smoke.py --hybrid-linear-only  # phase 15 alone, with K3-K6's rows past Dh 256
+    python3 chip_smoke.py --spec-only    # phase 16 alone, with K1/K3's verify-shape rows
 
 Phases, each of which ends the run with a non-zero exit if it fails:
 
 1. build: compile every CUDA kernel of the port from `uzu_tpu_torch/csrc/`
-   (one nvcc per source, in parallel) while the nine models are
+   (one nvcc per source, in parallel) while the run's models are
    synthesized (one process each); print the card's name and power limit.
 2. kernels: each kernel against its plain PyTorch version on the card at
    the shapes its path gives it (bf16 inputs or INT8 codes, f32
@@ -170,6 +171,34 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     512 (gemma_config: single stream, K3 at Dh 512, card against host in
     f32) and its PLE-free windowed_config twin through `PagedBatchEngine`
     (K5 at Dh 512, card against host).
+
+16. single-stream speculative decoding (`engine/speculation.py`,
+    `engine/dflash.py`, `engine/fused_spec.py`): on the flagship, after a
+    repetitive 128-token prompt (one 16-token phrase eight times), a plain
+    greedy stream of SPEC_TOKENS and, against it under phase 4's rule,
+    chain speculation with `NgramSpeculator`, with an oracle draft of the
+    plain stream's next 31 tokens (32-row verify blocks: K3), with
+    `self_speculative_decoder` (SPEC_DRAFT_LAYERS draft layers) and with
+    `DraftModelSpeculator` over the 2-layer INT8 flagship; tree
+    speculation (16 nodes); DFlash over a synthesized draft (block 8, taps
+    after layers 1, 8 and 14); `fused_self_speculative_decoder` (8 rounds
+    per fetch, each dispatch's rounds under
+    `torch.cuda.set_sync_debug_mode("error")`). Each run reports its tok/s
+    beside the plain stream's (both over the whole generate call), its
+    acceptance, tokens per verify pass, K1/K3 launches per verify round and
+    its bitwise-equal share. Sampled chain and fused runs repeat under one
+    seed; the stream check must fail an acceptance of one draft more than
+    matched and a tree compaction with its write base off by m (clean runs
+    of the same oracles pass it). On the Qwen3.5-class hybrid: chain and
+    tree speculation under the same rule, and one partially accepted verify
+    round whose committed GDN states lie within TOL relative L2 of the
+    token-at-a-time states; oracle chain and tree runs put K3 on 16-row
+    blocks and replay GDN states over non-consecutive tree paths. On gpt-oss at 4 layers: a chain verify round's
+    logits at blocks of 4 rows (K7) and 8 rows (K9's small route) within
+    TOL relative L2 of the single stream's along the same tokens, the
+    routing pinned as in phase 10. Phase 2 holds K1 at M = 16 / 32 on the
+    flagship's linears and K3 at S = 16 / 32 from position 700 over 1024
+    slots (the flagship's and the hybrid's heads) to their plain versions.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Full per-shape numbers also go to
@@ -1406,7 +1435,8 @@ def synth_model(name: str) -> str:
     hybrids (the Qwen3.5-class model at full width, LFM2- and Mamba2-style
     ones at 4 layers; INT4 g32 linears and tied embedding; raw-bytes fill,
     seed 0); the flagship with HybridSpec linears (normal fill, seed 0) and
-    the Dh-512 models (raw-bytes fill, seed 0)."""
+    the Dh-512 models (raw-bytes fill, seed 0); and a DFlash draft over the
+    flagship (bf16, normal fill, seed 0)."""
     from uzu_tpu_torch.config.model import (
         HybridSpec,
         IncoherenceProcessingMode,
@@ -1419,6 +1449,12 @@ def synth_model(name: str) -> str:
     out = os.path.join(REPO, ".port_cache", name)
     if os.path.exists(os.path.join(out, "model.safetensors")):
         return out
+    if name == "dflash_flagship":
+        from uzu_tpu_torch.tools.synth import synth_dflash_speculator
+
+        return synth_dflash_speculator(out, model_config("llama1b_int4"),
+                                       block_size=DFLASH_BLOCK, target_layer_ids=DFLASH_TAPS,
+                                       seed=0)
 
     def spec(bits):
         return IntSpec(bits=bits, group_size=32, is_symmetric=True, layout=Layout.OUTPUT_INPUT)
@@ -1442,8 +1478,10 @@ def synth_model(name: str) -> str:
 
 GEMMA_MODELS = ("gemma3_1b", "gemma_e4b_8l")
 SLICE_MODELS = ("llama1b_hybrid", "gemma_dh512_2l", "windowed_dh512_2l")
+SPEC_MODELS = ("llama1b_int4", "llama1b_int8_2l", "gptoss_int4", "qwen08_int4",
+               "dflash_flagship")
 MODELS = ("llama1b_int4", "llama1b_int8_2l", "gptoss_int4", "gptoss_int8_2l", "qwen08_int4",
-          "lfm2_4l", "mamba2_4l", *GEMMA_MODELS, *SLICE_MODELS)
+          "lfm2_4l", "mamba2_4l", *GEMMA_MODELS, *SLICE_MODELS, "dflash_flagship")
 
 
 def prompt_tokens(n: int, vocab: int):
@@ -3168,6 +3206,402 @@ def tools_bisect(torch, info: dict) -> None:
                              "K1 six times")
 
 
+# -- phase 16: single-stream speculative decoding ---------------------------------------
+
+SPEC_TOKENS = 128  # the flagship's streams
+SPEC_HYBRID_TOKENS = 64
+SPEC_CONTROL_TOKENS = 32
+SPEC_DRAFT_LAYERS = 4  # the self-drafts' depth
+SPEC_POS0 = 700  # K3's verify rows sit here in a 1024-slot context bucket
+SPEC_ROWS = (16, 32)  # verify blocks: K3 rows (S) and K1 rows (M)
+# the DFlash draft over the flagship: a block of 8 (a tree of 15 nodes at
+# two children per depth), taps after layers 1, 8 and 14
+DFLASH_BLOCK, DFLASH_TAPS = 8, (1, 8, 14)
+
+
+def check_spec_rows(torch, timer, rows, usage) -> None:
+    """K1 and K3 at the chain verify's shapes: K1 at M = 16 and 32 on the
+    flagship's four linears (INT4, symmetric); K3 at S = 16 and 32 from
+    position SPEC_POS0 over a 1024-slot context bucket, at the flagship's
+    heads (32 over 8 groups, Dh 64) and the hybrid's (8 over 2, Dh 32)."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    for wname, n, k in LINEAR_SHAPES:
+        w, wd = random_qweights(torch, gen, n, k, 4)["symmetric"]
+        for m in SPEC_ROWS:
+            qmm_row(torch, timer, rows, w, wd, wname, m, "symmetric", gen)
+    for h, g, dh in ((32, 8, 64), (HYBRID_ATTN["num_heads"], HYBRID_ATTN["num_groups"],
+                                   HYBRID_ATTN["head_dim"])):
+        for s in SPEC_ROWS:
+            q, kc, vc = (torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+                         for shape in ((s, h, dh), (1024, g, dh), (1024, g, dh)))
+            flash_row(torch, timer, rows, usage, q, kc, vc, SPEC_POS0, "plain", {})
+
+
+def spec_prompt(vocab: int):
+    """A repetitive 128-token prompt: one 16-token phrase eight times."""
+    import numpy as np
+
+    return np.tile(prompt_tokens(16, vocab), 8)
+
+
+class OracleSpeculator:
+    """Proposes the plain greedy stream's next tokens (`right` of them,
+    then `wrong` tokens that are not), from the position the history has
+    reached: a draft whose acceptance is known, for the K3 verify blocks and
+    the controls."""
+
+    def __init__(self, prompt_len: int, plain: list, right: int, wrong: int = 0):
+        self.prompt_len, self.plain, self.right, self.wrong = prompt_len, plain, right, wrong
+
+    def propose(self, history):
+        at = len(history) - self.prompt_len  # plain[at] comes next
+        good = self.plain[at:at + self.right]
+        return good + [(t + 1) % 1000 for t in self.plain[at + len(good):][:self.wrong]]
+
+
+class OracleTreeSpeculator:
+    """A tree whose first `depth` children of the root are decoys and whose
+    next child starts the plain stream's next `depth` tokens: an accepted
+    path skips nodes 1..depth, so the accept must move every accepted row,
+    and a compaction that moves none leaves the decoys in the context."""
+
+    def __init__(self, prompt_len: int, plain: list, depth: int = 7):
+        self.prompt_len, self.plain, self.depth = prompt_len, plain, depth
+
+    def reset(self):
+        pass
+
+    def propose(self, history, root):
+        from uzu_tpu_torch.engine.speculation import TokenTree
+
+        at = len(history) + 1 - self.prompt_len
+        tree = TokenTree(root)
+        nxt = self.plain[at:at + self.depth]
+        for i in range(len(nxt)):
+            tree.add(0, (nxt[0] + 1 + i) % 1000)
+        tree.add_chain(0, nxt)
+        return tree
+
+
+def spec_stream(torch, lm, dec, prompt, tokens: int, prefill_launches: dict, plain: list,
+                plain_tok_s: float, **kw) -> tuple[list, dict]:
+    """One speculative decoder's stream after a warm-up: its tokens and a
+    reading (tok/s beside the plain stream's, both over the whole generate
+    call; acceptance; tokens per verify pass; K1/K3 launches per verify
+    round, the prefill's taken off and the draft's included; the share of
+    tokens equal to the plain stream's and the length of the common
+    prefix)."""
+    from uzu_tpu_torch.engine.speculation import SpeculationMetrics
+    from uzu_tpu_torch.ops.cuda.build import LAUNCHES, reset_launches
+
+    list(dec.generate(prompt[:16], 4, stop_token_ids=[], **kw))
+    m = SpeculationMetrics()
+    reset_launches()
+    t0 = time.perf_counter()
+    got = list(dec.generate(prompt, tokens, stop_token_ids=[], metrics=m, **kw))
+    secs = time.perf_counter() - t0  # the stream's last read synced the card
+    launches = dict(LAUNCHES)
+    rounds = max(m.num_verify_passes, 1)
+    same = sum(a == b for a, b in zip(got, plain))
+    return got, dict(
+        tokens=len(got), seconds=secs, tok_s=len(got) / secs, plain_tok_s=plain_tok_s,
+        verify_passes=m.num_verify_passes, proposed=m.num_tokens_proposed,
+        accepted=m.num_tokens_accepted, acceptance_rate=m.acceptance_rate,
+        tokens_per_pass=(len(got) - 1) / rounds, equal_share=same / len(got),
+        equal_prefix=next((i for i, (a, b) in enumerate(zip(got, plain)) if a != b), len(got)),
+        launches=launches,
+        launches_per_round={k: (launches[k] - prefill_launches.get(k, 0)) / rounds
+                            for k in ("quant_matmul_int4", "quant_matmul_int8",
+                                      "flash_attention", "moe_gemv_int4",
+                                      "grouped_matmul_int4") if launches[k]})
+
+
+def spec_checked(torch, lm, prompt, runs: dict, key: str, info: dict,
+                 must_launch=("quant_matmul_int4",)) -> None:
+    """Each run's stream under phase 4's rule against the single stream of
+    `lm` fed its history; each run launched the kernels in `must_launch`."""
+    for name, (stream, reading) in runs.items():
+        r = stream_readings(torch, lm, [prompt], [stream])
+        reading.update(stream_summary(r))
+        log(f"{key.upper()} {name} " + json.dumps(reading))
+        check_streams(r)
+        for k in must_launch:
+            if not reading["launches"].get(k):
+                raise AssertionError(f"{key} {name}: kernel {k} was not launched")
+    info[key] = dict(info.get(key, {}), **{n: r for n, (_, r) in runs.items()})
+
+
+def caught_by_check(torch, lm, prompt, stream) -> str | None:
+    """The stream check's failure message for `stream`, or None."""
+    try:
+        check_streams(stream_readings(torch, lm, [prompt], [stream]))
+    except AssertionError as e:
+        return str(e)
+    return None
+
+
+def spec_flagship(torch, lm16, dirs: dict, info: dict) -> None:
+    """Phase 16 on the flagship: a plain greedy stream of SPEC_TOKENS after
+    the repetitive prompt, then chain speculation (n-gram, an oracle draft
+    that puts K3 on its 32-row verify blocks, the self-draft of
+    SPEC_DRAFT_LAYERS layers, the 2-layer INT8 flagship as a draft model),
+    tree speculation (16 nodes), DFlash (the synthesized draft) and fused
+    rounds (self-draft, k = 4, 8 rounds per fetch, every round under
+    torch.cuda.set_sync_debug_mode("error")), each held to phase 4's rule;
+    sampled chain and fused runs repeat under their seed; and the stream
+    check must fail an acceptance that takes one draft more than matched
+    and a tree compaction whose write base is off by m."""
+    import uzu_tpu_torch.engine.speculation as spec
+    from uzu_tpu_torch.engine.dflash import DFlashDraft
+    from uzu_tpu_torch.engine.engine import LanguageModel, StreamMetrics
+    from uzu_tpu_torch.engine.fused_spec import fused_self_speculative_decoder
+    from uzu_tpu_torch.engine.sampling import SamplingParams
+    from uzu_tpu_torch.ops.cuda.build import LAUNCHES, reset_launches
+
+    dev = lm16.device
+    vocab = lm16.decoder_config.vocab_size
+    prompt = spec_prompt(vocab)
+    lm16.generate_list(prompt[:16], 2, stop_token_ids=[])
+    reset_launches()
+    lm16.prefill(lm16.new_state(), prompt)
+    prefill_launches = dict(LAUNCHES)
+    m = StreamMetrics()
+    t0 = time.perf_counter()
+    plain = lm16.generate_list(prompt, SPEC_TOKENS, stop_token_ids=[], metrics=m)
+    plain_s = time.perf_counter() - t0
+    plain_tok_s = len(plain) / plain_s
+    info["spec_flagship"] = dict(prompt=len(prompt), plain_tok_s=plain_tok_s,
+                                 plain_decode_tok_s=m.decode_tokens_per_second,
+                                 plain_head=plain[:16])
+    log("SPEC_PLAIN " + json.dumps(info["spec_flagship"]))
+
+    draft_lm = LanguageModel.from_dir(dirs["llama1b_int8_2l"], device=dev, max_context=4096)
+    dflash = DFlashDraft.from_dir(dirs["dflash_flagship"], max_context=4096, device=dev)
+    decoders = {
+        "chain_ngram": spec.SpeculativeDecoder(lm16, spec.NgramSpeculator(k=15)),
+        "chain_oracle": spec.SpeculativeDecoder(lm16, OracleSpeculator(len(prompt), plain, 31)),
+        "chain_self": spec.self_speculative_decoder(lm16, draft_layers=SPEC_DRAFT_LAYERS, k=4),
+        "chain_draft_model": spec.SpeculativeDecoder(lm16, spec.DraftModelSpeculator(draft_lm,
+                                                                                     k=4)),
+        "tree_ngram": spec.TreeSpeculativeDecoder(lm16, max_nodes=16),
+        "dflash": spec.DFlashSpeculativeDecoder(lm16, dflash, max_nodes=16, children=2),
+    }
+    runs = {name: spec_stream(torch, lm16, dec, prompt, SPEC_TOKENS, prefill_launches, plain,
+                              plain_tok_s) for name, dec in decoders.items()}
+    fused = fused_self_speculative_decoder(lm16, draft_layers=SPEC_DRAFT_LAYERS, k=4, rounds=8)
+    real_rounds, dispatches = fused._rounds, []
+
+    def no_sync_rounds(*a, **kw):
+        # every launch of the rounds runs with host syncs turned into errors
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = real_rounds(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        dispatches.append(a[4])
+        return out
+
+    fused._rounds = no_sync_rounds
+    runs["fused_self"] = spec_stream(torch, lm16, fused, prompt, SPEC_TOKENS, prefill_launches,
+                                     plain, plain_tok_s)
+    runs["fused_self"][1].update(sync_debug_dispatches=len(dispatches),
+                                 rounds_per_dispatch=dispatches)
+    spec_checked(torch, lm16, prompt, runs, "spec_flagship", info)
+    for name in ("chain_oracle",):
+        if not runs[name][1]["launches"].get("flash_attention"):
+            raise AssertionError(f"spec_flagship {name}: K3 was not launched on its verify "
+                                 "blocks")
+
+    # sampled: the same seed twice gives the same tokens
+    sp = SamplingParams(temperature=0.8, top_k=64, top_p=0.95)
+    sampled = {}
+    for name, make in (("chain_ngram", lambda: spec.SpeculativeDecoder(
+            lm16, spec.NgramSpeculator(k=7), sampling=sp)),
+                       ("fused_self", lambda: fused_self_speculative_decoder(
+                           lm16, draft_layers=SPEC_DRAFT_LAYERS, k=4, rounds=8, sampling=sp))):
+        a, b = (list(make().generate(prompt, SPEC_CONTROL_TOKENS, stop_token_ids=[], seed=11))
+                for _ in range(2))
+        sampled[name] = dict(tokens=len(a), repeat=a == b, head=a[:8])
+        if a != b or len(a) != SPEC_CONTROL_TOKENS:
+            raise AssertionError(f"sampled {name}: the same seed gave other tokens")
+    info["spec_flagship"]["sampled"] = sampled
+    log("SPEC_SAMPLED " + json.dumps(sampled))
+
+    # controls: each planted fault must fail the stream check
+    n = SPEC_CONTROL_TOKENS
+    half = OracleSpeculator(len(prompt), plain, 2, 13)
+    real_accept = spec.accepted_length
+    spec.accepted_length = lambda s, b, d: torch.clamp(real_accept(s, b, d) + 1, max=d)
+    try:
+        over = list(spec.SpeculativeDecoder(lm16, half).generate(prompt, n, stop_token_ids=[]))
+    finally:
+        spec.accepted_length = real_accept
+    clean = list(spec.SpeculativeDecoder(lm16, half).generate(prompt, n, stop_token_ids=[]))
+
+    class OffByM(spec.TreeSpeculativeDecoder):
+        def _accept(self, state, idx, new_pos, m):  # the write base at pos, not pos - m
+            spec.compact_kv(state["layers"], state["pos"], idx)
+            return dict(state, pos=new_pos)
+
+    tree_spec = OracleTreeSpeculator(len(prompt), plain)
+    off = list(OffByM(lm16, tree_spec, max_nodes=16).generate(prompt, n, stop_token_ids=[]))
+    tree_clean = list(spec.TreeSpeculativeDecoder(lm16, tree_spec, max_nodes=16).generate(
+        prompt, n, stop_token_ids=[]))
+    controls = dict(
+        accept_one_more=caught_by_check(torch, lm16, prompt, over),
+        accept_clean=caught_by_check(torch, lm16, prompt, clean),
+        tree_base_off_by_m=caught_by_check(torch, lm16, prompt, off),
+        tree_clean=caught_by_check(torch, lm16, prompt, tree_clean))
+    info["spec_flagship"]["controls"] = controls
+    log("SPEC_CONTROLS " + json.dumps(controls))
+    if controls["accept_clean"] or controls["tree_clean"]:
+        raise AssertionError(f"a control's clean run failed the stream check: {controls}")
+    missed = [k for k in ("accept_one_more", "tree_base_off_by_m") if controls[k] is None]
+    if missed:
+        raise AssertionError(f"the stream check passed planted faults: {missed}")
+
+
+def spec_hybrid(torch, lm_h, info: dict) -> None:
+    """Phase 16 on the Qwen3.5-class hybrid: chain and tree speculation
+    (n-gram drafts, and oracle drafts of the plain stream: 16-row blocks,
+    trees behind seven decoys) under phase 4's rule; then one chain verify
+    round with a
+    partial acceptance (the plain stream's next two tokens, then wrong
+    ones), whose committed GDN states must lie within TOL relative L2 of
+    the states the accepted tokens give fed one at a time."""
+    import uzu_tpu_torch.engine.speculation as spec
+    from uzu_tpu_torch.ops.cuda.build import LAUNCHES, reset_launches
+
+    vocab = lm_h.decoder_config.vocab_size
+    prompt = spec_prompt(vocab)
+    lm_h.generate_list(prompt[:16], 2, stop_token_ids=[])
+    reset_launches()
+    lm_h.prefill(lm_h.new_state(), prompt)
+    prefill_launches = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    plain = lm_h.generate_list(prompt, SPEC_HYBRID_TOKENS, stop_token_ids=[])
+    plain_tok_s = len(plain) / (time.perf_counter() - t0)
+    decoders = {
+        "chain_ngram": spec.SpeculativeDecoder(lm_h, spec.NgramSpeculator(k=15)),
+        "tree_ngram": spec.TreeSpeculativeDecoder(lm_h, max_nodes=16),
+        # the plain stream's next tokens: 16-row verify blocks (K3 at Dh
+        # 32), and trees whose accepted paths skip seven decoys (the GDN
+        # replay over non-consecutive nodes)
+        "chain_oracle": spec.SpeculativeDecoder(lm_h, OracleSpeculator(len(prompt), plain, 15)),
+        "tree_oracle": spec.TreeSpeculativeDecoder(
+            lm_h, OracleTreeSpeculator(len(prompt), plain), max_nodes=16),
+    }
+    runs = {name: spec_stream(torch, lm_h, dec, prompt, SPEC_HYBRID_TOKENS, prefill_launches,
+                              plain, plain_tok_s) for name, dec in decoders.items()}
+    spec_checked(torch, lm_h, prompt, runs, "spec_hybrid", info)
+    if not runs["chain_oracle"][1]["launches"].get("flash_attention"):
+        raise AssertionError("spec_hybrid chain_oracle: K3 was not launched on its verify "
+                             "blocks")
+
+    # the committed state of a partial acceptance
+    dev = lm_h.device
+    _, state = lm_h.prefill(lm_h.new_state(), prompt)
+    block = [plain[0], plain[1], plain[2]] + [(t + 1) % vocab for t in plain[3:8]]
+    dec = spec.SpeculativeDecoder(lm_h, spec.NgramSpeculator())
+    got, sampled, accepted, commit = dec._verify(
+        state, torch.tensor(block, device=dev), len(block) - 1, 64, None, None,
+        lm_h._ctx_bucket(len(prompt) + len(block)))
+    commit = int(commit)
+    _, ref = lm_h.prefill(lm_h.new_state(), prompt)
+    for t in block[:commit]:
+        _, ref, _ = lm_h._forward(torch.tensor([t], device=dev), ref, 1,
+                                  lm_h._ctx_bucket(len(prompt) + len(block)))
+    dist = []
+    for layer, want in zip(got["layers"], ref["layers"]):
+        if "ssm" in layer:
+            dist.append(max(float((layer[k].float() - want[k].float()).norm()
+                                  / want[k].float().norm().clamp(min=1e-30))
+                            for k in ("ssm", "conv")))
+    info["spec_hybrid"]["partial_commit"] = dict(
+        block=len(block), accepted=int(accepted), commit=commit,
+        pos=int(got["pos"]), gdn_layers=len(dist), max_rel_l2=max(dist), tol=TOL)
+    log("SPEC_HYBRID_STATE " + json.dumps(info["spec_hybrid"]["partial_commit"]))
+    if not 1 <= commit < len(block):
+        raise AssertionError(f"spec_hybrid: the verify round committed {commit} of "
+                             f"{len(block)} rows, not a partial acceptance")
+    if int(got["pos"]) != len(prompt) + commit:
+        raise AssertionError("spec_hybrid: the committed pos is not the prompt plus the commit")
+    if not max(dist) <= TOL:
+        raise AssertionError(f"spec_hybrid: a committed GDN state lies {max(dist):.3e} "
+                             f"(relative L2) from the token-at-a-time one (limit {TOL})")
+
+
+def spec_gptoss(torch, lm_oss, info: dict) -> None:
+    """Phase 16 on gpt-oss (4 layers): one chain verify round's logits at
+    blocks of 4 rows (the MoE gather path, K7) and 8 rows (K9's small
+    route) against the single stream's per-token logits along the same
+    tokens, the single stream taking the verify's expert choices (each a
+    router near-tie where it would not have made it); relative L2 <= TOL."""
+    import uzu_tpu_torch.models.moe as moe
+    from uzu_tpu_torch.models.decoder import decoder_forward
+    from uzu_tpu_torch.ops.cuda.build import LAUNCHES, reset_launches
+
+    dev = lm_oss.device
+    vocab = lm_oss.decoder_config.vocab_size
+    prompt = prompt_tokens(64, vocab)
+    layers = len(lm_oss.decoder_config.transformer_config.layer_configs)
+    out = {}
+    for n in (4, 8):
+        block = prompt_tokens(n + 7, vocab)[7:]
+        _, state = lm_oss.prefill(lm_oss.new_state(), prompt)
+        routes = []
+        real = moe.router_topk
+
+        def recording(c, p, x):
+            r = real(c, p, x)
+            routes.append(r[0])
+            return r
+
+        moe.router_topk = recording
+        reset_launches()
+        try:
+            logits, _ = decoder_forward(lm_oss.decoder_config, lm_oss.params,
+                                        torch.tensor(block, device=dev), state,
+                                        last_only=False, defer_ssm=True,
+                                        ctx_limit=lm_oss._ctx_bucket(len(prompt) + n))
+        finally:
+            moe.router_topk = real
+        launches = dict(LAUNCHES)
+        calls = []
+
+        def replay(x):  # the i-th router call: layer i % layers of token i // layers
+            i = len(calls)
+            calls.append(i)
+            return routes[i % layers][i // layers].reshape(1, -1)
+
+        pinned, gaps = pinned_router(torch, replay)
+        _, ref_state = lm_oss.prefill(lm_oss.new_state(), prompt)
+        rows = []
+        moe.router_topk = pinned
+        try:
+            for t in block:
+                lg, ref_state, _ = lm_oss._forward(torch.tensor([t], device=dev), ref_state, 1,
+                                                   lm_oss._ctx_bucket(len(prompt) + n))
+                rows.append(lg)
+        finally:
+            moe.router_topk = real
+        ref = torch.stack(rows).float()
+        rel = float((logits.float() - ref).norm() / ref.norm())
+        rg = torch.cat(gaps).double().tolist()
+        out[n] = dict(rel_l2=rel, tol=TOL, launches={k: v for k, v in launches.items() if v},
+                      routed_rows=len(rg), router_flips=sum(g > 0 for g in rg),
+                      max_router_gap=max(rg))
+        kernel = "moe_gemv_int4" if n <= 4 else "grouped_matmul_int4"
+        if not launches.get(kernel):
+            raise AssertionError(f"spec_gptoss: a verify block of {n} rows launched no {kernel}")
+        if not rel <= TOL:
+            raise AssertionError(f"spec_gptoss: the {n}-row verify's logits lie {rel:.3e} "
+                                 f"(relative L2) from the single stream's (limit {TOL})")
+        check_routing([dict(max_router_gap=out[n]["max_router_gap"])])
+    info["spec_gptoss"] = dict(prompt=len(prompt), blocks=out)
+    log("SPEC_GPTOSS " + json.dumps(info["spec_gptoss"]))
+
+
 def kernel_record(rows, info) -> list[dict]:
     """One entry per kernel at its main-path shape (the decode GEMV of the
     up|gate projection for K1/K2, a 256-row prefill chunk over a 1024-slot
@@ -3244,6 +3678,21 @@ def kernel_record(rows, info) -> list[dict]:
             spec[f"{name}_dh{dh}"] = (src, replaces, dict(where, Dh=dh, **at), path, kernel)
     paths = [key for key, v in info.items()
              if isinstance(v, dict) and isinstance(v.get("launches"), dict)]
+    # the chain verify's shapes (phase 16): K1 at M = 16 / 32 on the
+    # up|gate linear, K3 at S = 16 / 32 from SPEC_POS0 at the flagship's
+    # heads and the hybrid's; launches of the oracle chain runs (blocks of
+    # 32 rows on the flagship, 16 on the hybrid)
+    verify = {}
+    for r in SPEC_ROWS:
+        verify[f"quant_matmul_int4_verify_m{r}"] = (
+            "quant_matmul_int4", dict(weight="up|gate", M=r, variant="symmetric"),
+            ("spec_flagship", "chain_oracle"))
+        verify[f"flash_attention_verify_s{r}"] = (
+            "flash_attention", dict(S=r, C=1024, pos0=SPEC_POS0, Dh=64, H=32),
+            ("spec_flagship", "chain_oracle"))
+        verify[f"flash_attention_verify_s{r}_dh32"] = (
+            "flash_attention", dict(S=r, C=1024, pos0=SPEC_POS0, Dh=32, H=8),
+            ("spec_hybrid", "chain_oracle"))
     out = []
     for name, (src, replaces, where, path, kernel) in spec.items():
         kname = name.split("_dh")[0]
@@ -3269,6 +3718,25 @@ def kernel_record(rows, info) -> list[dict]:
                                                     "items", "blocks",
                                                     "used_tiles", "distinct_experts",
                                                     "R", "kg", "width")}))
+    for name, (kname, where, (path, run)) in verify.items():
+        src, replaces, _, _, kernel = spec[kname]
+        mine = [r for r in rows if r["kernel"] == kname
+                and all(r[k] == v for k, v in where.items())]
+        rep = mine[0]
+        reading = info[path][run]
+        out.append(dict(
+            name=name, route="cuda", source=src, kernel=kernel, replaces=replaces,
+            launches=reading["launches"].get(kname, 0),
+            launches_per_verify_round=reading["launches_per_round"].get(kname, 0),
+            launches_by_path={f"{path}/{run}": reading["launches"].get(kname, 0)},
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            err_over_rms=max(r["err_over_rms"] for r in mine), tol=rep["tol"],
+            ms=rep["ms"], device_ms=rep["device_ms"], plain_ms=rep["plain_ms"],
+            bound_ms=rep["bound_ms"], bound_by=rep["bound_by"], library_ms=rep["library_ms"],
+            library_device_ms=rep["library_device_ms"],
+            shape={k: rep[k] for k in rep if k in ("weight", "N", "K", "M", "S", "H", "G",
+                                                    "Dh", "C", "pos0", "q", "splits",
+                                                    "variant", "instance")}))
     return out
 
 
@@ -3371,6 +3839,34 @@ def main() -> int:
         log("HYBRID_LINEAR_ONLY " + json.dumps(info["phase_seconds"]))
         return 0
 
+    if "--spec-only" in sys.argv[1:]:
+        # phase 16 alone, with its K1/K3 verify-shape rows
+        from uzu_tpu_torch.engine.engine import LanguageModel
+
+        t0 = time.perf_counter()
+        with ProcessPoolExecutor(len(SPEC_MODELS),
+                                 mp_context=multiprocessing.get_context("spawn")) as ex:
+            dirs = dict(zip(SPEC_MODELS, ex.map(synth_model, SPEC_MODELS)))
+        log(f"BUILD kernels built in {kbuild.build():.1f} s, models synthesized in "
+            f"{time.perf_counter() - t0:.1f} s")
+        timer, rows = Timer(torch), []
+        check_spec_rows(torch, timer, rows,
+                        kernel_usage(kbuild.BUILD_LOGS.get("flash_attention", ""), "flash_fwd"))
+        del timer
+        torch.cuda.empty_cache()
+        phase = functools.partial(timed_phase, info)
+        for name, fn, args in (("spec_flagship", spec_flagship, (dirs, info)),
+                               ("spec_gptoss", spec_gptoss, (info,)),
+                               ("spec_hybrid", spec_hybrid, (info,))):
+            model = {"spec_flagship": "llama1b_int4", "spec_gptoss": "gptoss_int4",
+                     "spec_hybrid": "qwen08_int4"}[name]
+            lm = LanguageModel.from_dir(dirs[model], device="cuda", max_context=4096)
+            phase(name, fn, torch, lm, *args)
+            del lm
+            torch.cuda.empty_cache()
+        log("SPEC_ONLY " + json.dumps(info["phase_seconds"]))
+        return 0
+
     if "--gemma-only" in sys.argv[1:]:
         # the Gemma slice alone: its kernel rows and phase 14
         t0 = time.perf_counter()
@@ -3427,6 +3923,7 @@ def main() -> int:
     check_attention_gptoss(torch, timer, rows, usage)
     check_flash_hybrid(torch, timer, rows, usage)
     check_flash_gemma(torch, timer, rows, usage)
+    check_spec_rows(torch, timer, rows, usage)
     paged_usage = kernel_usage(kbuild.BUILD_LOGS.get("paged_attention", ""), "paged_decode")
     info["paged_ptxas"] = paged_usage
     log("PAGED_PTXAS " + json.dumps(paged_usage))
@@ -3462,6 +3959,7 @@ def main() -> int:
           "whole_path", info)
     phase("whole_path_gptoss", whole_path_check, torch, lm_oss, 4, GPTOSS["vocab_size"],
           "whole_path_gptoss", info)
+    phase("spec_gptoss", spec_gptoss, torch, lm_oss, info)
     phase("tools_profile_gptoss", tools_profile, torch, lm_oss, "gptoss", GPTOSS["vocab_size"],
           info)
     del lm_oss
@@ -3472,6 +3970,7 @@ def main() -> int:
     phase("tools_quality", tools_quality, torch, lm16, info)
     phase("tools_bisect", tools_bisect, torch, info)
     phase("sampled", path_sampled, torch, lm16, info)
+    phase("spec_flagship", spec_flagship, torch, lm16, dirs, info)
     del lm16
     torch.cuda.empty_cache()
     lm_h = phase("hybrid", path_hybrid, torch, dirs["qwen08_int4"], info)
@@ -3481,6 +3980,7 @@ def main() -> int:
     phase("recurrent_families", path_recurrent_families, torch, dirs, info)
     phase("batched", path_batched, torch, lm_h, info)
     phase("control_batched", control_batched_fault, torch, lm_h, info)
+    phase("spec_hybrid", spec_hybrid, torch, lm_h, info)
     phase("tools_profile_hybrid", tools_profile, torch, lm_h, "hybrid", QWEN08["vocab_size"],
           info)
     del lm_h

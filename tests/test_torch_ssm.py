@@ -206,9 +206,28 @@ def test_make_ssm_state_matches_jax():
 
 
 def test_defer_raises():
-    _, cfg = _mixer_cfgs("gdn")
-    with pytest.raises(NotImplementedError):
-        ssm_forward(cfg, {}, torch.zeros((2, D)), None, make_ssm_state(cfg, D), defer=True)
+    """Deferred state is ported: defer=True returns the JAX package's
+    replay inputs, committing all S rows gives the plain forward's state,
+    and a commit of a config that is not a recurrent mixer raises."""
+    from uzu_tpu_torch.models.ssm import ssm_commit
+
+    rng = np.random.default_rng(5)
+    for kind in ("shortconv", "mamba2", "gdn"):
+        jcfg, cfg = _mixer_cfgs(kind)
+        params = _tree(_mixer_params(kind, cfg, rng), torch.from_numpy)
+        x = torch.from_numpy(rng.standard_normal((6, D)).astype(np.float32))
+        state = make_ssm_state(cfg, D, torch.float32)
+        _, aux = ssm_forward(cfg, params, x, None, state, defer=True)
+        _, want_aux = jax_ssm(jcfg, _tree(_mixer_params(kind, cfg, rng), jnp.asarray),
+                              jnp.zeros((6, D)), None,
+                              {k: jnp.zeros(v.shape) for k, v in state.items()}, defer=True)
+        assert sorted(aux) == sorted(want_aux)
+        _, plain = ssm_forward(cfg, params, x, None, state)
+        got = ssm_commit(cfg, aux, 6)
+        for k in plain:
+            torch.testing.assert_close(got[k], plain[k], rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        ssm_commit(pcfg.AttentionConfig.__new__(pcfg.AttentionConfig), aux, 1)
 
 
 # -- chunked cores against the per-token recurrence ----------------------------------

@@ -12,3 +12,12 @@ __version__ = "0.1.0"
 from .config import LanguageModelConfig, load_language_model_config  # noqa: F401
 from .engine.engine import LanguageModel, StreamMetrics  # noqa: F401
 from .engine.sampling import SamplingParams  # noqa: F401
+from .engine.speculation import (  # noqa: F401
+    DraftModelSpeculator,
+    NgramSpeculator,
+    SpeculativeDecoder,
+)
+from .engine.fused_spec import (  # noqa: F401
+    FusedSpeculativeDecoder,
+    fused_self_speculative_decoder,
+)

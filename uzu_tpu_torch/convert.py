@@ -17,7 +17,10 @@ are f32 arrays in both packages and carry over as they are, and so do the
 per-layer embeddings (`"per_layer_embedding"` and each layer's `"ple"`:
 a table, linears and norm scales). A HybridSpec linear (the attributes
 `base`, `adapter_down`, `adapter_up`, `input_signs`, `output_signs`)
-becomes a `HybridLinear` over its converted leaves.
+becomes a `HybridLinear` over its converted leaves. A DFlash draft's
+tree (`context_projection`, `context_norm`, `state_kv_projection`,
+`layers`, `output_norm`: linears, norms and attention layers) converts
+the same way, into the parameters of `engine.dflash.DFlashDraft`.
 """
 
 from __future__ import annotations

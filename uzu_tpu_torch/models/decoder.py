@@ -7,8 +7,12 @@ causal masking makes end-padding invisible (padded rows sit at future
 slots that later writes overwrite; a sliding-window ring layout is
 compact, drops padded rows at write time and is read whole). Recurrent
 mixers (`models/ssm.py`) take `true_length` and turn padded rows into
-identity transitions. Tree verification, sequence-parallel prefill and
-deferred recurrent state wait for later slices of the port.
+identity transitions. Speculative verification passes `defer_ssm`
+(recurrent mixers return replay inputs, committed later by
+`decoder_commit_deferred`) and, for a token tree, `positions` (RoPE
+positions pos + depth), `tree_mask` (the ancestor matrix; node i is
+written to slot pos + i) and, on recurrent mixers, `tree_parents` and
+`tree_conv_src`. Sequence-parallel prefill waits for `parallel/`.
 
 Residual discipline:
     h = pre_mixer_norm(x)            (layer 0 may have no pre-norm)
@@ -42,7 +46,7 @@ from ..quant.format import QuantizedTensor, unpack_codes
 from .kv_cache import append as kv_append, is_quantized, read as kv_read, read_quantized
 from .moe import moe_forward
 from .ple import ple_inputs, ple_project
-from .ssm import ssm_forward
+from .ssm import ssm_commit, ssm_forward, ssm_tree_forward
 
 
 # --------------------------------------------------------------------------
@@ -143,10 +147,18 @@ def attention_forward(
     ctx_limit: int | None = None,  # attention reads only cache slots
     # [0, ctx_limit): the cache stays max_context-sized, but a step at
     # position p reads only the smallest bucket covering p
+    tree=None,  # (suffix_start, ancestor_mask [S, S]) for tree verification
 ):
     s = x.shape[0]
     q, k_new, v_new = project_qkv(cfg, layer_cfg, params, x, positions)
-    new_kv = kv_append(kv, k_new, v_new, positions, true_length) if owns_cache else kv
+    if owns_cache:
+        # tree nodes land at CONSECUTIVE SLOTS suffix_start + node index,
+        # not at their positions: siblings share a position
+        write_positions = positions if tree is None else tree[0] + torch.arange(
+            s, dtype=torch.int32, device=x.device)
+        new_kv = kv_append(kv, k_new, v_new, write_positions, true_length)
+    else:
+        new_kv = kv
 
     read_kv = new_kv
     # ring layouts are already compact and are left alone
@@ -172,7 +184,9 @@ def attention_forward(
         q, k_cache, v_cache, positions, scale=scale, is_causal=cfg.is_causal,
         sliding_window_size=cfg.sliding_window_size,
         logit_soft_cap=cfg.logit_soft_cap, sinks=params.get("sinks"),
-        kv_valid_length=kv_valid, kv_positions=kv_positions, **scales,
+        kv_valid_length=kv_valid, kv_positions=kv_positions,
+        suffix_start=None if tree is None else tree[0],
+        suffix_mask=None if tree is None else tree[1], **scales,
     )
     return attention_output(params, x, attn.reshape(s, -1)), new_kv
 
@@ -263,16 +277,29 @@ def layer_forward(
     true_length=None,
     ctx_limit=None,
     per_layer_input=None,  # [N, ple_dim]: this layer's PLE input
+    tree=None,
+    defer_ssm: bool = False,
+    tree_parents=None,
+    tree_conv_src=None,
 ):
     mixer_cfg = layer_cfg.mixer_config
     if not isinstance(mixer_cfg, AttentionConfig):
-        x, new_state = residual_block(layer_cfg, params, x, lambda h: ssm_forward(
-            mixer_cfg, params["mixer"], h, positions, layer_state, true_length))
+        if tree_parents is not None:
+            # tree verification: the recurrence runs along ancestor edges
+            # and nothing commits (replay inputs come back instead)
+            def mixer(h):
+                return ssm_tree_forward(mixer_cfg, params["mixer"], h, layer_state,
+                                        tree_parents, tree_conv_src[mixer_cfg.kernel_size])
+        else:
+            def mixer(h):
+                return ssm_forward(mixer_cfg, params["mixer"], h, positions, layer_state,
+                                   true_length, defer=defer_ssm)
+        x, new_state = residual_block(layer_cfg, params, x, mixer)
     else:
         owns = layer_state is not None
         x, new_state = residual_block(layer_cfg, params, x, lambda h: attention_forward(
             mixer_cfg, layer_cfg, params["mixer"], h, positions,
-            layer_state if owns else shared_kv, owns, true_length, ctx_limit))
+            layer_state if owns else shared_kv, owns, true_length, ctx_limit, tree))
         new_state = new_state if owns else None
     return ple_apply(layer_cfg, params, x, per_layer_input), new_state
 
@@ -303,44 +330,90 @@ def decoder_forward(
     last_only: bool = True,
     true_length=None,  # int or 0-d device tensor
     ctx_limit: int | None = None,  # context bucket for attention reads
+    positions: torch.Tensor | None = None,  # override (tree nodes: pos + depth)
+    tree_mask: torch.Tensor | None = None,  # [S, S] ancestor matrix
+    collect_layers: tuple = (),  # layer indices whose outputs to tap
+                                 # (the DFlash draft's hidden features)
+    readout_row=None,  # explicit row for the last_only readout
+    defer_ssm: bool = False,  # speculative verify: recurrent mixers return
+                              # replay inputs instead of committed state;
+                              # pair with decoder_commit_deferred
+    tree_parents=None,  # [S] host ints, node parents (tree verify on
+                        # recurrent mixers; -1 reads the incoming state)
+    tree_conv_src=None,  # {kernel_size: [S, K] int tensor}: each node's
+                         # conv window into [state rows; node rows]
 ):
-    """Run the decoder; returns (logits, new_state).
+    """Run the decoder; returns (logits, new_state), and with
+    `collect_layers` also the tapped layer outputs [S, n_tap, D].
 
     tokens may be end-padded: `true_length` (default S) is how many are
-    real. pos advances by true_length; padded rows land in future cache
-    slots that the causal mask hides and later writes overwrite, and are
-    identity transitions of the recurrent mixers. The KV caches in `state`
-    are updated in place; recurrent states come back as new tensors.
+    real. pos advances by true_length (not at all with `defer_ssm`);
+    padded rows land in future cache slots that the causal mask hides and
+    later writes overwrite, and are identity transitions of the recurrent
+    mixers. The KV caches in `state` are updated in place; recurrent
+    states come back as new tensors. With `tree_mask`, row i is written
+    to slot pos + i and sees the slots before pos causally and the tree's
+    slots through the mask.
     """
     tcfg = cfg.transformer_config
     s = tokens.shape[0]
     if true_length is None:
         true_length = s
-    positions = state["pos"] + torch.arange(s, dtype=torch.int32, device=tokens.device)
+    if positions is None:
+        positions = state["pos"] + torch.arange(s, dtype=torch.int32, device=tokens.device)
+    tree = (state["pos"], tree_mask) if tree_mask is not None else None
     x = embed(cfg, params, tokens)
     per_layer = ple_layer_inputs(cfg, params, tokens, x)
 
     new_layer_states = []
+    features = {}
     for i, layer_cfg in enumerate(tcfg.layer_configs):
         src = layer_cfg.kv_source_layer_index
         shared_kv = new_layer_states[src] if src is not None else None
         x, new_state = layer_forward(
             layer_cfg, params["layers"][i], x, positions, state["layers"][i], shared_kv,
             true_length, ctx_limit, None if per_layer is None else per_layer[:, i],
+            tree=tree, defer_ssm=defer_ssm, tree_parents=tree_parents,
+            tree_conv_src=tree_conv_src,
         )
         new_layer_states.append(new_state)
+        if i in collect_layers:
+            features[i] = x
 
     if last_only:
         # the final norm is per row, so picking the row first is the same
-        if isinstance(true_length, torch.Tensor):
+        row = true_length - 1 if readout_row is None else readout_row
+        if isinstance(row, torch.Tensor):
             # a device-side true_length of 0 (a halted decode step) reads
             # row 0, as the JAX package's clamped dynamic slice does
-            row = torch.clamp(true_length - 1, min=0)
-            x = x.index_select(0, row.reshape(1).long())
+            x = x.index_select(0, torch.clamp(row, min=0).reshape(1).long())
         else:
-            row = max(true_length - 1, 0)
+            row = max(row, 0)
             x = x[row:row + 1]
 
     logits = readout(cfg, params, x)
-    out_state = {"layers": new_layer_states, "pos": state["pos"] + true_length}
+    out_state = {
+        "layers": new_layer_states,
+        # deferred: pos stays put; decoder_commit_deferred advances it by
+        # the accepted length along with the recurrent-state replays
+        "pos": state["pos"] if defer_ssm else state["pos"] + true_length,
+    }
+    if collect_layers:
+        feats = torch.stack([features[i] for i in collect_layers], dim=1)  # [S, n_tap, D]
+        return logits, out_state, feats
     return logits, out_state
+
+
+def decoder_commit_deferred(cfg: DecoderConfig, pending: dict, commit_length) -> dict:
+    """Resolve a `defer_ssm=True` forward into a decoding state committed
+    to `commit_length` tokens (an int or a 0-d device tensor decided after
+    the forward, e.g. by acceptance on the device). Attention layers are
+    already slot-committed (pos governs visibility); recurrent layers
+    replay their recurrence over the accepted prefix (`ssm_commit`)."""
+    layers = []
+    for layer_cfg, entry in zip(cfg.transformer_config.layer_configs, pending["layers"]):
+        if entry is not None and not isinstance(layer_cfg.mixer_config, AttentionConfig):
+            entry = ssm_commit(layer_cfg.mixer_config, entry, commit_length)
+        layers.append(entry)
+    pos = pending["pos"]
+    return {"layers": layers, "pos": (pos + commit_length).to(pos.dtype)}

@@ -29,8 +29,19 @@ Every function works on a leading batch dimension: `ssm_forward` is the
 single-sequence entry ([S, D], unbatched state) that the decoder calls,
 and `ssm_forward_batched` takes x [B, S, D], states with a leading [B]
 and one true length per row, which the dense batch engine's decode step
-uses with S = 1. Deferred (speculative) state and tree verification wait
-for the speculation slice of the port.
+uses with S = 1.
+
+Speculative verification (the JAX package's defer / commit / tree
+functions): `ssm_forward(..., defer=True)` computes the outputs of every
+row and commits no state; it returns the recurrence inputs instead, and
+`ssm_commit` replays the per-token recurrence over the first
+`commit_length` rows (a 0-d device tensor, decided after the forward) with
+the rest as identity transitions. `ssm_tree_forward` runs the recurrence
+over a token tree, each node from its parent's state (the host linearizes
+every node's conv window into `conv_src`), and `ssm_tree_commit` replays
+the accepted root-to-node path. The replays take the same per-token step
+as the plain decode path (`_ssd_update`, `_delta_rule`). Every result is a
+new tensor: the state handed in is never written.
 """
 
 from __future__ import annotations
@@ -99,7 +110,7 @@ def _next_conv_state(padded: torch.Tensor, true_length, taps: int) -> torch.Tens
 # --------------------------------------------------------------------------
 
 
-def _short_conv_forward(cfg: ShortConvConfig, params, x, state, true_length):
+def _short_conv_forward(cfg: ShortConvConfig, params, x, state, true_length, defer=False):
     b, s, d = x.shape
     k = cfg.kernel_size
     proj = linear_apply(params["in"]["w"], x).float()  # [B, S, 3D]
@@ -109,7 +120,10 @@ def _short_conv_forward(cfg: ShortConvConfig, params, x, state, true_length):
     padded = torch.cat([state["conv"].float(), xg], dim=1)  # [B, k-1+S, D]
     conv = _causal_depthwise_conv(padded, params["conv_w"], params.get("conv_b"), s)
     y = (conv * post).to(x.dtype)
-    new_state = {"conv": _next_conv_state(padded, true_length, k - 1).to(state["conv"].dtype)}
+    if defer:
+        new_state = {"padded": padded, "conv0": state["conv"]}
+    else:
+        new_state = {"conv": _next_conv_state(padded, true_length, k - 1).to(state["conv"].dtype)}
     return linear_apply(params["out"]["w"], y), new_state
 
 
@@ -233,9 +247,20 @@ def _mamba2_chunked(xs, bs, cs, log_decay, ssm0, chunk: int):
 # --------------------------------------------------------------------------
 
 
-def _mamba2_forward(cfg: Mamba2Config, params, x, state, true_length):
-    b, s, d = x.shape
-    h, g, dh, n, k = cfg.num_heads, cfg.num_groups, cfg.head_dim, cfg.state_dim, cfg.kernel_size
+def _ssd_update(ssm, x_t, b_t, decay_t):
+    """One token of the SSD recurrence: S <- S * decay + x (x) b, with
+    ssm [B, H, dh, n], x_t [B, H, dh], b_t [B, H, n], decay_t [B, H]."""
+    return ssm * decay_t[..., None, None] + x_t[..., :, None] * b_t[..., None, :]
+
+
+def _mamba2_inputs(cfg: Mamba2Config, params, x, state, valid, conv):
+    """x [B, S, D] -> (padded, z, xs [B, S, H, dh], bs, cs [B, S, H, n],
+    log_decay [B, S, H]): the input projection, the conv (`conv(padded)`
+    gives the pre-activation conv rows [B, S, conv_dim]) and the
+    recurrence inputs. Rows where `valid` [B, S, 1] is False are identity
+    transitions (no mask where it is None)."""
+    b, s, _ = x.shape
+    h, g, dh, n = cfg.num_heads, cfg.num_groups, cfg.head_dim, cfg.state_dim
     inner = h * dh
     conv_dim = inner + 2 * g * n
 
@@ -243,22 +268,38 @@ def _mamba2_forward(cfg: Mamba2Config, params, x, state, true_length):
     conv_in = proj[..., :conv_dim]
     z = proj[..., conv_dim:conv_dim + inner] + params["gate_bias"].float()
     dt_raw = proj[..., conv_dim + inner:]  # [B, S, H]
-
-    valid = _valid_mask(b, s, true_length, x.device)
-    conv_in = torch.where(valid, conv_in, 0.0)
+    if valid is not None:
+        conv_in = torch.where(valid, conv_in, 0.0)
     padded = torch.cat([state["conv"], conv_in], dim=1)  # f32 [B, k-1+S, conv_dim]
-    conv = _act(cfg.activation, _causal_depthwise_conv(
-        padded, params["conv_w"], params.get("conv_b"), s))
+    c = _act(cfg.activation, conv(padded))
 
-    xs = conv[..., :inner].reshape(b, s, h, dh)
-    bs = conv[..., inner:inner + g * n].reshape(b, s, g, n)
-    cs = conv[..., inner + g * n:].reshape(b, s, g, n)
-
-    log_decay = torch.where(valid, -_softplus(dt_raw), 0.0)  # [B, S, H]
-    xs = torch.where(valid[..., None], xs, 0.0)
+    xs = c[..., :inner].reshape(b, s, h, dh)
+    bs = c[..., inner:inner + g * n].reshape(b, s, g, n)
+    cs = c[..., inner + g * n:].reshape(b, s, g, n)
+    log_decay = -_softplus(dt_raw)
+    if valid is not None:
+        log_decay = torch.where(valid, log_decay, 0.0)
+        xs = torch.where(valid[..., None], xs, 0.0)
     rep = h // g
-    bs_h = torch.repeat_interleave(bs, rep, dim=2)  # [B, S, H, N]
-    cs_h = torch.repeat_interleave(cs, rep, dim=2)
+    return (padded, z, xs, torch.repeat_interleave(bs, rep, dim=2),
+            torch.repeat_interleave(cs, rep, dim=2), log_decay)
+
+
+def _mamba2_output(cfg: Mamba2Config, params, x, ys, xs, z):
+    """ys [B, S, H, dh] -> out [B, S, D]: the skip connection, the SiLU(z)
+    gate and the out projection."""
+    b, s = ys.shape[:2]
+    ys = ys + params["skip_weight"].float()[None, None, :, None] * xs
+    ys = ys.reshape(b, s, cfg.num_heads * cfg.head_dim) * F.silu(z)
+    return linear_apply(params["out"]["w"], ys.to(x.dtype), params["out"].get("b"))
+
+
+def _mamba2_forward(cfg: Mamba2Config, params, x, state, true_length, defer=False):
+    b, s, _ = x.shape
+    valid = _valid_mask(b, s, true_length, x.device)
+    padded, z, xs, bs_h, cs_h, log_decay = _mamba2_inputs(
+        cfg, params, x, state, valid,
+        lambda p: _causal_depthwise_conv(p, params["conv_w"], params.get("conv_b"), s))
 
     if s >= SSM_CHUNKED_MIN_S:
         ssm, ys = _mamba2_chunked(xs, bs_h, cs_h, log_decay, state["ssm"], SSM_PREFILL_CHUNK)
@@ -267,14 +308,15 @@ def _mamba2_forward(cfg: Mamba2Config, params, x, state, true_length):
         ssm = state["ssm"]
         ys = []
         for t in range(s):
-            ssm = (ssm * decay[:, t, :, None, None]
-                   + xs[:, t, :, :, None] * bs_h[:, t, :, None, :])
+            ssm = _ssd_update(ssm, xs[:, t], bs_h[:, t], decay[:, t])
             ys.append(torch.einsum("bhdn,bhn->bhd", ssm, cs_h[:, t]))
         ys = torch.stack(ys, dim=1)
-    ys = ys + params["skip_weight"].float()[None, None, :, None] * xs
-    ys = ys.reshape(b, s, inner) * F.silu(z)
-    out = linear_apply(params["out"]["w"], ys.to(x.dtype), params["out"].get("b"))
-    return out, {"conv": _next_conv_state(padded, true_length, k - 1), "ssm": ssm}
+    out = _mamba2_output(cfg, params, x, ys, xs, z)
+    if defer:
+        return out, {"padded": padded, "xs": xs, "bs": bs_h, "log_decay": log_decay,
+                     "ssm0": state["ssm"]}
+    return out, {"conv": _next_conv_state(padded, true_length, cfg.kernel_size - 1),
+                 "ssm": ssm}
 
 
 # --------------------------------------------------------------------------
@@ -286,10 +328,31 @@ def _l2norm(v: torch.Tensor) -> torch.Tensor:
     return v * torch.rsqrt(torch.sum(v * v, dim=-1, keepdim=True) + 1e-6)
 
 
-def _delta_net_forward(cfg: DeltaNetConfig, params, x, state, true_length):
-    b, s, d = x.shape
+def _delta_rule(ssm, k_t, v_t, beta_t, decay_t):
+    """One token of the gated delta rule: ssm [B, H, dv, dk], k_t [B, H,
+    dk], v_t [B, H, dv], beta_t / decay_t [B, H] -> (new state, delta
+    [B, H, dv])."""
+    sk = torch.einsum("bhvk,bhk->bhv", ssm, k_t)  # S k
+    delta = beta_t[..., None] * (v_t - decay_t[..., None] * sk)
+    return decay_t[..., None, None] * ssm + delta[..., :, None] * k_t[..., None, :], delta
+
+
+def _delta_net_token(ssm, q_t, k_t, v_t, beta_t, decay_t):
+    """One token's output o = decay S q + delta (k . q) and new state."""
+    sq = torch.einsum("bhvk,bhk->bhv", ssm, q_t)  # S q
+    new, delta = _delta_rule(ssm, k_t, v_t, beta_t, decay_t)
+    kq = torch.sum(k_t * q_t, dim=-1)  # [B, H]
+    return new, decay_t[..., None] * sq + delta * kq[..., None]
+
+
+def _delta_net_inputs(cfg: DeltaNetConfig, params, x, state, valid, conv):
+    """x [B, S, D] -> (padded, z [B, S, H, dv], qs, ks [B, S, H, dk], vs
+    [B, S, H, dv], beta, log_decay [B, S, H]): the input projection, the
+    conv (`conv(padded)`, pre-activation) and the delta rule's inputs. Rows
+    where `valid` is False are identity transitions (no mask where None)."""
+    b, s, _ = x.shape
     h, g = cfg.num_heads, cfg.num_groups
-    dk, dv, k = cfg.head_dim, cfg.value_head_dim, cfg.kernel_size
+    dk, dv = cfg.head_dim, cfg.value_head_dim
     key_dim, value_dim = g * dk, h * dv
     conv_dim = 2 * key_dim + value_dim
 
@@ -298,23 +361,42 @@ def _delta_net_forward(cfg: DeltaNetConfig, params, x, state, true_length):
     z = proj[..., conv_dim:conv_dim + value_dim].reshape(b, s, h, dv)
     beta_raw = proj[..., conv_dim + value_dim:conv_dim + value_dim + h]
     a_raw = proj[..., conv_dim + value_dim + h:]
-
-    valid = _valid_mask(b, s, true_length, x.device)
-    conv_in = torch.where(valid, conv_in, 0.0)
+    if valid is not None:
+        conv_in = torch.where(valid, conv_in, 0.0)
     padded = torch.cat([state["conv"], conv_in], dim=1)
-    conv = F.silu(_causal_depthwise_conv(padded, params["conv_w"], params.get("conv_b"), s))
+    c = F.silu(conv(padded))
 
     rep = h // g
-    qs = conv[..., :key_dim].reshape(b, s, g, dk)
-    ks = conv[..., key_dim:2 * key_dim].reshape(b, s, g, dk)
-    vs = conv[..., 2 * key_dim:].reshape(b, s, h, dv)
+    qs = c[..., :key_dim].reshape(b, s, g, dk)
+    ks = c[..., key_dim:2 * key_dim].reshape(b, s, g, dk)
+    vs = c[..., 2 * key_dim:].reshape(b, s, h, dv)
     qs = torch.repeat_interleave(_l2norm(qs) * (float(dk) ** -0.5), rep, dim=2)  # [B, S, H, dk]
     ks = torch.repeat_interleave(_l2norm(ks), rep, dim=2)
 
     beta = torch.sigmoid(beta_raw)  # [B, S, H]
     log_decay = -torch.exp(params["a_log"].float()) * _softplus(a_raw + params["dt_bias"].float())
-    log_decay = torch.where(valid, log_decay, 0.0)
-    beta = torch.where(valid, beta, 0.0)
+    if valid is not None:
+        log_decay = torch.where(valid, log_decay, 0.0)
+        beta = torch.where(valid, beta, 0.0)
+    return padded, z, qs, ks, vs, beta, log_decay
+
+
+def _delta_net_output(cfg: DeltaNetConfig, params, x, os_, z):
+    """os_ [B, S, H, dv] -> out [B, S, D]: the per-head RMSNorm, the
+    SiLU(z) gate and the out projection."""
+    b, s = os_.shape[:2]
+    inv_rms = torch.rsqrt(torch.mean(os_ * os_, dim=-1, keepdim=True) + cfg.norm_config.epsilon)
+    gated = os_ * inv_rms * params["norm_scales"].float() * F.silu(z)
+    value_dim = cfg.num_heads * cfg.value_head_dim
+    return linear_apply(params["out"]["w"], gated.reshape(b, s, value_dim).to(x.dtype))
+
+
+def _delta_net_forward(cfg: DeltaNetConfig, params, x, state, true_length, defer=False):
+    b, s, _ = x.shape
+    valid = _valid_mask(b, s, true_length, x.device)
+    padded, z, qs, ks, vs, beta, log_decay = _delta_net_inputs(
+        cfg, params, x, state, valid,
+        lambda p: _causal_depthwise_conv(p, params["conv_w"], params.get("conv_b"), s))
 
     if s >= SSM_CHUNKED_MIN_S:
         ssm, os_ = _delta_net_chunked(qs, ks, vs, beta, log_decay, state["ssm"],
@@ -324,52 +406,179 @@ def _delta_net_forward(cfg: DeltaNetConfig, params, x, state, true_length):
         ssm = state["ssm"]  # [B, H, dv, dk]
         os_ = []
         for t in range(s):
-            q_t, k_t, v_t = qs[:, t], ks[:, t], vs[:, t]
-            beta_t, decay_t = beta[:, t], decay[:, t]
-            sk = torch.einsum("bhvk,bhk->bhv", ssm, k_t)  # S k
-            sq = torch.einsum("bhvk,bhk->bhv", ssm, q_t)  # S q
-            delta = beta_t[..., None] * (v_t - decay_t[..., None] * sk)  # [B, H, dv]
-            kq = torch.sum(k_t * q_t, dim=-1)  # [B, H]
-            os_.append(decay_t[..., None] * sq + delta * kq[..., None])
-            ssm = decay_t[..., None, None] * ssm + delta[..., :, None] * k_t[..., None, :]
+            ssm, o_t = _delta_net_token(ssm, qs[:, t], ks[:, t], vs[:, t], beta[:, t],
+                                        decay[:, t])
+            os_.append(o_t)
         os_ = torch.stack(os_, dim=1)
 
-    # per-head RMSNorm and the SiLU(z) gate
-    inv_rms = torch.rsqrt(torch.mean(os_ * os_, dim=-1, keepdim=True) + cfg.norm_config.epsilon)
-    gated = os_ * inv_rms * params["norm_scales"].float() * F.silu(z)
-    out = linear_apply(params["out"]["w"], gated.reshape(b, s, value_dim).to(x.dtype))
-    return out, {"conv": _next_conv_state(padded, true_length, k - 1), "ssm": ssm}
+    out = _delta_net_output(cfg, params, x, os_, z)
+    if defer:
+        return out, {"padded": padded, "ks": ks, "vs": vs, "beta": beta,
+                     "log_decay": log_decay, "ssm0": state["ssm"]}
+    return out, {"conv": _next_conv_state(padded, true_length, cfg.kernel_size - 1),
+                 "ssm": ssm}
 
 
 # --------------------------------------------------------------------------
-# Dispatch / state init / loading
+# Dispatch: plain, deferred and tree forwards, commits
 # --------------------------------------------------------------------------
 
 
-def ssm_forward_batched(mixer_cfg, params, x: torch.Tensor, state: dict, true_length):
+def ssm_forward_batched(mixer_cfg, params, x: torch.Tensor, state: dict, true_length,
+                        defer: bool = False):
     """x [B, S, D], state leaves with a leading [B], true_length an int or
-    a tensor of B lengths -> (out [B, S, D], new state)."""
+    a tensor of B lengths -> (out [B, S, D], new state, or with `defer`
+    the replay inputs of `ssm_commit`, each with a leading [B])."""
     if isinstance(mixer_cfg, ShortConvConfig):
-        return _short_conv_forward(mixer_cfg, params, x, state, true_length)
+        return _short_conv_forward(mixer_cfg, params, x, state, true_length, defer)
     if isinstance(mixer_cfg, Mamba2Config):
-        return _mamba2_forward(mixer_cfg, params, x, state, true_length)
+        return _mamba2_forward(mixer_cfg, params, x, state, true_length, defer)
     if isinstance(mixer_cfg, DeltaNetConfig):
-        return _delta_net_forward(mixer_cfg, params, x, state, true_length)
+        return _delta_net_forward(mixer_cfg, params, x, state, true_length, defer)
     raise ValueError(f"unsupported mixer {type(mixer_cfg).__name__}")
 
 
 def ssm_forward(mixer_cfg, params, x: torch.Tensor, positions, state: dict,
                 true_length=None, defer: bool = False):
     """One sequence: x [S, D], unbatched state; true_length an int or a
-    0-d device tensor (default S). Returns (out [S, D], new state)."""
-    if defer:
-        raise NotImplementedError("deferred recurrent state (speculative verify) is not "
-                                  "ported yet")
-    if true_length is None:
+    0-d device tensor (default S). Returns (out [S, D], new state).
+
+    defer=True (speculative verify): every row is real (true_length is S)
+    and no state is committed; the second result holds the recurrence
+    inputs from which `ssm_commit` replays the state of any prefix."""
+    if true_length is None or defer:
         true_length = x.shape[0]
     out, new = ssm_forward_batched(mixer_cfg, params, x[None],
-                                   {name: v[None] for name, v in state.items()}, true_length)
+                                   {name: v[None] for name, v in state.items()},
+                                   true_length, defer)
     return out[0], {name: v[0] for name, v in new.items()}
+
+
+def _tree_conv(padded: torch.Tensor, conv_src: torch.Tensor, w: torch.Tensor,
+               bias) -> torch.Tensor:
+    """Gathered causal depthwise conv: out[j] = sum_t w[:, t] *
+    padded[conv_src[j, t]]; padded [k-1+M, C] f32, conv_src [M, K]. The
+    taps add up in `_causal_depthwise_conv`'s order."""
+    win = padded[conv_src.long()]  # [M, K, C]
+    out = torch.zeros((win.shape[0], win.shape[2]), dtype=torch.float32, device=padded.device)
+    for tap in range(w.shape[1]):
+        out = out + win[:, tap] * w[:, tap].float()
+    if bias is not None:
+        out = out + bias.float()
+    return out
+
+
+def _short_conv_tree(cfg: ShortConvConfig, params, x, state, conv_src):
+    d = x.shape[1]
+    proj = linear_apply(params["in"]["w"], x).float()
+    pre, post, xin = proj[:, :d], proj[:, d:2 * d], proj[:, 2 * d:]
+    padded = torch.cat([state["conv"].float(), xin * pre])
+    conv = _tree_conv(padded, conv_src, params["conv_w"], params.get("conv_b"))
+    y = (conv * post).to(x.dtype)
+    return linear_apply(params["out"]["w"], y), {"padded": padded, "conv0": state["conv"]}
+
+
+def _mamba2_tree(cfg: Mamba2Config, params, x, state, parents, conv_src):
+    padded, z, xs, bs_h, cs_h, log_decay = _mamba2_inputs(
+        cfg, params, x[None], {"conv": state["conv"][None]}, None,
+        lambda p: _tree_conv(p[0], conv_src, params["conv_w"], params.get("conv_b"))[None])
+    decay = torch.exp(log_decay)
+    states = [state["ssm"][None]]  # node j's state at j + 1; the incoming one at 0
+    ys = []
+    for j, parent in enumerate(parents):
+        states.append(_ssd_update(states[parent + 1], xs[:, j], bs_h[:, j], decay[:, j]))
+        ys.append(torch.einsum("bhdn,bhn->bhd", states[-1], cs_h[:, j]))
+    out = _mamba2_output(cfg, params, x[None], torch.stack(ys, dim=1), xs, z)
+    return out[0], {"padded": padded[0], "xs": xs[0], "bs": bs_h[0],
+                    "log_decay": log_decay[0], "ssm0": state["ssm"]}
+
+
+def _delta_net_tree(cfg: DeltaNetConfig, params, x, state, parents, conv_src):
+    padded, z, qs, ks, vs, beta, log_decay = _delta_net_inputs(
+        cfg, params, x[None], {"conv": state["conv"][None]}, None,
+        lambda p: _tree_conv(p[0], conv_src, params["conv_w"], params.get("conv_b"))[None])
+    decay = torch.exp(log_decay)
+    states = [state["ssm"][None]]
+    os_ = []
+    for j, parent in enumerate(parents):
+        new, o = _delta_net_token(states[parent + 1], qs[:, j], ks[:, j], vs[:, j],
+                                  beta[:, j], decay[:, j])
+        states.append(new)
+        os_.append(o)
+    out = _delta_net_output(cfg, params, x[None], torch.stack(os_, dim=1), z)
+    return out[0], {"padded": padded[0], "ks": ks[0], "vs": vs[0], "beta": beta[0],
+                    "log_decay": log_decay[0], "ssm0": state["ssm"]}
+
+
+def ssm_tree_forward(mixer_cfg, params, x: torch.Tensor, state: dict, parents,
+                     conv_src: torch.Tensor):
+    """Recurrent-mixer forward over a token tree: x [M, D] holds one row
+    per node; `parents` (M host ints, parents[j] < j, -1 for a root whose
+    predecessor state is `state`) and conv_src [M, K] (each node's causal
+    conv window as indices into concat([state conv rows (k-1), node
+    inputs]), linearized on the host). The recurrence runs node by node,
+    each from its PARENT's state. Returns (out [M, D], aux for
+    `ssm_tree_commit`); no state is committed."""
+    parents = [int(p) for p in parents]
+    if isinstance(mixer_cfg, ShortConvConfig):
+        return _short_conv_tree(mixer_cfg, params, x, state, conv_src)
+    if isinstance(mixer_cfg, Mamba2Config):
+        return _mamba2_tree(mixer_cfg, params, x, state, parents, conv_src)
+    if isinstance(mixer_cfg, DeltaNetConfig):
+        return _delta_net_tree(mixer_cfg, params, x, state, parents, conv_src)
+    raise ValueError(f"unsupported mixer {type(mixer_cfg).__name__}")
+
+
+def _replay(mixer_cfg, aux: dict, rows, decay) -> torch.Tensor:
+    """The recurrent state after the per-token steps of `rows` (indices
+    into aux, in order) from aux["ssm0"], with per-row decay [S, H]."""
+    ssm = aux["ssm0"][None]
+    if isinstance(mixer_cfg, Mamba2Config):
+        for t in rows:
+            ssm = _ssd_update(ssm, aux["xs"][None, t], aux["bs"][None, t], decay[None, t])
+    elif isinstance(mixer_cfg, DeltaNetConfig):
+        for t in rows:
+            ssm, _ = _delta_rule(ssm, aux["ks"][None, t], aux["vs"][None, t],
+                                 aux["beta"][None, t], decay[None, t])
+    else:
+        raise ValueError(f"unsupported mixer {type(mixer_cfg).__name__}")
+    return ssm[0]
+
+
+def ssm_tree_commit(mixer_cfg, aux: dict, path_idx, conv_commit_src: torch.Tensor) -> dict:
+    """Commit a tree verify to an accepted root-to-node path: path_idx
+    (host ints) lists the accepted nodes in order, -1 entries are padding;
+    conv_commit_src [k-1] indexes the committed conv window's rows into
+    aux["padded"]. The state replays the plain decode step over the path
+    (a padded entry is an identity transition in the JAX package; here it
+    is skipped, which is the same state)."""
+    conv = aux["padded"][conv_commit_src.long()]
+    if isinstance(mixer_cfg, ShortConvConfig):
+        return {"conv": conv.to(aux["conv0"].dtype)}
+    rows = [int(j) for j in path_idx if int(j) >= 0]
+    return {"conv": conv, "ssm": _replay(mixer_cfg, aux, rows, torch.exp(aux["log_decay"]))}
+
+
+def ssm_commit(mixer_cfg, aux: dict, commit_length) -> dict:
+    """Commit a deferred `ssm_forward` to `commit_length` tokens (an int or
+    a 0-d device tensor): rows at and past it replay as identity
+    transitions, the masking the partial-chunk prefill uses, so the state
+    is the plain forward's over the accepted prefix. No host sync."""
+    if not isinstance(mixer_cfg, (ShortConvConfig, Mamba2Config, DeltaNetConfig)):
+        raise ValueError(f"unsupported mixer {type(mixer_cfg).__name__}")
+    k = mixer_cfg.kernel_size
+    conv = _next_conv_state(aux["padded"][None], commit_length, k - 1)[0]
+    if isinstance(mixer_cfg, ShortConvConfig):
+        return {"conv": conv.to(aux["conv0"].dtype)}
+    s = aux["log_decay"].shape[0]
+    live = (torch.arange(s, device=conv.device) < commit_length)[:, None]
+    decay = torch.exp(torch.where(live, aux["log_decay"], 0.0))
+    aux = dict(aux)
+    if isinstance(mixer_cfg, Mamba2Config):
+        aux["xs"] = torch.where(live[..., None], aux["xs"], 0.0)
+    else:
+        aux["beta"] = torch.where(live, aux["beta"], 0.0)
+    return {"conv": conv, "ssm": _replay(mixer_cfg, aux, range(s), decay)}
 
 
 def make_ssm_state(mixer_cfg, model_dim: int, dtype=torch.bfloat16, device=None) -> dict:

@@ -837,3 +837,59 @@ def gemma_config(
             suffix_repetition_length=None,
         ),
     )
+
+
+def synth_dflash_speculator(out_dir: str, target_cfg: LanguageModelConfig, *,
+                            block_size: int = 4, target_layer_ids: tuple = (0, 1),
+                            num_layers: int = 1, seed: int = 0, dtype=None) -> str:
+    """Write a DFlash speculator dir (config.json + model.safetensors under
+    the 'speculator.draft_model' prefix) for `target_cfg`; the files are
+    byte-identical to the JAX package's `synth_dflash_speculator`."""
+    from ..config.model import (
+        DFlashDraftConfig,
+        DFlashSpeculatorConfig,
+        SpeculatorModelConfig,
+        WeaverConfig,
+    )
+
+    tcfg = target_cfg.decoder_config.transformer_config
+    d = tcfg.model_dim
+    vocab = target_cfg.decoder_config.vocab_size
+    # the DFlash DRAFT is an attention transformer over feature KV even
+    # when the TARGET is a recurrent hybrid: its layer is modelled on the
+    # target's first attention layer
+    base_layer = next((lc for lc in tcfg.layer_configs
+                       if isinstance(lc.mixer_config, AttentionConfig)), tcfg.layer_configs[0])
+    attn = base_layer.mixer_config
+    if not isinstance(attn, AttentionConfig):
+        raise ValueError("target has no attention layer to model the DFlash draft on")
+    rope = base_layer.rope_config or UnscaledRoPEConfig(
+        base=10000.0, max_sequence_length=4096, head_dim=attn.head_dim)
+    draft_cfg = DFlashDraftConfig(
+        model_dim=d, hidden_dim=tcfg.hidden_dim, block_size=block_size, mask_token_id=0,
+        target_layer_ids=tuple(target_layer_ids), num_target_layers=len(tcfg.layer_configs),
+        vocab_size=vocab, context_projection_config=LinearConfig(),
+        context_norm_config=_rms(), rope_config=rope,
+        layer_configs=tuple([base_layer] * num_layers), output_norm_config=_rms(),
+    )
+    weaver_cfg = WeaverConfig(
+        model_dim=d, target_model_dim=d, target_embedding_dim=d, num_layers=1,
+        num_heads=attn.num_heads, hidden_dim=tcfg.hidden_dim, max_depth=block_size,
+        candidate_pool_size=8, linear_config=LinearConfig(), norm_config=_rms(),
+        rope_config=rope,
+    )
+    model_cfg = SpeculatorModelConfig(speculator_config=DFlashSpeculatorConfig(
+        draft_config=draft_cfg, weaver_config=weaver_cfg))
+
+    b = ModelBuilder(seed=seed, dtype=np.dtype(dtype or BF16))
+    spec = FullPrecisionSpec(layout=Layout.OUTPUT_INPUT)
+    n_tap = len(target_layer_ids)
+    layer_kv_dim = 2 * attn.num_groups * attn.head_dim
+    pre = "speculator.draft_model"
+    b.linear(f"{pre}.context_projection", d * n_tap, d, spec, False)
+    b.norm_scales(f"{pre}.context_norm", d, False)
+    b.linear(f"{pre}.state_kv_projection", d, num_layers * layer_kv_dim, spec, False)
+    for i, lc in enumerate(draft_cfg.layer_configs):
+        b.layer_tensors(f"{pre}.layers.{i}", lc, d, draft_cfg.hidden_dim, spec)
+    b.norm_scales(f"{pre}.output_norm", d, False)
+    return b.write(out_dir, model_cfg)
