@@ -9,6 +9,7 @@
     python3 chip_smoke.py --gemma-only   # phase 14 alone, with K3-K6's Gemma rows
     python3 chip_smoke.py --hybrid-linear-only  # phase 15 alone, with K3-K6's rows past Dh 256
     python3 chip_smoke.py --spec-only    # phase 16 alone, with K1/K3's verify-shape rows
+    python3 chip_smoke.py --batch-spec-only  # phase 17 alone, with K1/K5/K6/K9's verify rows
 
 Phases, each of which ends the run with a non-zero exit if it fails:
 
@@ -200,6 +201,34 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     flagship's linears and K3 at S = 16 / 32 from position 700 over 1024
     slots (the flagship's and the hybrid's heads) to their plain versions.
 
+17. speculative continuous batching (`engine/batch_spec.py`,
+    `models/paged_decode.py::paged_verify_step`, `models/batch_decode.py`'s
+    verify and commit, `grammar/`): on the full-width flagship through
+    `SpeculativePagedBatchEngine` (8 slots, blocks of 9 rows) host n-gram
+    drafts, a 4-layer self-draft and device n-gram drafts in fused rounds of
+    8 (every dispatch under set_sync_debug_mode("error")), each stream under
+    phase 4's rule, beside the plain `PagedBatchEngine`'s tok/s; a sampled
+    run twice under one seed; a pool that preempts under sampling, whose
+    streams equal the unpreempted ones; a JSON-schema and a regex request
+    (native masks over a seeded synthetic vocabulary of all 128256 ids)
+    beside six plain ones: each output closes, parses and satisfies its
+    grammar, each sampled token lies in the host matcher's mask, the plain
+    streams pass phase 4's rule; the stream check must fail an acceptance
+    of one draft more than matched and a verify row written through a cut
+    table's last live column (clean runs pass it). The 2-layer INT8 flagship
+    with INT8 pools (K2, K4, K6) under the same rule; the full-depth
+    Qwen3.5-class hybrid through `SpeculativeBatchEngine` (4 slots: n-gram
+    and 6-layer self-draft runs beside `BatchEngine`'s tok/s, and one
+    partially accepted round of 4 slots x 9 rows whose committed GDN
+    states lie within TOL relative L2 of the token-at-a-time ones with K1
+    kept on one route on both sides, each route in turn; the served
+    round's distance, K1's tile rows against its small rows, is reported
+    beside them); gpt-oss at 4 layers: one
+    verify round's logits (72 rows, K9's tile route) within TOL relative L2
+    of `paged_decode_step` fed the same tokens with the verify's expert
+    choices. Phase 2 holds K1 at M = 72 / 36, K5 / K6 at 72 rows over
+    repeated tables and K9 at 288 routed rows to their plain versions.
+
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Full per-shape numbers also go to
 `.port_cache/chip_smoke.json`.
@@ -207,6 +236,7 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -698,7 +728,8 @@ def check_flash_attention_int8(torch, timer, rows, usage) -> None:
 
 
 def paged_row(torch, timer, rows, usage, q, k, v, table, lengths, lens_name: str,
-              variant: str, kw: dict, splits: int | None = None) -> None:
+              variant: str, kw: dict, splits: int | None = None, distinct_live=None,
+              library=None) -> None:
     """One K5/K6 case (K6 where kw holds scales): the kernel against its
     plain version (err/RMS <= TOL), its time, the plain version's, the
     bound, the split plan and the instantiation's registers and spills.
@@ -710,7 +741,10 @@ def paged_row(torch, timer, rows, usage, q, k, v, table, lengths, lens_name: str
     window, else over the table's width with a boolean mask of each slot's
     [max(0, length - window), length). The kernel and the yardstick are
     timed as every row is (`ms`, `library_ms`) and again with the timer's
-    spin (`device_ms`, `library_device_ms`)."""
+    spin (`device_ms`, `library_device_ms`). `distinct_live` (the tokens the
+    rows' tables hold once each, where several rows share a table) sets the
+    bytes of the bound in place of the rows' own lengths; `library`
+    replaces the yardstick."""
     from unittest import mock
 
     import torch.nn.functional as F
@@ -760,11 +794,14 @@ def paged_row(torch, timer, rows, usage, q, k, v, table, lengths, lens_name: str
     # each live token's K and V rows once (int8: codes + one f32 scale per
     # (token, group)), q, the output, the table and lengths
     per_tok = g * (dh + 4) * 2 if quant else g * dh * k.element_size() * 2
-    nbytes = (q.numel() * q.element_size() + live * per_tok + b * h * dh * 4
+    read = live if distinct_live is None else distinct_live
+    nbytes = (q.numel() * q.element_size() + read * per_tok + b * h * dh * 4
               + table.numel() * 4 + b * 4)
     b_ms, b_by = bound(nbytes, 4.0 * live * h * dh)
     lib_ms = lib_dev_ms = None
-    if "sinks" not in kw and "logit_soft_cap" not in kw:
+    if library is not None:
+        lib_ms, lib_dev_ms = timer.both(library)
+    elif "sinks" not in kw and "logit_soft_cap" not in kw:
         uniform = len(set(lens)) == 1 and not window
         n = lens[0] if uniform else maxp * page
 
@@ -795,7 +832,8 @@ def paged_row(torch, timer, rows, usage, q, k, v, table, lengths, lens_name: str
     ms, dev_ms = timer.both(run)
     inst = head_dim_instance(dh)
     row = dict(kernel=kernel, B=b, H=h, G=g, Dh=dh, page=page, width=maxp * page, q=qname,
-               lengths=lens_name, variant=variant, live_tokens=live, splits=splits,
+               lengths=lens_name, variant=variant, live_tokens=live,
+               distinct_live_tokens=read, splits=splits,
                tiles_per_split=per, instance=inst,
                ptxas=usage.get(f"{qname}/{kv_name}/{inst}" + ("/rounded" if dh != inst else "")
                                + ("/wide" if dh > inst else "")),
@@ -996,7 +1034,7 @@ GROUPED_Q_CASES = ((32, 64), (32, 8), (64, 16), (128, 32), (256, 64), (1024, 64)
 GROUPED_DENSE_CASES = ((256, 64), (1024, 64), (4096, 64))
 
 
-def check_grouped_matmul(torch, timer, rows, sweep: bool = False) -> None:
+def check_grouped_matmul(torch, timer, rows, sweep: bool = False, cases=None) -> None:
     """K9 over INT4 stacks and K10 over dense bf16 stacks at gpt-oss's
     expert shapes, at the routed rows of GROUPED_Q_CASES /
     GROUPED_DENSE_CASES, through the wrappers the main path calls, each row
@@ -1005,7 +1043,7 @@ def check_grouped_matmul(torch, timer, rows, sweep: bool = False) -> None:
     offers and small rows every kw (device ms). The yardstick is one bmm
     over the used tiles' pre-gathered bf16 planes and rows, at the same
     layout. Only the real rows are compared (rows of unused tiles are
-    undefined)."""
+    undefined). `cases` ([(kernel, T, bm)]) replaces the two lists."""
     from uzu_tpu_torch.ops.cuda import grouped_matmul as gm
     from uzu_tpu_torch.ops.cuda.flash_attention import num_sms
     from uzu_tpu_torch.ops.cuda.moe_gemv import gather_experts
@@ -1014,8 +1052,9 @@ def check_grouped_matmul(torch, timer, rows, sweep: bool = False) -> None:
     gen = torch.Generator(device="cuda").manual_seed(8)
     e, active = GPTOSS["num_experts"], GPTOSS["num_active"]
     sms = num_sms(torch.device("cuda"))
-    cases = [("grouped_matmul_int4", t, bm) for t, bm in GROUPED_Q_CASES] + \
-        [("grouped_matmul", t, bm) for t, bm in GROUPED_DENSE_CASES]
+    if cases is None:
+        cases = [("grouped_matmul_int4", t, bm) for t, bm in GROUPED_Q_CASES] + \
+            [("grouped_matmul", t, bm) for t, bm in GROUPED_DENSE_CASES]
     routes = {t: _routing(torch, gen, t // active, e, active).reshape(-1)
               for t in sorted({t for _, t, _ in cases})}
     launched = []
@@ -1480,6 +1519,7 @@ GEMMA_MODELS = ("gemma3_1b", "gemma_e4b_8l")
 SLICE_MODELS = ("llama1b_hybrid", "gemma_dh512_2l", "windowed_dh512_2l")
 SPEC_MODELS = ("llama1b_int4", "llama1b_int8_2l", "gptoss_int4", "qwen08_int4",
                "dflash_flagship")
+BSPEC_MODELS = ("llama1b_int4", "llama1b_int8_2l", "gptoss_int4", "qwen08_int4")
 MODELS = ("llama1b_int4", "llama1b_int8_2l", "gptoss_int4", "gptoss_int8_2l", "qwen08_int4",
           "lfm2_4l", "mamba2_4l", *GEMMA_MODELS, *SLICE_MODELS, "dflash_flagship")
 
@@ -3011,9 +3051,9 @@ def path_sampled(torch, lm16, info: dict) -> None:
         rec = []
         real_rows = eng._sample_rows
 
-        def rows_recording(logits, rows, key0, key1, sampled, counts=None, _r=real_rows,
-                           _rec=rec):
-            out = _r(logits, rows, key0, key1, sampled, counts)
+        def rows_recording(logits, rows, key0, key1, sampled, counts=None, bitmask=None,
+                           _r=real_rows, _rec=rec):
+            out = _r(logits, rows, key0, key1, sampled, counts, bitmask)
             _rec.append((logits.detach().clone(), rows.clone(), out))
             return out
 
@@ -3602,6 +3642,661 @@ def spec_gptoss(torch, lm_oss, info: dict) -> None:
     log("SPEC_GPTOSS " + json.dumps(info["spec_gptoss"]))
 
 
+# -- phase 17: speculative continuous batching ------------------------------------------
+
+BSPEC_SLOTS, BSPEC_BLOCK = 8, 8  # the paged engine's slots; drafts per slot (9-row blocks)
+BSPEC_TOKENS = 48
+BSPEC_HYBRID_SLOTS, BSPEC_HYBRID_TOKENS = 4, 32
+BSPEC_DRAFT_LAYERS = {"flagship": 4, "hybrid": 6}
+BSPEC_ROUNDS = 8  # fused rounds per dispatch
+# K1's rows on the verify: 8 slots x 9 rows (the flagship), 4 x 9 (the hybrid)
+BSPEC_M = (BSPEC_SLOTS * (BSPEC_BLOCK + 1), BSPEC_HYBRID_SLOTS * (BSPEC_BLOCK + 1))
+BSPEC_POS = 1000  # K5/K6's verify rows: 8 slots at 1000-1007 in 512-token pages
+# the grammar requests: a JSON object (integer bounds keep it short) and
+# an e-mail regex, in the exact format (no free whitespace)
+BSPEC_SCHEMA = {"type": "object",
+                "properties": {"city": {"enum": ["Paris", "Rome"]},
+                               "days": {"type": "integer", "minimum": 1, "maximum": 30}},
+                "required": ["city"]}
+BSPEC_REGEX = r"[a-z]{2,5}@[a-z]{1,6}\.(com|org)"
+BSPEC_EOS = 128001
+GRAMMAR_FRAGMENTS = ('{"', '"}', '":', '","', '":"', ',"', '{"city":"', 'city', 'days', 'Paris',
+                     'Rome', 'Par', 'is', '12', '30', '7', '.com', '.org', '@', 'co', 'org',
+                     'ab', 'xy', '}', '{', '"', ',', ':')
+
+
+class SynthTokenizer:
+    """Token strings over all of the flagship's ids, from a seed: id
+    BSPEC_EOS is the end-of-sequence special, the printable ASCII
+    characters and GRAMMAR_FRAGMENTS sit at seeded random ids, and every
+    other id is a filler of 2-5 lowercase letters. It exposes what a
+    GrammarSession reads (vocab_size, special_token_strings, id_to_token,
+    decode)."""
+
+    def __init__(self, vocab: int, seed: int = 17):
+        import numpy as np
+
+        rng = np.random.default_rng(seed)
+        letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+        pieces = ["".join(rng.choice(letters, int(rng.integers(2, 6)))) for _ in range(vocab)]
+        useful = [chr(c) for c in range(32, 127)] + list(GRAMMAR_FRAGMENTS)
+        ids = [int(i) for i in rng.permutation(vocab) if i != BSPEC_EOS][:len(useful)]
+        for i, piece in zip(ids, useful):
+            pieces[i] = piece
+        pieces[BSPEC_EOS] = "<eos>"
+        self.pieces = pieces
+        self.vocab_size = vocab
+        self.special_token_strings = {"<eos>"}
+
+    def id_to_token(self, i: int):
+        return self.pieces[i] if 0 <= i < self.vocab_size else None
+
+    def decode(self, ids) -> str:
+        return "".join(self.pieces[i] for i in ids if i != BSPEC_EOS)
+
+
+def check_batch_spec_rows(torch, timer, rows, usage) -> None:
+    """The verify's shapes (phase 17): K1 at M = 72 and 36 on the
+    flagship's linears (INT4, symmetric; the tile route); K5 and K6 at 72
+    query rows (8 slots of 9 rows, each slot's cut table of 2 pages and the
+    trash column repeated 9 times, row i of a slot at length pos + i + 1),
+    the bound counting each slot's live tokens once, against SDPA over the
+    gathered view with each slot's 9 rows as queries; K9 at the verify's
+    288 routed rows (72 tokens x 4 experts, 64-row tiles)."""
+    import torch.nn.functional as F
+
+    from uzu_tpu_torch.models.kv_cache import dequantize_rows, quantize_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for wname, n, k in LINEAR_SHAPES:
+        w, wd = random_qweights(torch, gen, n, k, 4)["symmetric"]
+        for m in BSPEC_M:
+            qmm_row(torch, timer, rows, w, wd, wname, m, "symmetric", gen)
+    b, s, h, g, dh, page = BSPEC_SLOTS, BSPEC_BLOCK + 1, 32, 8, 64, 512
+    p_total = b * 2 + 1
+    k = torch.randn((g, p_total, page, dh), device="cuda", generator=gen).to(torch.bfloat16)
+    v = torch.randn((g, p_total, page, dh), device="cuda", generator=gen).to(torch.bfloat16)
+    kq, ks = quantize_rows(k)
+    vq, vs = quantize_rows(v)
+    table = torch.cat([torch.randperm(p_total - 1, device="cuda", generator=gen)
+                       .reshape(b, 2).to(torch.int32),
+                       torch.full((b, 1), p_total - 1, dtype=torch.int32, device="cuda")], 1)
+    pos = torch.arange(b, device="cuda", dtype=torch.int32) + BSPEC_POS
+    lengths = (pos[:, None] + torch.arange(1, s + 1, device="cuda", dtype=torch.int32)
+               ).reshape(-1)
+    q = torch.randn((b * s, h, dh), device="cuda", generator=gen).to(torch.bfloat16)
+    rows_table = table.repeat_interleave(s, 0)
+    distinct = int((pos + s).sum())
+    width = 2 * page
+    keep = (torch.arange(width, device="cuda")[None, None, :]
+            < lengths.reshape(b, s)[:, :, None])[:, None]  # [B, 1, S, width]
+    for quant in (False, True):
+        kp, vp = (kq, vq) if quant else (k, v)
+        kw = dict(k_scales=ks, v_scales=vs) if quant else {}
+
+        def gathered(pool, sc):
+            t = pool[:, table[:, :2].long()].transpose(0, 1).reshape(b, g, width, dh)
+            if sc is not None:
+                t = dequantize_rows(t, sc[:, table[:, :2].long()].transpose(0, 1)
+                                    .reshape(b, g, width)).to(torch.bfloat16)
+            return t.contiguous()
+
+        kt, vt = gathered(kp, kw.get("k_scales")), gathered(vp, kw.get("v_scales"))
+        qt = q.reshape(b, s, h, dh).transpose(1, 2).contiguous()
+        lib = functools.partial(F.scaled_dot_product_attention, qt, kt, vt, attn_mask=keep,
+                                scale=dh ** -0.5, enable_gqa=True)
+        paged_row(torch, timer, rows, usage, q, kp, vp, rows_table, lengths, "verify9",
+                  "plain", kw, distinct_live=distinct, library=lib)
+        del kt, vt
+    del k, v, kq, vq
+    check_grouped_matmul(torch, timer, rows, cases=[(
+        "grouped_matmul_int4", BSPEC_SLOTS * (BSPEC_BLOCK + 1) * GPTOSS["num_active"], 64)])
+
+
+def bspec_prompts(vocab: int):
+    """8 prompts: four repetitive ones (a 16-token phrase 3 to 6 times,
+    where n-gram drafts find matches) and four of paged_prompts' (17, 700,
+    64 and 300 tokens)."""
+    import numpy as np
+
+    rep = [np.tile((np.arange(16) * 37 + 11 + 1000 * i) % vocab, 3 + i).tolist()
+           for i in range(4)]
+    return rep + paged_prompts(vocab)[:4]
+
+
+def bspec_run(torch, lm, eng, prompts, tokens: int, check: bool = True, no_sync: bool = False,
+              **submit_kw) -> tuple[list, dict]:
+    """Run the speculative engine `eng` over `prompts` (`tokens` each) to
+    idle. Its reading: tok/s over the run (admission included), verify
+    rounds and dispatches, acceptance, tokens per verify pass, launches per
+    round after admission (the rounds start once every slot is admitted).
+    With `check`, the streams under phase 4's rule against the single
+    stream; with `no_sync`, every fused dispatch under
+    torch.cuda.set_sync_debug_mode("error")."""
+    from uzu_tpu_torch.ops.cuda.build import LAUNCHES, reset_launches
+
+    snap, dispatches = {}, []
+    real_round = eng._verify_round
+
+    def first_round():
+        snap.setdefault("admitted", dict(LAUNCHES))
+        return real_round()
+
+    eng._verify_round = first_round
+    if no_sync:
+        real_fused = eng._fused_rounds
+
+        def fused(*a, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return real_fused(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                dispatches.append(a[1])
+
+        eng._fused_rounds = fused
+    reset_launches()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, tokens, **submit_kw) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    m = eng.metrics
+    generated = sum(len(r.tokens) for r in reqs)
+    rounds = max(eng.stats["verify_rounds"], 1)
+    pre = snap.get("admitted", {})
+    reading = dict(
+        requests=len(reqs), slots=eng.batch_size, draft_block=eng.draft_block,
+        generated=generated, seconds=secs, tok_s=generated / secs,
+        verify_rounds=eng.stats["verify_rounds"], verify_dispatches=eng.stats["verify_dispatches"],
+        verify_passes=m.num_verify_passes, proposed=m.num_tokens_proposed,
+        accepted=m.num_tokens_accepted, acceptance_rate=m.acceptance_rate,
+        tokens_per_pass=(generated - len(reqs)) / max(m.num_verify_passes, 1),
+        tokens_per_slot_verify=(generated - len(reqs))
+        / max(generated - len(reqs) - m.num_tokens_accepted, 1),
+        prefill_chunks=eng.stats["prefill_chunks"], launches=launches,
+        launches_per_round={k: (launches[k] - pre.get(k, 0)) / rounds for k in launches
+                            if launches[k] - pre.get(k, 0)},
+        preempted=[r.preempted for r in reqs])
+    if no_sync:
+        reading.update(sync_debug_dispatches=len(dispatches), rounds_per_dispatch=dispatches)
+    if any(not r.finished or not r.tokens for r in reqs):
+        raise AssertionError("a speculative batched request did not finish")
+    if check:
+        readings = stream_readings(torch, lm, prompts, [r.tokens for r in reqs])
+        reading.update(stream_summary(readings))
+        check_streams(readings)
+    return reqs, reading
+
+
+def plain_run(torch, eng, prompts, tokens: int) -> dict:
+    """tok/s of a plain chunked engine over the same requests."""
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, tokens) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    generated = sum(len(r.tokens) for r in reqs)
+    return dict(generated=generated, seconds=secs, tok_s=generated / secs,
+                decode_chunk=eng.decode_chunk)
+
+
+def bspec_log(info: dict, key: str, name: str, reading: dict) -> None:
+    info.setdefault(key, {})[name] = reading
+    log(f"{key.upper()} {name} " + json.dumps(reading))
+
+
+class WrongSpeculator:
+    """Proposes `k` tokens that follow no stream (last + 1, last + 2, ...):
+    a draft that is rejected, for the cut-table and acceptance controls."""
+
+    def __init__(self, vocab: int, k: int = BSPEC_BLOCK):
+        self.vocab, self.k = vocab, k
+
+    def propose(self, history):
+        return [(history[-1] + 1 + i) % self.vocab for i in range(self.k)]
+
+
+def bspec_controls(torch, lm16, info: dict) -> None:
+    """The stream check held to two planted faults of the paged verify, on
+    one slot of the flagship with rejected drafts (WrongSpeculator): the
+    acceptance takes one draft more than matched; and, with the tables cut
+    to the pages of the committed positions (so the rejected rows of a
+    block pass the cut whenever it lies within 8 rows, in 16-token pages),
+    a row past the cut is written through the table's last live column
+    (the JAX package's clip) instead of the trash column. Each clean run
+    passes the check; each planted one must fail it."""
+    import uzu_tpu_torch.engine.batch_spec as bs
+    import uzu_tpu_torch.models.paged_decode as pd
+
+    vocab = lm16.decoder_config.vocab_size
+    prompt = prompt_tokens(20, vocab).tolist()
+    real_accept, real_cols = bs.accepted_drafts, pd.verify_columns
+
+    def one_more(sampled, blk, draft_len):
+        return torch.minimum(real_accept(sampled, blk, draft_len) + 1, draft_len)
+
+    def clipped(positions, valid, width, page):
+        return torch.clamp(positions.long() // page, max=width - 2)
+
+    def engine(tight: bool):
+        eng = bs.SpeculativePagedBatchEngine(
+            lm16, batch_size=1, draft_block=BSPEC_BLOCK, num_pages=32, page_size=16,
+            stop_token_ids=[], make_speculator=lambda: WrongSpeculator(vocab))
+        if tight:  # the pages of positions up to the slot's own
+            eng._ctx_pages = lambda needed: -(-(needed - BSPEC_BLOCK - 1) // eng.page_size)
+        return eng
+
+    out = {}
+    for name, tight, patch in (("accept_clean", False, None),
+                               ("accept_one_more", False, ("accepted_drafts", one_more)),
+                               ("cut_clean", True, None),
+                               ("cut_live_column", True, ("verify_columns", clipped))):
+        eng = engine(tight)
+        if patch is not None:
+            setattr(bs if patch[0] == "accepted_drafts" else pd, patch[0], patch[1])
+        try:
+            r = eng.submit(prompt, CONTROL_TOKENS * 2)
+            eng.run()
+        finally:
+            bs.accepted_drafts, pd.verify_columns = real_accept, real_cols
+        readings = stream_readings(torch, lm16, [prompt], [r.tokens])
+        try:
+            check_streams(readings)
+            caught = None
+        except AssertionError as e:
+            caught = str(e)
+        out[name] = dict(stream_summary(readings), caught=caught,
+                         accepted=eng.metrics.num_tokens_accepted,
+                         verify_passes=eng.metrics.num_verify_passes)
+    info["batch_spec_controls"] = out
+    log("BATCH_SPEC_CONTROLS " + json.dumps(out))
+    if out["accept_clean"]["caught"] or out["cut_clean"]["caught"]:
+        raise AssertionError(f"a control's clean run failed the stream check: {out}")
+    missed = [k for k in ("accept_one_more", "cut_live_column") if out[k]["caught"] is None]
+    if missed:
+        raise AssertionError(f"the stream check passed planted faults: {missed}")
+
+
+def bspec_grammar(torch, lm16, plain_streams: dict, info: dict) -> None:
+    """Two sampled grammar requests (BSPEC_SCHEMA and BSPEC_REGEX on the
+    native backend, over SynthTokenizer's strings) share the paged engine
+    with six greedy plain ones (bspec_prompts' first six): every
+    constrained output ends on the stop token, parses and satisfies its
+    grammar; every token it sampled lies in the mask the host's matcher
+    gives for its prefix; the plain streams pass phase 4's rule and are
+    compared with the grammar-free n-gram run's (`plain_streams`)."""
+    import re
+
+    from uzu_tpu_torch.engine.batch_spec import SpeculativePagedBatchEngine
+    from uzu_tpu_torch.engine.sampling import SamplingParams
+    from uzu_tpu_torch.grammar import GrammarSession
+
+    vocab = lm16.decoder_config.vocab_size
+    t0 = time.perf_counter()
+    tok = SynthTokenizer(vocab)
+
+    def session(kind):
+        if kind == "json":
+            return GrammarSession(tok, schema=BSPEC_SCHEMA, stop_token_ids=[BSPEC_EOS],
+                                  backend="native", any_whitespace=False)
+        return GrammarSession(tok, regex=BSPEC_REGEX, stop_token_ids=[BSPEC_EOS],
+                              backend="native")
+
+    built = time.perf_counter() - t0
+    prompts = bspec_prompts(vocab)
+    eng = SpeculativePagedBatchEngine(lm16, batch_size=BSPEC_SLOTS, draft_block=BSPEC_BLOCK,
+                                      num_pages=64, stop_token_ids=[BSPEC_EOS])
+    sp = SamplingParams(temperature=1.0)
+    t0 = time.perf_counter()
+    greqs = [eng.submit(prompts[6 + i], 64, seed=31 + i, grammar=session(kind), sampling=sp)
+             for i, kind in enumerate(("json", "regex"))]
+    preqs = [eng.submit(p, BSPEC_TOKENS) for p in prompts[:6]]
+    eng.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    outputs = {}
+    for kind, r in zip(("json", "regex"), greqs):
+        text = tok.decode(r.tokens)
+        replay = session(kind)
+        misses = 0
+        for t in r.tokens:
+            mask = replay.current_mask()
+            misses += int(mask is not None and not mask[t])
+            if t == BSPEC_EOS:
+                break
+            replay.observe(t)
+        closed = r.tokens[-1] == BSPEC_EOS
+        valid = False
+        if closed and kind == "json":
+            try:
+                value = json.loads(text)
+                valid = (set(value) <= {"city", "days"} and value.get("city") in ("Paris", "Rome")
+                         and 1 <= value.get("days", 1) <= 30)
+            except ValueError:
+                valid = False
+        elif closed:
+            valid = re.fullmatch(BSPEC_REGEX, text) is not None
+        outputs[kind] = dict(text=text, tokens=len(r.tokens), closed=closed, valid=valid,
+                             mask_misses=misses, backend=replay.backend)
+    readings = stream_readings(torch, lm16, prompts[:6], [r.tokens for r in preqs])
+    equal = [r.tokens == plain_streams.get(i) for i, r in enumerate(preqs)]
+    m = eng.metrics
+    reading = dict(grammar=outputs, session_build_seconds=built, seconds=secs,
+                   generated=sum(len(r.tokens) for r in greqs + preqs),
+                   verify_passes=m.num_verify_passes, acceptance_rate=m.acceptance_rate,
+                   plain_equal_to_grammar_free=equal, **stream_summary(readings))
+    bspec_log(info, "batch_spec_flagship", "grammar", reading)
+    for kind, o in outputs.items():
+        if not (o["closed"] and o["valid"]) or o["mask_misses"] or o["backend"] != "native":
+            raise AssertionError(f"grammar request {kind}: {o}")
+    check_streams(readings)
+
+
+def batch_spec_flagship(torch, lm16, info: dict) -> None:
+    """Phase 17 on the full-width flagship through SpeculativePagedBatchEngine
+    (8 slots, blocks of 9 rows, 64 pages of 512 tokens): host n-gram drafts,
+    the self-draft of 4 layers, device n-gram drafts in fused rounds of 8
+    (each dispatch under set_sync_debug_mode("error")), each stream under
+    phase 4's rule, with the plain PagedBatchEngine's tok/s over the same
+    requests; a sampled run twice under one seed; a pool small enough to
+    preempt under sampling, whose streams equal the unpreempted ones; the
+    grammar requests beside plain ones; the planted controls."""
+    import numpy as np
+
+    from uzu_tpu_torch.engine.batch_spec import SpeculativePagedBatchEngine
+    from uzu_tpu_torch.engine.paged_batch import PagedBatchEngine
+    from uzu_tpu_torch.engine.sampling import SamplingParams
+
+    vocab = lm16.decoder_config.vocab_size
+    prompts = bspec_prompts(vocab)
+
+    def engine(**kw):
+        kw = dict(dict(batch_size=BSPEC_SLOTS, num_pages=64), **kw)
+        return SpeculativePagedBatchEngine(lm16, draft_block=BSPEC_BLOCK, stop_token_ids=[],
+                                           **kw)
+
+    bspec_run(torch, lm16, engine(), [p[:16] for p in prompts], 4, check=False)  # warm-up
+    key = "batch_spec_flagship"
+    bspec_log(info, key, "plain_paged", plain_run(
+        torch, PagedBatchEngine(lm16, batch_size=BSPEC_SLOTS, decode_chunk=8, num_pages=64,
+                                stop_token_ids=[]), prompts, BSPEC_TOKENS))
+    runs = {"ngram": dict(), "self_draft": dict(draft_layers=BSPEC_DRAFT_LAYERS["flagship"]),
+            "fused_device_ngram": dict(device_ngram=True, spec_rounds=BSPEC_ROUNDS)}
+    streams = {}
+    for name, kw in runs.items():
+        reqs, reading = bspec_run(torch, lm16, engine(**kw), prompts, BSPEC_TOKENS,
+                                  no_sync=name.startswith("fused"))
+        for k in ("quant_matmul_int4", "paged_attention"):
+            if not reading["launches_per_round"].get(k):
+                raise AssertionError(f"{key} {name}: {k} was not launched by the verify rounds")
+        bspec_log(info, key, name, reading)
+        streams[name] = [r.tokens for r in reqs]
+    if not info[key]["fused_device_ngram"]["sync_debug_dispatches"]:
+        raise AssertionError(f"{key}: no fused dispatch ran")
+
+    sp = SamplingParams(temperature=0.8, top_k=64, top_p=0.95)
+    sampled = []
+    for _ in range(2):
+        reqs, reading = bspec_run(torch, lm16, engine(sampling=sp), prompts, BSPEC_TOKENS // 2,
+                                  check=False, seed=7)
+        sampled.append([r.tokens for r in reqs])
+    bspec_log(info, key, "sampled", dict(reading, repeat=sampled[0] == sampled[1]))
+    if sampled[0] != sampled[1]:
+        raise AssertionError(f"{key}: a sampled run gave other tokens under the same seed")
+
+    # recompute preemption under sampling: two live requests of 200 prompt
+    # tokens and 96 new ones grow to 5 pages of 64 each; the pool holds 9
+    pre_prompts = [((np.arange(200) * (41 + 2 * i) + 7 * i) % vocab).tolist() for i in range(3)]
+    outs = {}
+    for name, pages in (("preempting_pool", 10), ("roomy_pool", 64)):
+        reqs, reading = bspec_run(torch, lm16, engine(batch_size=3, num_pages=pages,
+                                                      page_size=64, sampling=sp),
+                                  pre_prompts, 96, check=False, seed=3)
+        outs[name] = ([r.tokens for r in reqs], reading)
+    (small, rs), (big, rb) = outs["preempting_pool"], outs["roomy_pool"]
+    bspec_log(info, key, "preemption", dict(preempted=rs["preempted"], equal=small == big,
+                                            seconds=rs["seconds"], tok_s=rs["tok_s"]))
+    if not max(rs["preempted"]) or small != big:
+        raise AssertionError(f"{key}: preemption {rs['preempted']}, replay equal {small == big}")
+
+    bspec_grammar(torch, lm16, dict(enumerate(streams["ngram"][:6])), info)
+    bspec_controls(torch, lm16, info)
+
+
+def batch_spec_int8(torch, model_dir: str, info: dict) -> None:
+    """Phase 17 on the 2-layer INT8 flagship with INT8 pools (K2 linears,
+    K4 admission, K6 verify): the n-gram run under phase 4's rule."""
+    from uzu_tpu_torch.engine.batch_spec import SpeculativePagedBatchEngine
+    from uzu_tpu_torch.engine.engine import LanguageModel
+
+    lm = LanguageModel.from_dir(model_dir, device="cuda", max_context=4096, kv_quant=True)
+    prompts = bspec_prompts(lm.decoder_config.vocab_size)
+    eng = SpeculativePagedBatchEngine(lm, batch_size=BSPEC_SLOTS, draft_block=BSPEC_BLOCK,
+                                      num_pages=64, stop_token_ids=[])
+    _, reading = bspec_run(torch, lm, eng, prompts, BSPEC_TOKENS)
+    for k in ("quant_matmul_int8", "paged_attention_int8", "flash_attention_int8"):
+        if not reading["launches"].get(k):
+            raise AssertionError(f"batch_spec_int8: {k} was not launched")
+    bspec_log(info, "batch_spec_int8", "ngram", reading)
+
+
+def batch_spec_hybrid(torch, lm_h, info: dict) -> None:
+    """Phase 17 on the full-depth Qwen3.5-class hybrid through
+    SpeculativeBatchEngine (4 slots, blocks of 9): n-gram and self-draft
+    (6 layers) runs under phase 4's rule beside the plain BatchEngine's
+    tok/s; then one verify round of 4 slots x 9 rows whose drafts are each
+    slot's plain stream for two tokens and wrong after: with K1 kept on
+    one route on both sides (`k1_one_route`, "small" then "tile"), every
+    slot's committed GDN states lie within TOL relative L2 of the states
+    the committed tokens give fed one at a time through the engine's
+    decode step; the served round (no route kept) is reported beside."""
+    from uzu_tpu_torch.engine.batch import BatchEngine
+    from uzu_tpu_torch.engine.batch_spec import SpeculativeBatchEngine
+
+    vocab = lm_h.decoder_config.vocab_size
+    prompts = bspec_prompts(vocab)[:2] + batched_prompts(vocab)[:2]
+    key = "batch_spec_hybrid"
+
+    def engine(**kw):
+        return SpeculativeBatchEngine(lm_h, batch_size=BSPEC_HYBRID_SLOTS,
+                                      draft_block=BSPEC_BLOCK, stop_token_ids=[], **kw)
+
+    bspec_run(torch, lm_h, engine(), [p[:16] for p in prompts], 4, check=False)  # warm-up
+    bspec_log(info, key, "plain_batched", plain_run(
+        torch, BatchEngine(lm_h, batch_size=BSPEC_HYBRID_SLOTS, decode_chunk=8,
+                           stop_token_ids=[]), prompts, BSPEC_HYBRID_TOKENS))
+    for name, kw in (("ngram", {}), ("self_draft",
+                                     dict(draft_layers=BSPEC_DRAFT_LAYERS["hybrid"]))):
+        _, reading = bspec_run(torch, lm_h, engine(**kw), prompts, BSPEC_HYBRID_TOKENS)
+        if not reading["launches_per_round"].get("quant_matmul_int4"):
+            raise AssertionError(f"{key} {name}: K1 was not launched by the verify rounds")
+        bspec_log(info, key, name, reading)
+
+    # held: the runs' 4 slots of 9 rows (M = 36) with K1 kept on one route
+    # on both sides (`k1_one_route`), so that every K1 row of the verify is
+    # bitwise the decode step's and what is left is the verify and commit
+    # path's own distance; reported beside them: the served round, K1's
+    # tile rows at M = 36 against qmm_small's at M = 4 (sums in another
+    # order, carried on through bf16 activations over 24 layers)
+    served = bspec_partial_commit(torch, lm_h, prompts, BSPEC_BLOCK)
+    held = {}
+    for route in ("small", "tile"):
+        with k1_one_route(route):
+            held[route] = bspec_partial_commit(torch, lm_h, prompts, BSPEC_BLOCK)
+    bspec_log(info, key, "partial_commit", dict(k1_small=held["small"], k1_tile=held["tile"],
+                                                tol=TOL, served=served))
+    for route, part in held.items():
+        if not all(1 < c < part["block"] for c in part["commits"]):
+            raise AssertionError(f"{key} (K1 {route}): commits {part['commits']} are not "
+                                 f"partial acceptances")
+        if part["pos"] != [len(p) + c for p, c in zip(prompts, part["commits"])]:
+            raise AssertionError(f"{key} (K1 {route}): committed positions {part['pos']}")
+        if not part["max_rel_l2"] <= TOL:
+            raise AssertionError(f"{key} (K1 {route}): a committed GDN state lies "
+                                 f"{part['max_rel_l2']:.3e} (relative L2) from the "
+                                 f"token-at-a-time one (limit {TOL})")
+
+
+@contextlib.contextmanager
+def k1_one_route(route: str):
+    """While open, K1 (`ops/cuda/quant_matmul.py::quant_matmul`, as
+    `ops/linear.py` calls it) runs every product on one route, so that a
+    row's sum does not depend on how many rows share its launch: "small"
+    cuts a product of more than GEMV_MAX_M rows into pieces of at most
+    GEMV_MAX_M (qmm_small's rows are bitwise its M = 1 rows); "tile" pads
+    a product of at most GEMV_MAX_M rows with zero rows to GEMV_MAX_M + 1
+    (qmm_tile's plan is the same for every M from 33 to 128, and a row's
+    sum does not depend on the other rows). A witness for the partial-commit
+    check only; the engines' runs never open it."""
+    import torch
+    from uzu_tpu_torch.ops.cuda import quant_matmul as qmm
+
+    launch, cut = qmm.quant_matmul, qmm.GEMV_MAX_M
+
+    def pieces(w, x2):
+        return torch.cat([launch(w, x2[i:i + cut]) for i in range(0, x2.shape[0], cut)])
+
+    def padded(w, x2):
+        m = x2.shape[0]
+        if m > cut:
+            return launch(w, x2)
+        return launch(w, torch.cat([x2, x2.new_zeros((cut + 1 - m, x2.shape[1]))]))[:m]
+
+    qmm.quant_matmul = {"small": pieces, "tile": padded}[route]
+    try:
+        yield
+    finally:
+        qmm.quant_matmul = launch
+
+
+def bspec_partial_commit(torch, lm_h, prompts, m: int) -> dict:
+    """One round of the dense speculative engine over the hybrid (a slot
+    per prompt, blocks of m + 1 rows) whose drafts are each slot's plain
+    stream for two tokens and wrong after. The reference feeds each slot's
+    committed tokens one at a time through the engine's own decode step
+    (`batch_decode_step`, a slot with nothing left to feed taking identity
+    steps) from a copy of the state the round started from. Returns the
+    commits and, per GDN layer, the largest relative L2 distance (ssm or
+    conv state, over the slots)."""
+    from uzu_tpu_torch.engine.batch_spec import SpeculativeBatchEngine
+    from uzu_tpu_torch.models.batch_decode import batch_decode_step
+
+    dev = lm_h.device
+    vocab = lm_h.decoder_config.vocab_size
+    slots = len(prompts)
+    eng = SpeculativeBatchEngine(lm_h, batch_size=slots, draft_block=m, stop_token_ids=[])
+    plains = [lm_h.generate_list(p, 3, stop_token_ids=[]) for p in prompts]
+    reqs = [eng.submit(p, 64) for p in prompts]
+    while eng._admit():
+        pass
+    eng._fetch_first_tokens()
+    drafts = torch.tensor([pl[1:3] + [(t + 1) % vocab for t in range(m - 2)]
+                           for pl in plains], device=dev)
+    ctx = eng._round_ctx(m + 2, m + 2)
+    ref = {"layers": [None if lr is None else {k: v.clone() for k, v in lr.items()}
+                      for lr in eng._state["layers"]], "pos": eng._state["pos"].clone()}
+    rows, noisy, key0, counts = eng._device_inputs()
+    produced = torch.ones(slots, dtype=torch.long, device=dev)
+    block = torch.cat([eng._tokens[:, None], drafts], 1)
+    _, _, _, _, commit, _ = eng._round(
+        ctx, eng._tokens, drafts, torch.full((slots,), m, device=dev), eng._halted,
+        eng._remaining, produced, rows, noisy, key0, counts)
+    for i in range(int(commit.max())):
+        fed = (i < commit).to(torch.int32)
+        _, ref = batch_decode_step(lm_h.decoder_config, lm_h.params, block[:, i], ref, fed, ctx)
+    commit = commit.tolist()
+    per_layer = {}
+    for i, (layer, want) in enumerate(zip(eng._state["layers"], ref["layers"])):
+        if layer is not None and "ssm" in layer:
+            per_layer[i] = max(float((layer[k][b].float() - want[k][b].float()).norm()
+                                     / want[k][b].float().norm().clamp(min=1e-30))
+                               for k in ("ssm", "conv") for b in range(slots))
+    return dict(block=m + 1, k1_rows=slots * (m + 1), commits=commit,
+                firsts_equal_plain=[r.tokens[0] == pl[0] for r, pl in zip(reqs, plains)],
+                gdn_layers=len(per_layer), max_rel_l2=max(per_layer.values()),
+                rel_l2_per_gdn_layer=[per_layer[i] for i in sorted(per_layer)],
+                pos=[int(x) for x in eng._state["pos"]],
+                ref_pos=[int(x) for x in ref["pos"]],
+                prompt_tokens=[len(p) for p in prompts])
+
+
+def batch_spec_gptoss(torch, lm_oss, info: dict) -> None:
+    """Phase 17 on gpt-oss (4 layers) through SpeculativePagedBatchEngine:
+    8 slots admitted, then one verify round of 9-row blocks (72 rows: K9's
+    tile route) through the engine's verify, against paged_decode_step fed
+    the same tokens one row at a time into the same pools, each MoE layer
+    taking the verify's expert choices (phase 16's pinning); relative L2
+    <= TOL, and every pinned choice a router near-tie (check_routing)."""
+    import uzu_tpu_torch.models.moe as moe
+    from uzu_tpu_torch.engine.batch_spec import SpeculativePagedBatchEngine
+    from uzu_tpu_torch.models.paged_decode import paged_decode_step
+    from uzu_tpu_torch.ops.cuda.build import LAUNCHES, reset_launches
+
+    vocab = lm_oss.decoder_config.vocab_size
+    layers = len(lm_oss.decoder_config.transformer_config.layer_configs)
+    dev = lm_oss.device
+    m, b = BSPEC_BLOCK, BSPEC_SLOTS
+    eng = SpeculativePagedBatchEngine(lm_oss, batch_size=b, draft_block=m, num_pages=64,
+                                      stop_token_ids=[])
+    prompts = paged_prompts(vocab)[:b]
+    for p in prompts:
+        eng.submit(p, 32)
+    while eng._admit():
+        pass
+    eng._fetch_first_tokens()
+    drafts = torch.as_tensor(prompt_tokens(b * m + 5, vocab)[5:].reshape(b, m), device=dev)
+    blk = torch.cat([eng._tokens[:, None], drafts.long()], 1)
+    ctx = eng._round_ctx(m + 2, m + 2)
+    pos0 = eng._positions.clone()
+    routes = []
+    real = moe.router_topk
+
+    def recording(c, p, x):
+        r = real(c, p, x)
+        routes.append(r[0])
+        return r
+
+    moe.router_topk = recording
+    reset_launches()
+    try:
+        logits = eng._verify_forward(ctx, blk, eng._halted)
+    finally:
+        moe.router_topk = real
+    launches = dict(LAUNCHES)
+    calls = []
+
+    def replay(x):  # the i-th router call: layer i % layers of row i // layers
+        i = len(calls)
+        calls.append(i)
+        return routes[i % layers].reshape(b, m + 1, -1)[:, i // layers]
+
+    pinned, gaps = pinned_router(torch, replay)
+    ref = []
+    moe.router_topk = pinned
+    try:
+        for i in range(m + 1):
+            ref.append(paged_decode_step(lm_oss.decoder_config, lm_oss.params, eng.pools,
+                                         blk[:, i], ctx[0], pos0 + i))
+    finally:
+        moe.router_topk = real
+    ref = torch.stack(ref, 1).float()
+    rel = float((logits.float() - ref).norm() / ref.norm())
+    rg = torch.cat(gaps).double().tolist()
+    reading = dict(rows=b * (m + 1), rel_l2=rel, tol=TOL, launches={
+        k: v for k, v in launches.items() if v}, launches_per_round={
+        k: v for k, v in launches.items() if v}, routed_rows=len(rg),
+        router_flips=sum(g > 0 for g in rg), max_router_gap=max(rg))
+    bspec_log(info, "batch_spec_gptoss", "verify", reading)
+    if not launches.get("grouped_matmul_int4") or not launches.get("paged_attention"):
+        raise AssertionError(f"batch_spec_gptoss: the verify launched {launches}")
+    if not rel <= TOL:
+        raise AssertionError(f"batch_spec_gptoss: the verify's logits lie {rel:.3e} (relative "
+                             f"L2) from the paged decode steps' (limit {TOL})")
+    check_routing([dict(max_router_gap=reading["max_router_gap"])])
+
+
 def kernel_record(rows, info) -> list[dict]:
     """One entry per kernel at its main-path shape (the decode GEMV of the
     up|gate projection for K1/K2, a 256-row prefill chunk over a 1024-slot
@@ -3693,6 +4388,25 @@ def kernel_record(rows, info) -> list[dict]:
         verify[f"flash_attention_verify_s{r}_dh32"] = (
             "flash_attention", dict(S=r, C=1024, pos0=SPEC_POS0, Dh=32, H=8),
             ("spec_hybrid", "chain_oracle"))
+    # the batched verify's shapes (phase 17): K1 at M = 72 / 36 on the
+    # up|gate linear (the flagship's and the hybrid's n-gram runs), K5 / K6
+    # at 8 slots x 9 rows over repeated tables (the flagship's and the INT8
+    # flagship's n-gram runs), K9 at the verify's 288 routed rows (gpt-oss)
+    bspec = {
+        f"quant_matmul_int4_bspec_m{BSPEC_M[0]}": (
+            "quant_matmul_int4", dict(weight="up|gate", M=BSPEC_M[0], variant="symmetric"),
+            ("batch_spec_flagship", "ngram")),
+        f"quant_matmul_int4_bspec_m{BSPEC_M[1]}": (
+            "quant_matmul_int4", dict(weight="up|gate", M=BSPEC_M[1], variant="symmetric"),
+            ("batch_spec_hybrid", "ngram")),
+        "paged_attention_bspec_r72": ("paged_attention", dict(lengths="verify9"),
+                                      ("batch_spec_flagship", "ngram")),
+        "paged_attention_int8_bspec_r72": ("paged_attention_int8", dict(lengths="verify9"),
+                                           ("batch_spec_int8", "ngram")),
+        "grouped_matmul_int4_bspec_t288": (
+            "grouped_matmul_int4", dict(weight="up", T=BSPEC_M[0] * GPTOSS["num_active"]),
+            ("batch_spec_gptoss", "verify")),
+    }
     out = []
     for name, (src, replaces, where, path, kernel) in spec.items():
         kname = name.split("_dh")[0]
@@ -3737,6 +4451,26 @@ def kernel_record(rows, info) -> list[dict]:
             shape={k: rep[k] for k in rep if k in ("weight", "N", "K", "M", "S", "H", "G",
                                                     "Dh", "C", "pos0", "q", "splits",
                                                     "variant", "instance")}))
+    for name, (kname, where, (path, run)) in bspec.items():
+        src, replaces, _, _, kernel = spec[kname]
+        mine = [r for r in rows if r["kernel"] == kname
+                and all(r[k] == v for k, v in where.items())]
+        rep = mine[0]
+        reading = info[path][run]
+        out.append(dict(
+            name=name, route="cuda", source=src, kernel=kernel, replaces=replaces,
+            launches=reading["launches"].get(kname, 0),
+            launches_per_verify_round=reading["launches_per_round"].get(kname, 0),
+            launches_by_path={f"{path}/{run}": reading["launches"].get(kname, 0)},
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            err_over_rms=max(r["err_over_rms"] for r in mine), tol=rep["tol"],
+            ms=rep["ms"], device_ms=rep["device_ms"], plain_ms=rep["plain_ms"],
+            bound_ms=rep["bound_ms"], bound_by=rep["bound_by"], library_ms=rep["library_ms"],
+            library_device_ms=rep["library_device_ms"],
+            shape={k: rep[k] for k in rep if k in (
+                "weight", "N", "K", "M", "H", "G", "Dh", "q", "splits", "variant", "B", "page",
+                "width", "lengths", "live_tokens", "distinct_live_tokens", "E", "T", "Tp", "bm",
+                "route", "bn", "used_tiles", "distinct_experts")}))
     return out
 
 
@@ -3867,6 +4601,34 @@ def main() -> int:
         log("SPEC_ONLY " + json.dumps(info["phase_seconds"]))
         return 0
 
+    if "--batch-spec-only" in sys.argv[1:]:
+        # phase 17 alone, with its K1 / K5 / K6 / K9 verify-shape rows
+        from uzu_tpu_torch.engine.engine import LanguageModel
+
+        t0 = time.perf_counter()
+        with ProcessPoolExecutor(len(BSPEC_MODELS),
+                                 mp_context=multiprocessing.get_context("spawn")) as ex:
+            dirs = dict(zip(BSPEC_MODELS, ex.map(synth_model, BSPEC_MODELS)))
+        log(f"BUILD kernels built in {kbuild.build():.1f} s, models synthesized in "
+            f"{time.perf_counter() - t0:.1f} s")
+        timer, rows = Timer(torch), []
+        check_batch_spec_rows(torch, timer, rows,
+                              kernel_usage(kbuild.BUILD_LOGS.get("paged_attention", ""),
+                                           "paged_decode"))
+        del timer
+        torch.cuda.empty_cache()
+        phase = functools.partial(timed_phase, info)
+        for name, fn, model in (("batch_spec_gptoss", batch_spec_gptoss, "gptoss_int4"),
+                                ("batch_spec_flagship", batch_spec_flagship, "llama1b_int4"),
+                                ("batch_spec_hybrid", batch_spec_hybrid, "qwen08_int4")):
+            lm = LanguageModel.from_dir(dirs[model], device="cuda", max_context=4096)
+            phase(name, fn, torch, lm, info)
+            del lm
+            torch.cuda.empty_cache()
+        phase("batch_spec_int8", batch_spec_int8, torch, dirs["llama1b_int8_2l"], info)
+        log("BATCH_SPEC_ONLY " + json.dumps(info["phase_seconds"]))
+        return 0
+
     if "--gemma-only" in sys.argv[1:]:
         # the Gemma slice alone: its kernel rows and phase 14
         t0 = time.perf_counter()
@@ -3939,6 +4701,7 @@ def main() -> int:
     check_grouped_rows(torch, info)
     check_moe_rows(torch, info)
     check_block_copy(torch, timer, rows)
+    check_batch_spec_rows(torch, timer, rows, paged_usage)
     del timer
     torch.cuda.empty_cache()
     info["phase_seconds"]["kernels"] = time.perf_counter() - t0
@@ -3960,6 +4723,7 @@ def main() -> int:
     phase("whole_path_gptoss", whole_path_check, torch, lm_oss, 4, GPTOSS["vocab_size"],
           "whole_path_gptoss", info)
     phase("spec_gptoss", spec_gptoss, torch, lm_oss, info)
+    phase("batch_spec_gptoss", batch_spec_gptoss, torch, lm_oss, info)
     phase("tools_profile_gptoss", tools_profile, torch, lm_oss, "gptoss", GPTOSS["vocab_size"],
           info)
     del lm_oss
@@ -3971,7 +4735,10 @@ def main() -> int:
     phase("tools_bisect", tools_bisect, torch, info)
     phase("sampled", path_sampled, torch, lm16, info)
     phase("spec_flagship", spec_flagship, torch, lm16, dirs, info)
+    phase("batch_spec_flagship", batch_spec_flagship, torch, lm16, info)
     del lm16
+    torch.cuda.empty_cache()
+    phase("batch_spec_int8", batch_spec_int8, torch, dirs["llama1b_int8_2l"], info)
     torch.cuda.empty_cache()
     lm_h = phase("hybrid", path_hybrid, torch, dirs["qwen08_int4"], info)
     phase("hybrid_chunking", hybrid_chunking_check, torch, lm_h, info)
@@ -3981,6 +4748,7 @@ def main() -> int:
     phase("batched", path_batched, torch, lm_h, info)
     phase("control_batched", control_batched_fault, torch, lm_h, info)
     phase("spec_hybrid", spec_hybrid, torch, lm_h, info)
+    phase("batch_spec_hybrid", batch_spec_hybrid, torch, lm_h, info)
     phase("tools_profile_hybrid", tools_profile, torch, lm_h, "hybrid", QWEN08["vocab_size"],
           info)
     del lm_h

@@ -31,7 +31,7 @@ from uzu_tpu_torch.engine.batch import BatchEngine
 from uzu_tpu_torch.engine.paged_batch import PagedBatchEngine
 from uzu_tpu_torch.models import kv_cache as pkv
 from uzu_tpu_torch.models import ple as pple
-from uzu_tpu_torch.models.batch_decode import _write_rows
+from uzu_tpu_torch.models.batch_decode import _write_block
 from uzu_tpu_torch.models.decoder import decoder_forward
 from uzu_tpu_torch.tools import quality as pquality
 from uzu_tpu_torch.tools import synth as psynth
@@ -152,7 +152,7 @@ def test_batched_ring_write_equals_single_append(quantized):
         positions = torch.tensor([step, 2 * step + 1, step + 7], dtype=torch.int32)
         k = torch.from_numpy(rng.standard_normal((b, 2, 8)).astype(np.float32))
         v = torch.from_numpy(rng.standard_normal((b, 2, 8)).astype(np.float32))
-        _write_rows(batched, k, v, positions)
+        _write_block(batched, k[:, None], v[:, None], positions[:, None])
         for i in range(b):
             pkv.append(single[i], k[i:i + 1], v[i:i + 1], positions[i:i + 1])
     assert batched["pos"].shape == (b, c)

@@ -3,7 +3,8 @@
 Counterpart of `uzu_tpu/engine/batch.py`: `Request`, `_Slot`, the
 host-side scheduler shared by both batch engines (`BatchEngineBase`:
 submission, cancel, prefix matching, per-slot sampling rows, count
-penalties, the chunk pipeline of `step`), and the dense slot-per-request
+penalties, grammar masks for the first token, the chunk pipeline of
+`step`), and the dense slot-per-request
 `BatchEngine`, which serves every model the port runs, recurrent hybrids
 included (the paged engine, `engine/paged_batch.py`, takes standard
 attention-only models).
@@ -92,8 +93,8 @@ class Request:
     prompt: list[int]
     max_new_tokens: int
     seed: int = 0
-    # grammar constraints need the speculative engines (not ported yet);
-    # the chunked engines reject them at submit
+    # a GrammarSession: only the speculative engines (engine/batch_spec.py)
+    # take one; the chunked engines reject it at submit
     grammar: Optional[object] = None
     # per-request sampling override (OpenAI temperature/top_k/top_p/min_p):
     # the decode step samples every row with its own parameters
@@ -143,7 +144,7 @@ class BatchEngineBase:
     snapshot {slot: (request, has_first, preemption count)})."""
 
     #: grammar-constrained requests need per-round host masks, which the
-    #: fused K-step chunk engines do not have
+    #: fused K-step chunk engines do not have (the speculative engines do)
     supports_grammar = False
     supports_count_penalties = True
 
@@ -171,9 +172,12 @@ class BatchEngineBase:
             raise ValueError("logprobs must be in [0, 20]")
         if (presence_penalty or frequency_penalty) and not self.supports_count_penalties:
             raise ValueError("presence/frequency penalties are not supported by this engine")
-        if grammar is not None and not self.supports_grammar:
-            raise ValueError("grammar-constrained requests need per-round masks, which "
-                             "this engine does not have")
+        if grammar is not None:
+            if not self.supports_grammar:
+                raise ValueError("grammar-constrained requests need per-round masks; use a "
+                                 "speculative engine (SpeculativeBatchEngine / "
+                                 "SpeculativePagedBatchEngine)")
+            grammar.stop_token_ids = sorted(self.stop_ids) or grammar.stop_token_ids
         if sampling == self.sampling:
             sampling = None  # the engine default
         self._check_sampling_override(sampling)
@@ -280,16 +284,31 @@ class BatchEngineBase:
         counts[slot_i].zero_()
         counts[slot_i].index_fill_(0, first.reshape(1).long(), 1)
 
-    def _sample_rows(self, logits, rows, key0, key1, sampled: bool, counts=None):
+    def _sample_rows(self, logits, rows, key0, key1, sampled: bool, counts=None,
+                     bitmask=None):
         """Sample logits [N, V] with sampling rows [N, 6] (f32, on the
         device) and noise keys key0/key1 [N]; `sampled` is False when every
         row is greedy (no noise is drawn); count penalties where `counts`
-        is given."""
+        is given, grammar masks [N, V] where `bitmask` is."""
         if counts is not None:
             logits = apply_count_penalties(logits.float(), counts, rows[:, 4:5], rows[:, 5:6])
         noise = gumbel_noise(key0, key1, logits.shape[-1]) if sampled else None
         return sample_dynamic(logits, rows[:, 0], rows[:, 1], rows[:, 2], rows[:, 3], noise,
-                              banned_tokens=self.sampling.banned_tokens)
+                              bitmask=bitmask, banned_tokens=self.sampling.banned_tokens)
+
+    def _grammar_first_mask(self, req: Request):
+        """[1, V] mask of a grammar request's first token (the constrained
+        loop masks the prefill's sample too); None when unconstrained or
+        the grammar's trigger has not engaged."""
+        if req.grammar is None:
+            return None
+        m = req.grammar.current_mask()
+        if m is None:
+            return None
+        from ..grammar.decode import _pad_mask
+
+        vocab = self.lm.decoder_config.vocab_size
+        return torch.from_numpy(_pad_mask(m, vocab)[None].copy()).to(self.lm.device)
 
     @staticmethod
     def _logprobs(logits, tokens, n: int):
@@ -310,7 +329,7 @@ class BatchEngineBase:
         first = self._sample_rows(
             logits[None], rows, torch.zeros(1, dtype=torch.long, device=dev),
             torch.full((1,), req.seed, dtype=torch.long, device=dev),
-            bool(self._samp[slot_i, 0] > 0))
+            bool(self._samp[slot_i, 0] > 0), bitmask=self._grammar_first_mask(req))
         pending = [first]
         if req.logprobs:
             pending += list(self._logprobs(logits[None], first, req.logprobs))

@@ -280,6 +280,9 @@ class PagedBatchEngine(BatchEngineBase):
         req.tokens = []
         req.logprob_content = []
         req.preempted += 1
+        if req.grammar is not None:
+            # the replayed stream observes every token again from the start
+            req.grammar.reset()
         slot.request = None
         self.pool.release(slot_i)
         self._admit_order.pop(slot_i, None)
@@ -299,14 +302,18 @@ class PagedBatchEngine(BatchEngineBase):
 
     def _grow_or_preempt(self, k: int) -> None:
         """Reserve pages for this chunk and the one in flight (the host's
-        position mirror lags by up to one chunk: a 2K margin). On overflow
-        the prefix cache yields first, then the youngest live request is
-        preempted; a request alone in the pool that still cannot grow
-        finishes as "length"."""
+        position mirror lags by up to one chunk: a 2K margin)."""
+        self._reserve_pages(lambda slot: slot.pos + min(
+            2 * k, max(slot.request.max_new_tokens - slot.produced, 1)))
+
+    def _reserve_pages(self, tokens_of) -> None:
+        """Pages for `tokens_of(slot)` tokens of every live slot (at most
+        max_context). On overflow the prefix cache yields first, then the
+        youngest live request is preempted; a request alone in the pool
+        that still cannot grow finishes as "length"."""
         for i, slot in enumerate(self.slots):
             while not slot.free:
-                budget = slot.request.max_new_tokens - slot.produced
-                want = min(slot.pos + min(2 * k, max(budget, 1)), self.lm.max_context)
+                want = min(tokens_of(slot), self.lm.max_context)
                 try:
                     self.pool.ensure(i, want)
                     break

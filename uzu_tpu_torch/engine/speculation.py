@@ -123,16 +123,20 @@ def sample_rows(logits: torch.Tensor, sampling: SamplingParams,
     return torch.stack([sample(row, sampling, generator=generator) for row in logits])
 
 
+def accepted_drafts(sampled: torch.Tensor, blk: torch.Tensor, draft_len) -> torch.Tensor:
+    """[B] drafts accepted per block of blk [B, n]: the longest prefix of
+    blk[:, 1:] equal to the tokens sampled at the rows before it, among
+    each block's first `draft_len` drafts ([B], or one int for all)."""
+    if isinstance(draft_len, torch.Tensor):
+        draft_len = draft_len.reshape(-1, 1)
+    match = (sampled[:, :-1] == blk[:, 1:]) & (
+        torch.arange(blk.shape[1] - 1, device=blk.device)[None, :] < draft_len)
+    return torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
+
+
 def accepted_length(sampled: torch.Tensor, block: torch.Tensor, draft_len) -> torch.Tensor:
-    """Drafts accepted (0-d int32): the longest prefix of block[1:] equal
-    to the tokens sampled at the rows before it, among the first
-    `draft_len` drafts."""
-    n = block.shape[0]
-    if n == 1:
-        return torch.zeros((), dtype=torch.int32, device=block.device)
-    match = (sampled[:-1] == block[1:]) & (
-        torch.arange(n - 1, device=block.device) < draft_len)
-    return torch.cumprod(match.to(torch.int32), 0).sum().to(torch.int32)
+    """Drafts accepted (0-d int32) of one block: `accepted_drafts` at B = 1."""
+    return accepted_drafts(sampled[None], block[None], draft_len)[0].to(torch.int32)
 
 
 def commit_length(sampled: torch.Tensor, accepted: torch.Tensor, remaining,

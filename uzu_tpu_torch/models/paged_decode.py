@@ -1,23 +1,29 @@
 """Batched decode step and prefill chunk over a paged KV cache.
 
-Counterpart of `uzu_tpu/models/paged_decode.py` (the decode step and the
-prefill chunk; the speculative verify step waits for the speculation
-slice of the port). Per layer, the rows run the dense path's projections,
-norms and MLP (`models/decoder.py` helpers; rows are independent), the new
-K/V rows go into the shared page pools with one indexed write per pool
-tensor, and attention reads through the page tables:
+Counterpart of `uzu_tpu/models/paged_decode.py` (the decode step, the
+prefill chunk and the speculative verify step). Per layer, the rows run
+the dense path's projections, norms and MLP (`models/decoder.py` helpers;
+rows are independent), the new K/V rows go into the shared page pools
+with one indexed write per pool tensor, and attention reads through the
+page tables:
 
 - decode: B slots advance one token each; attention is K5/K6
   (`ops/cuda/paged_attention.py`), which walks each slot's live pages;
+- verify: B slots advance S rows each, with logits at every row; every
+  row's K/V is written first, then one K5/K6 launch per layer reads the
+  B*S rows, each slot's table repeated S times and row i's length its
+  position + 1, which is causal within the block (the JAX package reads
+  a gathered dense view per slot instead, as the prefill does);
 - prefill: S rows of one slot; attention reads a dense slot-per-position
   view gathered from the slot's first `ctx_pages` pages, through K3 (bf16
   pools) or K4 (INT8 pools, codes + scales) where the flash gate holds.
 
 Pools are updated in place. Every page table's trash page takes the rows
 that must land nowhere: a prefill chunk's padded rows go to the table's
-sentinel entry, and in the decode step a slot whose logical page lies past
-the table's width writes through the table's last column, which the
-engine keeps pointing at the trash page.
+sentinel entry, and in the decode and verify steps a row whose logical
+page lies past the (cut) table's width writes through the table's last
+column, which the engine keeps pointing at the trash page; a verify slot
+with `valid` False writes only there.
 """
 
 from __future__ import annotations
@@ -180,3 +186,51 @@ def paged_decode_step(
 
     x = _layers(cfg, params, embed(cfg, params, tokens), pools, attend)
     return readout(cfg, params, x)
+
+
+def verify_columns(positions: torch.Tensor, valid: torch.Tensor, width: int,
+                   page: int) -> torch.Tensor:
+    """[B, S] table columns of the verify rows' writes in a table of
+    `width` columns whose last is the trash page: a row past the cut table
+    and every row of an invalid slot go to that column, never to a live
+    column of the slot's own table (the JAX package clips such a row to its
+    table's last live column; see ROADMAP.md section 3)."""
+    col = torch.clamp(positions.long() // page, max=width - 1)
+    return torch.where(valid[:, None], col, width - 1)
+
+
+def paged_verify_step(
+    cfg: DecoderConfig,
+    params: dict,
+    pools: list,
+    tokens: torch.Tensor,  # [B, S] verify block per slot (root + drafts)
+    tables: torch.Tensor,  # [B, W] int32; column W-1 must be the trash page
+    pos0: torch.Tensor,  # [B] absolute position of each slot's row 0
+    valid: torch.Tensor,  # [B] bool: False sends every write of the slot to trash
+    ctx_pages: int,  # pages of context visible to the reads
+) -> torch.Tensor:
+    """Advance every slot S tokens at once with logits at every row:
+    returns logits [B, S, V] f32; the pools are updated in place. The
+    table is cut to its first `ctx_pages` columns plus the trash column;
+    the caller advances positions by the accepted length, and rows written
+    past it stay invisible behind the lengths until the next round
+    overwrites them."""
+    b, s = tokens.shape
+    page = next(p for p in pools if p is not None)[0].shape[2]
+    if ctx_pages < tables.shape[1] - 1:
+        tables = torch.cat([tables[:, :ctx_pages], tables[:, -1:]], dim=1)
+    positions = pos0.to(torch.int32)[:, None] + torch.arange(
+        s, dtype=torch.int32, device=tokens.device)[None, :]
+    col = verify_columns(positions, valid.to(tokens.device), tables.shape[1], page)
+    pages = tables.gather(1, col).reshape(-1)
+    flat = positions.reshape(-1)
+    offsets = flat % page
+    rows_tables = tables.repeat_interleave(s, dim=0)  # [B*S, W]
+    lengths = flat + 1
+
+    def attend(layer_cfg, p, h, pool, shared):
+        return _attention_paged(layer_cfg.mixer_config, layer_cfg, p, h, flat, pool,
+                                pages, offsets, rows_tables, lengths, shared)
+
+    x = _layers(cfg, params, embed(cfg, params, tokens.reshape(-1)), pools, attend)
+    return readout(cfg, params, x).reshape(b, s, -1)

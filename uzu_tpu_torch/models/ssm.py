@@ -36,7 +36,9 @@ functions): `ssm_forward(..., defer=True)` computes the outputs of every
 row and commits no state; it returns the recurrence inputs instead, and
 `ssm_commit` replays the per-token recurrence over the first
 `commit_length` rows (a 0-d device tensor, decided after the forward) with
-the rest as identity transitions. `ssm_tree_forward` runs the recurrence
+the rest as identity transitions (`ssm_commit_batched` commits B
+sequences at once, one length each, for the speculative batch engines).
+`ssm_tree_forward` runs the recurrence
 over a token tree, each node from its parent's state (the host linearizes
 every node's conv window into `conv_src`), and `ssm_tree_commit` replays
 the accepted root-to-node path. The replays take the same per-token step
@@ -530,19 +532,20 @@ def ssm_tree_forward(mixer_cfg, params, x: torch.Tensor, state: dict, parents,
 
 
 def _replay(mixer_cfg, aux: dict, rows, decay) -> torch.Tensor:
-    """The recurrent state after the per-token steps of `rows` (indices
-    into aux, in order) from aux["ssm0"], with per-row decay [S, H]."""
-    ssm = aux["ssm0"][None]
+    """The recurrent states [B, ...] after the per-token steps of `rows`
+    (indices along S, in order) from aux["ssm0"] [B, ...], over aux leaves
+    [B, S, ...] with per-row decay [B, S, H]."""
+    ssm = aux["ssm0"]
     if isinstance(mixer_cfg, Mamba2Config):
         for t in rows:
-            ssm = _ssd_update(ssm, aux["xs"][None, t], aux["bs"][None, t], decay[None, t])
+            ssm = _ssd_update(ssm, aux["xs"][:, t], aux["bs"][:, t], decay[:, t])
     elif isinstance(mixer_cfg, DeltaNetConfig):
         for t in rows:
-            ssm, _ = _delta_rule(ssm, aux["ks"][None, t], aux["vs"][None, t],
-                                 aux["beta"][None, t], decay[None, t])
+            ssm, _ = _delta_rule(ssm, aux["ks"][:, t], aux["vs"][:, t], aux["beta"][:, t],
+                                 decay[:, t])
     else:
         raise ValueError(f"unsupported mixer {type(mixer_cfg).__name__}")
-    return ssm[0]
+    return ssm
 
 
 def ssm_tree_commit(mixer_cfg, aux: dict, path_idx, conv_commit_src: torch.Tensor) -> dict:
@@ -556,22 +559,25 @@ def ssm_tree_commit(mixer_cfg, aux: dict, path_idx, conv_commit_src: torch.Tenso
     if isinstance(mixer_cfg, ShortConvConfig):
         return {"conv": conv.to(aux["conv0"].dtype)}
     rows = [int(j) for j in path_idx if int(j) >= 0]
-    return {"conv": conv, "ssm": _replay(mixer_cfg, aux, rows, torch.exp(aux["log_decay"]))}
+    one = {name: v[None] for name, v in aux.items()}
+    return {"conv": conv, "ssm": _replay(mixer_cfg, one, rows, torch.exp(one["log_decay"]))[0]}
 
 
-def ssm_commit(mixer_cfg, aux: dict, commit_length) -> dict:
-    """Commit a deferred `ssm_forward` to `commit_length` tokens (an int or
-    a 0-d device tensor): rows at and past it replay as identity
-    transitions, the masking the partial-chunk prefill uses, so the state
-    is the plain forward's over the accepted prefix. No host sync."""
+def ssm_commit_batched(mixer_cfg, aux: dict, commit) -> dict:
+    """Commit a deferred `ssm_forward_batched` (aux leaves with a leading
+    [B]) to `commit` [B] tokens per sequence (a device tensor decided after
+    the forward): rows at and past a sequence's commit replay as identity
+    transitions, the masking the partial-chunk prefill uses, so each state
+    is the plain forward's over its accepted prefix; a commit of 0 keeps
+    the state handed to the forward. No host sync."""
     if not isinstance(mixer_cfg, (ShortConvConfig, Mamba2Config, DeltaNetConfig)):
         raise ValueError(f"unsupported mixer {type(mixer_cfg).__name__}")
     k = mixer_cfg.kernel_size
-    conv = _next_conv_state(aux["padded"][None], commit_length, k - 1)[0]
+    conv = _next_conv_state(aux["padded"], commit, k - 1)
     if isinstance(mixer_cfg, ShortConvConfig):
         return {"conv": conv.to(aux["conv0"].dtype)}
-    s = aux["log_decay"].shape[0]
-    live = (torch.arange(s, device=conv.device) < commit_length)[:, None]
+    b, s = aux["log_decay"].shape[:2]
+    live = _valid_mask(b, s, commit, conv.device)  # [B, S, 1]
     decay = torch.exp(torch.where(live, aux["log_decay"], 0.0))
     aux = dict(aux)
     if isinstance(mixer_cfg, Mamba2Config):
@@ -579,6 +585,16 @@ def ssm_commit(mixer_cfg, aux: dict, commit_length) -> dict:
     else:
         aux["beta"] = torch.where(live, aux["beta"], 0.0)
     return {"conv": conv, "ssm": _replay(mixer_cfg, aux, range(s), decay)}
+
+
+def ssm_commit(mixer_cfg, aux: dict, commit_length) -> dict:
+    """Commit a deferred `ssm_forward` (one sequence) to `commit_length`
+    tokens (an int or a 0-d device tensor): `ssm_commit_batched` at B = 1."""
+    if not isinstance(commit_length, torch.Tensor):
+        commit_length = torch.tensor(commit_length, device=aux["padded"].device)
+    out = ssm_commit_batched(mixer_cfg, {name: v[None] for name, v in aux.items()},
+                             commit_length.reshape(1))
+    return {name: v[0] for name, v in out.items()}
 
 
 def make_ssm_state(mixer_cfg, model_dim: int, dtype=torch.bfloat16, device=None) -> dict:

@@ -1,11 +1,15 @@
 """Host-side C++ libraries of the port, built with g++ at first use.
 
 `io_loader()` is the parallel safetensors reader (`io_loader.cpp`, the
-port's copy of `uzu_tpu/native/io_loader.cpp`), loaded with ctypes. It is
-compiled into the gitignored `.build/` of the checkout, its file name
-carrying a hash of the source and flags, so an edited source is rebuilt
-and an unchanged one reused; nothing is built at import. A failed build
-raises with the compiler's message: there is no Python fallback.
+port's copy of `uzu_tpu/native/io_loader.cpp`); `load("grammar")` and
+`load("regex_dfa")` are the grammar layer's mask engines (`grammar.cpp`,
+`regex_dfa.cpp`, copies of the JAX package's), whose argument types
+`grammar/native_backend.py` and `grammar/regex.py` set. Each is loaded
+with ctypes and compiled into the gitignored `.build/` of the checkout,
+its file name carrying a hash of the source and flags, so an edited
+source is rebuilt and an unchanged one reused; nothing is built at
+import. A failed build raises with the compiler's message: there is no
+Python fallback.
 """
 
 from __future__ import annotations
@@ -43,6 +47,15 @@ def build(name: str) -> str:
             raise RuntimeError(f"g++ failed for {name}.cpp:\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, out)
     return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build `<name>.cpp` if needed and dlopen it, once per process."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = _libs[name] = ctypes.CDLL(build(name))
+        return lib
 
 
 def io_loader() -> ctypes.CDLL:

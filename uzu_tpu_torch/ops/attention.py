@@ -167,11 +167,11 @@ def attention_online(
     return out.permute(2, 0, 1, 3).reshape(s, h, dh).to(q.dtype)
 
 
-def attention_decode_batched(
-    q: torch.Tensor,  # [B, H, Dh]: one query token per slot
+def attention_block_batched(
+    q: torch.Tensor,  # [B, S, H, Dh]: S query rows per slot
     k_cache: torch.Tensor,  # [B, C, G, Dh]
     v_cache: torch.Tensor,  # [B, C, G, Dh]
-    positions: torch.Tensor,  # [B] absolute position of each slot's token
+    positions: torch.Tensor,  # [B, S] absolute position of each query row
     *,
     scale: float,
     sliding_window_size: int | None = None,
@@ -181,32 +181,35 @@ def attention_decode_batched(
     v_scales: torch.Tensor | None = None,
     kv_positions: torch.Tensor | None = None,  # [B, C]: a ring's per-slot positions
 ) -> torch.Tensor:
-    """One decode token per slot over each slot's own dense cache (slot j
-    holds position j, or kv_positions[b, j] on a ring), masked to that
-    slot's positions: the einsum path of `attention_reference` at S = 1
-    with a slot dimension written out (the JAX package maps its einsum
-    decode over slots). f32 throughout; an INT8 cache is dequantized."""
+    """S query rows per slot over each slot's own dense cache (slot j
+    holds position j, or kv_positions[b, j] on a ring), each row masked
+    causally to its position (and its window): the dense engines' decode
+    step at S = 1 and the speculative verify at S = m + 1, as the einsum
+    path of `attention_reference` with a slot dimension written out (the
+    JAX package maps its einsum decode and verify over slots). f32
+    throughout; an INT8 cache is dequantized. -> [B, S, H, Dh] in q's
+    dtype."""
     if k_scales is not None:
         k_cache = dequantize_rows(k_cache, k_scales)
         v_cache = dequantize_rows(v_cache, v_scales)
-    b, h, dh = q.shape
+    b, s, h, dh = q.shape
     c, g = k_cache.shape[1], k_cache.shape[2]
     rep = h // g
-    qf = q.float().reshape(b, g, rep, dh)
-    scores = torch.einsum("bgrd,bcgd->bgrc", qf, k_cache.float()) * scale
+    qf = q.float().reshape(b, s, g, rep, dh)
+    scores = torch.einsum("bsgrd,bcgd->bgrsc", qf, k_cache.float()) * scale
     if logit_soft_cap is not None:
         scores = logit_soft_cap * torch.tanh(scores / logit_soft_cap)
-    qpos = positions.to(torch.int32)[:, None]  # [B, 1]
-    kpos = (torch.arange(c, dtype=torch.int32, device=q.device)[None, :]
-            if kv_positions is None else kv_positions.to(torch.int32))
-    valid = kpos <= qpos
+    qpos = positions.to(torch.int32)[:, :, None]  # [B, S, 1]
+    kpos = (torch.arange(c, dtype=torch.int32, device=q.device)[None, None, :]
+            if kv_positions is None else kv_positions.to(torch.int32)[:, None, :])
+    valid = kpos <= qpos  # [B, S, C]
     if sliding_window_size is not None:
         valid = valid & (kpos > qpos - sliding_window_size)
     scores = torch.where(valid[:, None, None], scores, torch.full_like(scores, NEG_INF))
     if sinks is not None:
-        sink = sinks.float().reshape(1, g, rep, 1).expand(b, g, rep, 1)
+        sink = sinks.float().reshape(1, g, rep, 1, 1).expand(b, g, rep, s, 1)
         probs = torch.softmax(torch.cat([scores, sink], dim=-1), dim=-1)[..., :c]
     else:
         probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bgrc,bcgd->bgrd", probs, v_cache.float())
-    return out.reshape(b, h, dh).to(q.dtype)
+    out = torch.einsum("bgrsc,bcgd->bsgrd", probs, v_cache.float())
+    return out.reshape(b, s, h, dh).to(q.dtype)
