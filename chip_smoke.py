@@ -10,6 +10,7 @@
     python3 chip_smoke.py --hybrid-linear-only  # phase 15 alone, with K3-K6's rows past Dh 256
     python3 chip_smoke.py --spec-only    # phase 16 alone, with K1/K3's verify-shape rows
     python3 chip_smoke.py --batch-spec-only  # phase 17 alone, with K1/K5/K6/K9's verify rows
+    python3 chip_smoke.py --serve-only   # phase 18 alone (the servers, the CLI, the classifier)
 
 Phases, each of which ends the run with a non-zero exit if it fails:
 
@@ -92,8 +93,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    multiplies by the next expert's weights, and when the router's decode
    rows take the experts ranked K+1 to 2K.
 10. whole-path checks: teacher-forced logits of a 32-token prompt through
-    the 2-layer INT4 flagship and through the 4-layer INT4 gpt-oss model,
-    on the card and on the host CPU (for gpt-oss, the CPU pass takes the
+    the 2-layer INT4 flagship and through the first 2 layers of the INT4
+    gpt-oss model, on the card and on the host CPU (for gpt-oss, the CPU pass takes the
     card's expert choices, each a router near-tie where they differ); a
     profiler capture of the gpt-oss model's first prefill and decode chunk
     (traces in `.port_cache/traces_gptoss/`), which must hold K9's tile
@@ -155,12 +156,13 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     check must fail with the PLE projection dropped from slot 1's row.
 
 15. the slice of HybridSpec linears, the engine API and Dh past 256:
-    the flagship with every linear HybridSpec (an INT4 g32 symmetric base,
+    the flagship's widths at HYBRID_LINEAR_LAYERS layers with every
+    linear HybridSpec (an INT4 g32 symmetric base,
     a LowRank adapter of rank HYBRID_RANK, Hadamard incoherence in blocks
     of 32 on input and output; INT4 tied embedding; random weights from
     the port's synthesizer) through `from_dir` on the card: greedy twice,
-    identical, K1 launched 65 times a decode step, decode tok/s beside the
-    plain flagship's; card against host at 2 layers (f32 activations,
+    identical, K1 launched 4 times a layer and once for the readout a
+    decode step, decode tok/s beside the plain flagship's; card against host at 2 layers (f32 activations,
     TOL); `PagedBatchEngine` over 4 requests under phase 4's rule;
     `generate_resumable`: two turns under phase 4's rule against the
     single stream over their whole history, `.state["pos"]`, and with
@@ -228,6 +230,29 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     of `paged_decode_step` fed the same tokens with the verify's expert
     choices. Phase 2 holds K1 at M = 72 / 36, K5 / K6 at 72 rows over
     repeated tables and K9 at 288 routed rows to their plain versions.
+
+18. the serving front end (`sessions/`, `server/`, `cli.py`,
+    `models/classifier.py`) on the flagship, with a byte-level tokenizer
+    over all 128256 ids written here (`.port_cache/llama1b_chat`, its
+    weights linked; stop ids `<|end|>`'s): `serve(ChatSession)` on
+    127.0.0.1 answers a plain, an SSE-streamed and a JSON-schema request;
+    `serve_batched(batch_size=8)` picks `PagedBatchEngine` and answers 12
+    concurrent requests (11 conversations of 17-700 rendered tokens, five
+    sharing a 600-token system prompt, 32-48 new tokens, every other one
+    streamed; a JSON-schema request, which the plain paged engine refuses
+    with HTTP 400); `serve_batched(..., speculate="ngram")` serves the
+    JSON request beside three plain ones. Every prompt is the template's
+    render through the tokenizer, every response text what a client reads
+    of its tokens, every plain stream under phase 4's rule, no request in
+    "error" and no scheduler traceback; each JSON output closes, parses,
+    satisfies BSPEC_SCHEMA and has every token in its matcher's mask; the
+    paged server's K5, K3 and K1 launches equal layers x decode steps,
+    layers x prefill chunks and (4 x layers + 1) x both; a prompt shifted
+    right by one token before admission must fail the stream check. The
+    CLI's `bench` writes its BenchResult JSON with the card's name; the
+    encoder classifier (12 layers, d 768, bf16) on the card against the
+    host within TOL, and padded to two buckets within TOL. HTTP latency,
+    first chunks and tok/s are printed beside the engines' own.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Full per-shape numbers also go to
@@ -300,6 +325,7 @@ GEMMA_SOFT_CAP = 50.0  # gemma_config's attention logit soft cap
 # symmetric base, a LowRank adapter, Hadamard incoherence in blocks of 32
 # on input and output); the adapter's rank is a synthetic choice
 HYBRID_RANK = 16
+HYBRID_LINEAR_LAYERS = 4  # the HybridSpec flagship's depth (full width)
 # a synthetic 2-layer model at gemma_e4b_8l's other widths with Dh 512
 # (Gemma-4's global layers' width): gemma_config single stream (PLE, K3),
 # and windowed_config without PLE for the paged engine (K5)
@@ -333,6 +359,7 @@ GREEDY_FLOOR = 0.9
 # router logit (check_routing).
 ROUTER_MARGIN = 0.125
 PAGED_TOKENS = 64
+GEMMA_PAGED_TOKENS = 32  # gemma3_1b's paged requests (26 layers a compared step)
 CONTROL_TOKENS = 16
 BATCHED_TOKENS = 32
 SAMPLED_TOKENS = 32
@@ -1455,7 +1482,8 @@ def model_config(name: str):
         g = {k: v for k, v in WIDE_GEMMA.items() if k not in ("ple_dim", "ple_vocab")}
         return windowed_config(**g, has_sinks=False, logit_soft_cap=GEMMA_SOFT_CAP)
     if name.startswith("llama1b"):
-        return llama_config(**dict(FLAGSHIP, num_layers=2 if name == "llama1b_int8_2l" else 16))
+        layers = {"llama1b_int8_2l": 2, "llama1b_hybrid": HYBRID_LINEAR_LAYERS}.get(name, 16)
+        return llama_config(**dict(FLAGSHIP, num_layers=layers))
     if name.startswith("gptoss"):
         return gptoss_config(num_layers=4 if name == "gptoss_int4" else 2, **GPTOSS)
     if name == "qwen08_int4":
@@ -1474,8 +1502,19 @@ def synth_model(name: str) -> str:
     hybrids (the Qwen3.5-class model at full width, LFM2- and Mamba2-style
     ones at 4 layers; INT4 g32 linears and tied embedding; raw-bytes fill,
     seed 0); the flagship with HybridSpec linears (normal fill, seed 0) and
-    the Dh-512 models (raw-bytes fill, seed 0); and a DFlash draft over the
-    flagship (bf16, normal fill, seed 0)."""
+    the Dh-512 models (raw-bytes fill, seed 0); a DFlash draft over the
+    flagship (bf16, normal fill, seed 0); and the encoder classifier of
+    phase 18 (bf16, normal fill, seed 0). Logs the seconds it took."""
+    out = os.path.join(REPO, ".port_cache", name)
+    if os.path.exists(os.path.join(out, "model.safetensors")):
+        return out
+    t0 = time.perf_counter()
+    _synthesize(name, out)
+    log(f"SYNTH {name} {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _synthesize(name: str, out: str) -> None:
     from uzu_tpu_torch.config.model import (
         HybridSpec,
         IncoherenceProcessingMode,
@@ -1485,15 +1524,17 @@ def synth_model(name: str) -> str:
     )
     from uzu_tpu_torch.tools.synth import synthesize
 
-    out = os.path.join(REPO, ".port_cache", name)
-    if os.path.exists(os.path.join(out, "model.safetensors")):
-        return out
+    if name == "clf_12l":
+        from uzu_tpu_torch.tools.synth import classifier_config, synthesize_classifier
+
+        synthesize_classifier(classifier_config(**SERVE_CLASSIFIER), out, seed=0)
+        return
     if name == "dflash_flagship":
         from uzu_tpu_torch.tools.synth import synth_dflash_speculator
 
-        return synth_dflash_speculator(out, model_config("llama1b_int4"),
-                                       block_size=DFLASH_BLOCK, target_layer_ids=DFLASH_TAPS,
-                                       seed=0)
+        synth_dflash_speculator(out, model_config("llama1b_int4"),
+                                block_size=DFLASH_BLOCK, target_layer_ids=DFLASH_TAPS, seed=0)
+        return
 
     def spec(bits):
         return IntSpec(bits=bits, group_size=32, is_symmetric=True, layout=Layout.OUTPUT_INPUT)
@@ -1512,7 +1553,6 @@ def synth_model(name: str) -> str:
         synthesize(cfg, out, seed=0, expert_spec=spec(bits), fill="fast")
     else:
         synthesize(cfg, out, seed=0, linear_spec=spec(4), embedding_spec=spec(4), fill="fast")
-    return out
 
 
 GEMMA_MODELS = ("gemma3_1b", "gemma_e4b_8l")
@@ -1520,8 +1560,9 @@ SLICE_MODELS = ("llama1b_hybrid", "gemma_dh512_2l", "windowed_dh512_2l")
 SPEC_MODELS = ("llama1b_int4", "llama1b_int8_2l", "gptoss_int4", "qwen08_int4",
                "dflash_flagship")
 BSPEC_MODELS = ("llama1b_int4", "llama1b_int8_2l", "gptoss_int4", "qwen08_int4")
+SERVE_MODELS = ("llama1b_int4", "clf_12l")
 MODELS = ("llama1b_int4", "llama1b_int8_2l", "gptoss_int4", "gptoss_int8_2l", "qwen08_int4",
-          "lfm2_4l", "mamba2_4l", *GEMMA_MODELS, *SLICE_MODELS, "dflash_flagship")
+          "lfm2_4l", "mamba2_4l", *GEMMA_MODELS, *SLICE_MODELS, "dflash_flagship", "clf_12l")
 
 
 def prompt_tokens(n: int, vocab: int):
@@ -1831,7 +1872,8 @@ def path_paged_int4(torch, lm16, info: dict) -> dict:
     return paged_run(torch, lm16, FLAGSHIP["vocab_size"], "paged_int4", info)
 
 
-def paged_run(torch, lm16, vocab: int, key: str, info: dict) -> dict:
+def paged_run(torch, lm16, vocab: int, key: str, info: dict,
+              tokens: int = PAGED_TOKENS) -> dict:
     """PagedBatchEngine (8 slots, 8-step chunks, 64 pages of 512 tokens,
     bf16 pools) over `lm16`: phase 4's requests and checks, K5 launched
     once per layer per decode step."""
@@ -1843,14 +1885,14 @@ def paged_run(torch, lm16, vocab: int, key: str, info: dict) -> dict:
     pool_bytes = sum(t.numel() * t.element_size() for pk in eng.pools if pk for t in pk)
     prompts = paged_prompts(vocab)
     reset_launches()
-    reqs = [eng.submit(p, PAGED_TOKENS) for p in prompts]
+    reqs = [eng.submit(p, tokens) for p in prompts]
     seconds, steps = drive(torch, eng)
     skipped_before = eng.stats["shared_prefix_tokens"]
     # a follow-up turn extending a finished request's history: its first
     # page comes from the automatic prefix cache
     follow = prompts[7] + reqs[7].tokens + [11, 12, 13]
     prompts.append(follow)
-    reqs.append(eng.submit(follow, PAGED_TOKENS))
+    reqs.append(eng.submit(follow, tokens))
     seconds2, steps2 = drive(torch, eng)
     launches = dict(LAUNCHES)
     apc_skipped = eng.stats["shared_prefix_tokens"] - skipped_before
@@ -1863,7 +1905,7 @@ def paged_run(torch, lm16, vocab: int, key: str, info: dict) -> dict:
         raise AssertionError("the follow-up request did not reuse the prefix cache's pages")
     if skipped_before < 3 * eng.page_size:
         raise AssertionError("the shared-prefix requests did not share their first page")
-    if not all(r.finished and len(r.tokens) == PAGED_TOKENS for r in reqs):
+    if not all(r.finished and len(r.tokens) == tokens for r in reqs):
         raise AssertionError("a paged request did not produce its tokens")
     eng._evict_retired(eng.pool.num_pages)
     if eng.pool.free_pages != eng.pool.num_pages:
@@ -2709,7 +2751,7 @@ def gemma_phases(torch, dirs: dict, info: dict) -> None:
     lm_gr = phase("gemma3_1b_ring", gemma3_ring, torch, lm_g, info)
     phase("gemma3_1b_kv_int8", gemma3_kv_int8, torch, lm_g, info)
     phase("paged_gemma3_1b", paged_run, torch, lm_g, GEMMA3_1B["vocab_size"],
-          "paged_gemma3_1b", info)
+          "paged_gemma3_1b", info, GEMMA_PAGED_TOKENS)
     phase("paged_int8_gemma3_1b", paged_int8_run, torch,
           first_layers(lm_g, 2, "cuda", kv_quant=True), GEMMA3_1B["vocab_size"],
           "paged_int8_gemma3_1b", info)
@@ -3248,8 +3290,8 @@ def tools_bisect(torch, info: dict) -> None:
 
 # -- phase 16: single-stream speculative decoding ---------------------------------------
 
-SPEC_TOKENS = 128  # the flagship's streams
-SPEC_HYBRID_TOKENS = 64
+SPEC_TOKENS = 64  # the flagship's streams
+SPEC_HYBRID_TOKENS = 32
 SPEC_CONTROL_TOKENS = 32
 SPEC_DRAFT_LAYERS = 4  # the self-drafts' depth
 SPEC_POS0 = 700  # K3's verify rows sit here in a 1024-slot context bucket
@@ -3645,7 +3687,7 @@ def spec_gptoss(torch, lm_oss, info: dict) -> None:
 # -- phase 17: speculative continuous batching ------------------------------------------
 
 BSPEC_SLOTS, BSPEC_BLOCK = 8, 8  # the paged engine's slots; drafts per slot (9-row blocks)
-BSPEC_TOKENS = 48
+BSPEC_TOKENS = 32
 BSPEC_HYBRID_SLOTS, BSPEC_HYBRID_TOKENS = 4, 32
 BSPEC_DRAFT_LAYERS = {"flagship": 4, "hybrid": 6}
 BSPEC_ROUNDS = 8  # fused rounds per dispatch
@@ -4297,6 +4339,587 @@ def batch_spec_gptoss(torch, lm_oss, info: dict) -> None:
     check_routing([dict(max_router_gap=reading["max_router_gap"])])
 
 
+# -- phase 18: the serving front end ---------------------------------------------------
+
+SERVE_MODEL = "llama1b_chat"  # the flagship's weights with a full-vocabulary tokenizer
+SERVE_VOCAB_SEED = 18
+SERVE_SLOTS = 8  # serve_batched picks PagedBatchEngine from 8 slots
+# prompts of the batched server (rendered tokens, about): seven alone, five
+# sharing a 600-token system prompt (a whole 512-token page of it)
+SERVE_LENGTHS = (17, 700, 64, 300, 129, 450, 33)
+SERVE_SHARED_USERS = (5, 40, 90, 17, 60)
+SERVE_CLASSIFIER = dict(num_layers=12, model_dim=768, hidden_dim=3072, num_heads=12,
+                        num_groups=12, head_dim=64, vocab_size=128256, num_labels=8)
+SERVE_CLASSIFIER_TOKENS = 100  # classified at buckets 128 and 256
+
+
+def serve_model_dir(model_dir: str) -> str:
+    """`.port_cache/llama1b_chat`: the flagship's weights (linked) and a
+    config whose stop ids are `<|end|>`'s, with a byte-level tokenizer
+    over all 128256 ids, written here: ids 0-255 are the bytes (the
+    ByteLevel table), ids up to 128239 seeded strings of 2-7 lowercase
+    letters (half with a leading space), the top 16 ids the synthesizer's
+    special tokens; the chat template is the synthesizer's. It has no
+    merges, so text encodes byte by byte and every generated id decodes
+    to text."""
+    import numpy as np
+    from tokenizers import Tokenizer, decoders, models, pre_tokenizers
+
+    from uzu_tpu_torch.tools.synth import SPECIAL_TOKENS, SYNTH_CHAT_TEMPLATE
+
+    out = os.path.join(REPO, ".port_cache", SERVE_MODEL)
+    os.makedirs(out, exist_ok=True)
+    weights = os.path.join(out, "model.safetensors")
+    if not os.path.lexists(weights):
+        os.symlink(os.path.join(model_dir, "model.safetensors"), weights)
+    vocab_size = FLAGSHIP["vocab_size"]
+    # the GPT-2 bytes-to-unicode table that ByteLevel reads
+    bs = (list(range(ord("!"), ord("~") + 1)) + list(range(0xA1, 0xAD))
+          + list(range(0xAE, 0x100)))
+    cs = bs[:]
+    n = 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    byte2char = {b: chr(c) for b, c in zip(bs, cs)}
+    vocab = {byte2char[i]: i for i in range(256)}
+    rng = np.random.default_rng(SERVE_VOCAB_SEED)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    while len(vocab) < vocab_size - len(SPECIAL_TOKENS):
+        word = "".join(rng.choice(letters, int(rng.integers(2, 8))))
+        vocab.setdefault(("Ġ" if rng.random() < 0.5 else "") + word, len(vocab))
+    tok = Tokenizer(models.BPE(vocab=vocab, merges=[], unk_token=None))
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+    tok.decoder = decoders.ByteLevel()
+    tok.add_special_tokens(SPECIAL_TOKENS)
+    if tok.get_vocab_size() != vocab_size:
+        raise AssertionError(f"the serving tokenizer has {tok.get_vocab_size()} ids")
+    tok.save(os.path.join(out, "tokenizer.json"))
+    with open(os.path.join(out, "tokenizer_config.json"), "w") as f:
+        json.dump({"eos_token": "<|end|>", "pad_token": "<|pad|>",
+                   "chat_template": SYNTH_CHAT_TEMPLATE,
+                   "added_tokens_decoder": {str(tok.token_to_id(s)): {"content": s,
+                                                                      "special": True}
+                                            for s in SPECIAL_TOKENS}}, f, indent=1)
+    with open(os.path.join(model_dir, "config.json")) as f:
+        raw = json.load(f)
+    raw["generation_config"]["stop_token_ids"] = [tok.token_to_id("<|end|>")]
+    with open(os.path.join(out, "config.json"), "w") as f:
+        json.dump(raw, f, indent=1)
+    return out
+
+
+def serve_lm(torch, lm16, serve_dir: str):
+    """The loaded flagship under the serving directory's config (its stop
+    ids), sharing lm16's tensors."""
+    from uzu_tpu_torch.config import load_language_model_config
+    from uzu_tpu_torch.engine.engine import LanguageModel
+
+    return LanguageModel(load_language_model_config(os.path.join(serve_dir, "config.json")),
+                         lm16.params, device=lm16.device, max_context=lm16.max_context)
+
+
+def serve_text(n: int, seed: int) -> str:
+    """n characters of seeded lowercase words (one token a character)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    words, size = [], 0
+    while size < n:
+        w = "".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz"), int(rng.integers(2, 9))))
+        words.append(w)
+        size += len(w) + 1
+    return " ".join(words)[:n]
+
+
+def serve_messages() -> list[list[dict]]:
+    """The batched server's 12 conversations (rendered 17-700 tokens)."""
+    # each rendered prompt adds 4 special tokens around a lone user turn
+    # and 7 with a system turn before it
+    out = [[{"role": "user", "content": serve_text(n - 4, 100 + i)}]
+           for i, n in enumerate(SERVE_LENGTHS)]
+    system = {"role": "system", "content": serve_text(600, 99)}
+    out += [[system, {"role": "user", "content": serve_text(n, 200 + i)}]
+            for i, n in enumerate(SERVE_SHARED_USERS)]
+    return out
+
+
+def http_chat(base: str, body: dict) -> tuple:
+    """POST /v1/chat/completions -> (response or SSE chunks, content, finish
+    reason, timings: latency and, streamed, the first content chunk's)."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    req = urllib.request.Request(f"{base}/v1/chat/completions", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        if not body.get("stream"):
+            res = json.load(r)
+            choice = res["choices"][0]
+            return (res, choice["message"]["content"], choice["finish_reason"],
+                    dict(latency_s=time.perf_counter() - t0, first_chunk_s=None))
+        chunks, first = [], None
+        for raw in r:
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            if line == "data: [DONE]":
+                break
+            chunk = json.loads(line[6:])
+            if first is None and chunk["choices"] and chunk["choices"][0]["delta"].get("content"):
+                first = time.perf_counter() - t0
+            chunks.append(chunk)
+    content = "".join(c["choices"][0]["delta"].get("content", "") for c in chunks
+                      if c["choices"])
+    finish = next(c["choices"][0]["finish_reason"] for c in reversed(chunks)
+                  if c["choices"] and c["choices"][0].get("finish_reason"))
+    return chunks, content, finish, dict(latency_s=time.perf_counter() - t0,
+                                          first_chunk_s=first)
+
+
+def http_get(base: str, path: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(base + path, timeout=60) as r:
+        return json.load(r)
+
+
+def client_text(tok, tokens) -> str:
+    """What a client reads for `tokens`: the tokenizer's decode (special
+    tokens skipped) of the longest prefix whose decode ends on a whole
+    character."""
+    for k in range(len(tokens), -1, -1):
+        text = tok.decode(tokens[:k], skip_special_tokens=True)
+        if not text.endswith("�"):
+            return text
+    return ""
+
+
+def grammar_replay(tok, body: dict, tokens: list, stop_ids) -> dict:
+    """A constrained output against a fresh matcher of its request: the
+    tokens outside the mask of their prefix, whether it closed on a stop
+    id, and whether its text parses and satisfies BSPEC_SCHEMA."""
+    from uzu_tpu_torch.server.common import grammar_from_request
+
+    replay = grammar_from_request(tok, body)
+    replay.stop_token_ids = sorted(stop_ids)  # as the engines set them
+    misses = 0
+    for t in tokens:
+        mask = replay.current_mask()
+        misses += int(mask is not None and not mask[t])
+        if t in stop_ids:
+            break
+        replay.observe(t)
+    text = tok.decode(tokens, skip_special_tokens=True)
+    try:
+        value = json.loads(text)
+        valid = (set(value) <= {"city", "days"} and value.get("city") in ("Paris", "Rome")
+                 and 1 <= value.get("days", 1) <= 30)
+    except ValueError:
+        valid = False
+    return dict(text=text, tokens=len(tokens), closed=bool(tokens) and tokens[-1] in stop_ids,
+                valid=valid, mask_misses=misses, backend=replay.backend)
+
+
+def grammar_body(max_tokens: int = 48) -> dict:
+    return dict(messages=[{"role": "user", "content": "plan a trip as json"}],
+                max_tokens=max_tokens, temperature=0,
+                response_format={"type": "json_schema", "json_schema": {"schema": BSPEC_SCHEMA},
+                                 "any_whitespace": False})
+
+
+def serve_single(torch, lm16, serve_dir: str, info: dict) -> None:
+    """`serve(ChatSession(...))` on 127.0.0.1 over the flagship: a plain,
+    an SSE-streamed and a JSON-schema request, one after another. Each
+    request's prompt ids are the template's render through the tokenizer;
+    its text is what a client reads of its tokens; the plain and streamed
+    tokens pass phase 4's rule against the single stream; the JSON output
+    closes, parses, satisfies BSPEC_SCHEMA and every token lies in its
+    matcher's mask. K3 launches 16 times a request (one prefill chunk
+    each) and K1 65 times a forward pass. Readings: HTTP latency and first
+    chunk, tok/s, beside the engine's own on the same prompt."""
+    from uzu_tpu_torch.engine.engine import StreamMetrics
+    from uzu_tpu_torch.ops.cuda.build import LAUNCHES, reset_launches
+    from uzu_tpu_torch.server import serve
+    from uzu_tpu_torch.sessions import ChatSession, Tokenizer
+
+    lm = serve_lm(torch, lm16, serve_dir)
+    tok = Tokenizer(serve_dir)
+    session = ChatSession(lm, tok)
+    stop_ids = session._stop_ids()
+    httpd = serve(session, host="127.0.0.1", port=0)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    # every prompt fits one 256-row prefill chunk
+    msgs = [{"role": "system", "content": serve_text(40, 7)},
+            {"role": "user", "content": serve_text(150, 8)}]
+    bodies = {"plain": dict(messages=msgs, max_tokens=48, temperature=0),
+              "stream": dict(messages=msgs[1:], max_tokens=40, temperature=0, stream=True),
+              "json": grammar_body()}
+    try:
+        models = http_get(base, "/v1/models")
+        http_chat(base, dict(messages=msgs, max_tokens=4, temperature=0))  # warm-up
+        reset_launches()
+        out, prompts, streams = {}, [], []
+        for name, body in bodies.items():
+            _, content, finish, timing = http_chat(base, body)
+            reply = session.last_reply
+            ids = tok.encode(session.template.render(body["messages"]))
+            if reply.stats.tokens_count_input != len(ids):
+                raise AssertionError(f"serve {name}: the session prefilled "
+                                     f"{reply.stats.tokens_count_input} tokens, the template "
+                                     f"renders {len(ids)}")
+            want = client_text(tok, reply.tokens)
+            if content != want:
+                raise AssertionError(f"serve {name}: the response text {content!r} is not the "
+                                     f"decode of its tokens {want!r}")
+            out[name] = dict(prompt=len(ids), tokens=len(reply.tokens), finish=finish,
+                             text_head=content[:48], **timing,
+                             http_tok_s=len(reply.tokens) / timing["latency_s"],
+                             session_ttft_s=reply.stats.time_to_first_token,
+                             session_decode_tok_s=reply.stats.generate_tokens_per_second)
+            if name == "json":
+                out[name]["grammar"] = grammar_replay(tok, body, reply.tokens, stop_ids)
+            else:
+                prompts.append(ids)
+                streams.append(list(reply.tokens))
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    # the engine alone on the plain request's prompt
+    metrics = StreamMetrics()
+    t0 = time.perf_counter()
+    lm.generate_list(prompts[0], 48, stop_token_ids=stop_ids, metrics=metrics)
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    readings = stream_readings(torch, lm, prompts, streams)
+    g = out["json"]["grammar"]
+    layers = len(lm.params["layers"])
+    info["serve_single"] = dict(
+        requests=out, models=[m["id"] for m in models["data"]], launches=launches,
+        engine_tok_s=len(streams[0]) / engine_s, engine_ttft_s=metrics.prefill_seconds,
+        engine_decode_tok_s=metrics.decode_tokens_per_second, **stream_summary(readings))
+    log("SERVE_SINGLE " + json.dumps(info["serve_single"]))
+    if not (g["closed"] and g["valid"]) or g["mask_misses"]:
+        raise AssertionError(f"serve json: {g}")
+    if launches["flash_attention"] != layers * len(bodies):
+        raise AssertionError(f"serve: K3 launched {launches['flash_attention']} times, "
+                             f"expected {layers} for each of {len(bodies)} prefill chunks")
+    k1 = launches["quant_matmul_int4"]
+    if k1 == 0 or k1 % (4 * layers + 1):
+        raise AssertionError(f"serve: K1 launched {k1} times, not {4 * layers + 1} a forward "
+                             "pass")
+    check_streams(readings)
+
+
+class SubmitRecorder:
+    """Wraps a BatchedChatServer's `submit`: keeps each (prompt ids, engine
+    request); `shift` admits the rendered prompt shifted right by one token
+    (the first token twice, the last one gone: the planted control)."""
+
+    def __init__(self, server, shift: bool = False):
+        self.server, self.real, self.shift, self.log = server, server.submit, shift, []
+        server.submit = self
+
+    def __call__(self, prompt_ids, max_tokens, **kw):
+        ids = list(prompt_ids)
+        req, done = self.real(ids[:1] + ids[:-1] if self.shift else ids, max_tokens, **kw)
+        self.log.append((ids, req))
+        return req, done
+
+
+def concurrent_chats(base: str, bodies: list) -> tuple[list, float]:
+    results = [None] * len(bodies)
+
+    def send(i):
+        try:
+            results[i] = http_chat(base, bodies[i])
+        except Exception as e:  # read by the caller
+            results[i] = e
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=send, args=(i,)) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("an HTTP request did not return within 600 s")
+    return results, time.perf_counter() - t0
+
+
+def serve_batched_phase(torch, lm16, serve_dir: str, info: dict) -> None:
+    """`serve_batched(batch_size=8)` over the flagship: it must pick
+    `PagedBatchEngine`. 12 concurrent requests from threads: 11 plain
+    conversations (rendered 17-700 tokens, five sharing a 600-token system
+    prompt, 32-48 tokens each, every other one streamed) and one
+    JSON-schema request, which the plain paged engine refuses (HTTP 400,
+    as the JAX package's does). Each plain request's prompt ids are the
+    template's render; its text is what a client reads of its tokens; its
+    stream passes phase 4's rule; none ends in "error" and the scheduler
+    keeps no traceback; /v1/models and /v1/stats answer; K5 launches 16
+    times a decode step, K3 16 times a prefill chunk and K1 65 times a
+    step or chunk. The planted control: one request's prompt shifted by
+    one token before admission must fail the stream check. Then
+    `serve_batched(batch_size=8, speculate="ngram")`
+    (`SpeculativePagedBatchEngine`) serves the JSON request beside three
+    plain ones: the output closes, parses and satisfies its schema with
+    every token in its matcher's mask; the plain streams pass phase 4's
+    rule. Readings: HTTP latency and first chunk per request, aggregate
+    tok/s, beside PagedBatchEngine's own on the same prompts."""
+    import urllib.error
+
+    from uzu_tpu_torch.engine.paged_batch import PagedBatchEngine
+    from uzu_tpu_torch.ops.cuda.build import LAUNCHES, reset_launches
+    from uzu_tpu_torch.server import serve_batched
+    from uzu_tpu_torch.sessions import Tokenizer
+
+    lm = serve_lm(torch, lm16, serve_dir)
+    tok = Tokenizer(serve_dir)
+    convs = serve_messages()
+    bodies = [dict(messages=m, max_tokens=32 + (5 * i) % 17, temperature=0, stream=i % 2 == 1)
+              for i, m in enumerate(convs)]
+    httpd = serve_batched(lm, tok, host="127.0.0.1", port=0, batch_size=SERVE_SLOTS,
+                          num_pages=64)
+    server = httpd.batch_server
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        if type(server.engine) is not PagedBatchEngine:
+            raise AssertionError(f"serve_batched picked {type(server.engine).__name__}")
+        eng = server.engine
+        http_chat(base, dict(messages=convs[0], max_tokens=4, temperature=0))  # warm-up
+        rec = SubmitRecorder(server)
+        before = dict(eng.stats)
+        reset_launches()
+        results, wall = concurrent_chats(base, bodies[:11] + [grammar_body()])
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        stats = {k: eng.stats[k] - before.get(k, 0) for k in eng.stats}
+        refused = results[11]
+        if not (isinstance(refused, urllib.error.HTTPError) and refused.code == 400):
+            raise AssertionError(f"the plain paged server answered a grammar request: "
+                                 f"{refused!r}")
+        models, srv_stats = http_get(base, "/v1/models"), http_get(base, "/v1/stats")
+        by_prompt = {tuple(ids): req for ids, req in rec.log}
+        prompts, streams, per_request = [], [], []
+        for body, res in zip(bodies, results[:11]):
+            if isinstance(res, Exception):
+                raise res
+            _, content, finish, timing = res
+            ids = tok.encode(server.template.render(body["messages"]))
+            req = by_prompt[tuple(ids)]
+            if finish == "error" or req.finish_reason == "error":
+                raise AssertionError(f"a request ended in error: {req.finish_reason}")
+            want = client_text(tok, req.tokens)
+            if content != want:
+                raise AssertionError(f"batched: the response text {content!r} is not the "
+                                     f"decode of its tokens {want!r}")
+            prompts.append(ids)
+            streams.append(list(req.tokens))
+            per_request.append(dict(prompt=len(ids), tokens=len(req.tokens), finish=finish,
+                                    stream=bool(body.get("stream")), **timing,
+                                    engine_ttft_s=req.ttft))
+        if server.errors:
+            raise AssertionError("the scheduler kept tracebacks:\n" + "\n".join(server.errors))
+        generated = sum(len(s) for s in streams)
+        decode_steps = stats["decode_chunks"] * eng.decode_chunk
+        layers = len(lm.params["layers"])
+        expect = {"paged_attention": layers * decode_steps,
+                  "flash_attention": layers * stats["prefill_chunks"],
+                  "quant_matmul_int4": (4 * layers + 1) * (decode_steps
+                                                           + stats["prefill_chunks"])}
+        # the control: the same server, one request shifted by one token
+        control = SubmitRecorder(server, shift=True)
+        http_chat(base, dict(bodies[3], stream=False))
+        server.submit = control.real
+        (cids, creq), = control.log
+    finally:
+        server.shutdown()
+        httpd.shutdown()
+        httpd.server_close()
+    del server, httpd, eng
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    engine = PagedBatchEngine(lm, batch_size=SERVE_SLOTS, decode_chunk=8, num_pages=64,
+                              stop_token_ids=list(lm.config.generation_config.stop_token_ids))
+    direct = [engine.submit(p, b["max_tokens"]) for p, b in zip(prompts, bodies)]
+    engine.run()
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    del engine
+    torch.cuda.empty_cache()
+    readings = stream_readings(torch, lm, prompts, streams)
+    caught = caught_by_check(torch, lm, cids, creq.tokens)
+    info["serve_batched"] = dict(
+        engine="PagedBatchEngine", requests=per_request,
+        refused_grammar=refused.code, http_seconds=wall, generated=generated,
+        http_tok_s=generated / wall, engine_seconds=engine_s,
+        engine_tok_s=sum(len(r.tokens) for r in direct) / engine_s,
+        engine_equal=[r.tokens == s for r, s in zip(direct, streams)],
+        stats=stats, decode_steps=decode_steps, launches=launches, expected_launches=expect,
+        models=[m["id"] for m in models["data"]], server_stats=srv_stats,
+        control_shift_one_token=caught, **stream_summary(readings))
+    log("SERVE_BATCHED " + json.dumps(info["serve_batched"]))
+    for k, v in expect.items():
+        if launches[k] != v:
+            raise AssertionError(f"serve_batched: {k} launched {launches[k]} times, "
+                                 f"expected {v}")
+    check_streams(readings)
+    if caught is None:
+        raise AssertionError("the stream check passed a prompt shifted by one token")
+    serve_batched_grammar(torch, lm, tok, info)
+
+
+def serve_batched_grammar(torch, lm, tok, info: dict) -> None:
+    """The JSON-schema request beside three plain ones on
+    `serve_batched(batch_size=8, speculate="ngram")`."""
+    from uzu_tpu_torch.engine.batch_spec import SpeculativePagedBatchEngine
+    from uzu_tpu_torch.ops.cuda.build import LAUNCHES, reset_launches
+    from uzu_tpu_torch.server import serve_batched
+
+    convs = serve_messages()
+    bodies = [grammar_body()] + [dict(messages=convs[i], max_tokens=32, temperature=0,
+                                      stream=i == 2) for i in (0, 2, 8)]
+    httpd = serve_batched(lm, tok, host="127.0.0.1", port=0, batch_size=SERVE_SLOTS,
+                          num_pages=64, speculate="ngram")
+    server = httpd.batch_server
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        if type(server.engine) is not SpeculativePagedBatchEngine:
+            raise AssertionError(f"serve_batched(speculate) picked "
+                                 f"{type(server.engine).__name__}")
+        rec = SubmitRecorder(server)
+        reset_launches()
+        results, wall = concurrent_chats(base, bodies)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        for res in results:
+            if isinstance(res, Exception):
+                raise res
+        if server.errors:
+            raise AssertionError("the scheduler kept tracebacks:\n" + "\n".join(server.errors))
+        stop_ids = server.engine.stop_ids
+        reqs = {tuple(ids): req for ids, req in rec.log}
+        prompts = [tok.encode(server.template.render(b["messages"])) for b in bodies]
+        ordered = [reqs[tuple(ids)] for ids in prompts]
+    finally:
+        server.shutdown()
+        httpd.shutdown()
+        httpd.server_close()
+    del server, httpd
+    torch.cuda.empty_cache()
+    g = grammar_replay(tok, bodies[0], ordered[0].tokens, stop_ids)
+    readings = stream_readings(torch, lm, prompts[1:], [r.tokens for r in ordered[1:]])
+    info["serve_batched_spec"] = dict(
+        grammar=g, content=results[0][1], http_seconds=wall,
+        texts_equal=[res[1] == client_text(tok, r.tokens) for res, r in zip(results, ordered)],
+        finish=[res[2] for res in results], launches=launches, **stream_summary(readings))
+    log("SERVE_BATCHED_SPEC " + json.dumps(info["serve_batched_spec"]))
+    if not (g["closed"] and g["valid"]) or g["mask_misses"]:
+        raise AssertionError(f"serve_batched json: {g}")
+    if not all(info["serve_batched_spec"]["texts_equal"]) or "error" in \
+            info["serve_batched_spec"]["finish"]:
+        raise AssertionError(f"serve_batched_spec: {info['serve_batched_spec']}")
+    for k in ("quant_matmul_int4", "paged_attention", "flash_attention"):
+        if not launches.get(k):
+            raise AssertionError(f"serve_batched_spec: {k} was not launched")
+    check_streams(readings)
+
+
+def serve_cli(torch, serve_dir: str, info: dict) -> None:
+    """`uzu_tpu_torch.cli.main(["bench", ...])` on the serving directory (the
+    CLI loads the flagship itself): the BenchResult keys of
+    `uzu_tpu/cli.py:84-104`, the card's name as the device, tokens out."""
+    from uzu_tpu_torch.cli import main as cli_main
+
+    task = {"identifier": "serve", "repo_id": "local", "number_of_runs": 2,
+            "tokens_limit": 32, "greedy": True,
+            "messages": [{"role": "user", "content": serve_text(120, 5)}]}
+    task_path = os.path.join(REPO, ".port_cache", "serve_task.json")
+    out_path = os.path.join(REPO, ".port_cache", "serve_bench.json")
+    with open(task_path, "w") as f:
+        json.dump(task, f)
+    t0 = time.perf_counter()
+    rc = cli_main(["bench", serve_dir, task_path, out_path, "--max-context", "4096",
+                   "--device", "cuda"])
+    with open(out_path) as f:
+        result = json.load(f)
+    keys = {"task", "device", "engine_version", "timestamp", "data_type", "memory_used",
+            "peak_rss_bytes", "cpu_utilization", "tokens_count_input", "tokens_count_output",
+            "time_to_first_token", "prompt_tokens_per_second", "generate_tokens_per_second",
+            "text"}
+    info["serve_cli"] = dict(rc=rc, seconds=time.perf_counter() - t0,
+                             device=result["device"], missing=sorted(keys - set(result)),
+                             **{k: result[k] for k in ("tokens_count_input",
+                                                       "tokens_count_output",
+                                                       "time_to_first_token",
+                                                       "prompt_tokens_per_second",
+                                                       "generate_tokens_per_second",
+                                                       "memory_used")})
+    log("SERVE_CLI " + json.dumps(info["serve_cli"]))
+    if rc != 0 or info["serve_cli"]["missing"]:
+        raise AssertionError(f"cli bench: {info['serve_cli']}")
+    if result["device"]["cpu_name"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"cli bench reported the device {result['device']}")
+    if not (result["tokens_count_output"] > 0 and result["generate_tokens_per_second"] > 0):
+        raise AssertionError(f"cli bench generated nothing: {info['serve_cli']}")
+
+
+def serve_classifier(torch, model_dir: str, info: dict) -> None:
+    """The encoder classifier (SERVE_CLASSIFIER: 12 layers, d 768, 12/12
+    heads at Dh 64, vocab 128256, bf16, non-causal attention on the plain
+    path) through `ClassifierModel.from_dir` on the card and on the host:
+    logits of a SERVE_CLASSIFIER_TOKENS-token input within TOL relative
+    L2; the same ids padded to buckets 128 and 256 on the card within TOL
+    of each other; empty input refused."""
+    import numpy as np
+
+    from uzu_tpu_torch.models.classifier import ClassifierModel
+
+    ids = prompt_tokens(SERVE_CLASSIFIER_TOKENS, SERVE_CLASSIFIER["vocab_size"])
+    card = ClassifierModel.from_dir(model_dir, device="cuda")
+    host = ClassifierModel.from_dir(model_dir, device="cpu")
+    t0 = time.perf_counter()
+    got = np.asarray(card.classify(ids)["logits"])
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    want = np.asarray(host.classify(ids)["logits"])
+    padded = []
+    for s in (128, 256):
+        x = np.zeros(s, np.int64)
+        x[:len(ids)] = ids
+        padded.append(card.forward(torch.from_numpy(x).cuda(), len(ids)).cpu().numpy())
+    rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    pad_rel = float(np.linalg.norm(padded[1] - padded[0]) / np.linalg.norm(padded[0]))
+    try:
+        card.classify([])
+        refused = False
+    except ValueError:
+        refused = True
+    info["serve_classifier"] = dict(config=SERVE_CLASSIFIER, tokens=len(ids),
+                                    card_vs_host_rel_l2=rel, padding_rel_l2=pad_rel, tol=TOL,
+                                    card_seconds=card_s, logits=got.tolist(),
+                                    empty_refused=refused)
+    log("SERVE_CLASSIFIER " + json.dumps(info["serve_classifier"]))
+    if not (np.isfinite(got).all() and rel <= TOL and pad_rel <= TOL and refused):
+        raise AssertionError(f"classifier: {info['serve_classifier']}")
+
+
+def serve_phases(torch, lm16, dirs: dict, info: dict) -> None:
+    """Phase 18: the serving front end on the flagship, then the CLI and
+    the classifier."""
+    phase = functools.partial(timed_phase, info)
+    serve_dir = serve_model_dir(dirs["llama1b_int4"])
+    phase("serve_single", serve_single, torch, lm16, serve_dir, info)
+    phase("serve_batched", serve_batched_phase, torch, lm16, serve_dir, info)
+    phase("serve_cli", serve_cli, torch, serve_dir, info)
+    torch.cuda.empty_cache()
+    phase("serve_classifier", serve_classifier, torch, dirs["clf_12l"], info)
+
+
 def kernel_record(rows, info) -> list[dict]:
     """One entry per kernel at its main-path shape (the decode GEMV of the
     up|gate projection for K1/K2, a 256-row prefill chunk over a 1024-slot
@@ -4629,6 +5252,21 @@ def main() -> int:
         log("BATCH_SPEC_ONLY " + json.dumps(info["phase_seconds"]))
         return 0
 
+    if "--serve-only" in sys.argv[1:]:
+        # phase 18 alone, on the flagship
+        from uzu_tpu_torch.engine.engine import LanguageModel
+
+        t0 = time.perf_counter()
+        with ProcessPoolExecutor(len(SERVE_MODELS),
+                                 mp_context=multiprocessing.get_context("spawn")) as ex:
+            dirs = dict(zip(SERVE_MODELS, ex.map(synth_model, SERVE_MODELS)))
+        log(f"BUILD kernels built in {kbuild.build():.1f} s, models synthesized in "
+            f"{time.perf_counter() - t0:.1f} s")
+        lm16 = LanguageModel.from_dir(dirs["llama1b_int4"], device="cuda", max_context=4096)
+        serve_phases(torch, lm16, dirs, info)
+        log("SERVE_ONLY " + json.dumps(info["phase_seconds"]))
+        return 0
+
     if "--gemma-only" in sys.argv[1:]:
         # the Gemma slice alone: its kernel rows and phase 14
         t0 = time.perf_counter()
@@ -4720,7 +5358,7 @@ def main() -> int:
     phase("control_moe", control_moe_faults, torch, lm_oss, info)
     phase("whole_path", whole_path_check, torch, lm16, 2, FLAGSHIP["vocab_size"],
           "whole_path", info)
-    phase("whole_path_gptoss", whole_path_check, torch, lm_oss, 4, GPTOSS["vocab_size"],
+    phase("whole_path_gptoss", whole_path_check, torch, lm_oss, 2, GPTOSS["vocab_size"],
           "whole_path_gptoss", info)
     phase("spec_gptoss", spec_gptoss, torch, lm_oss, info)
     phase("batch_spec_gptoss", batch_spec_gptoss, torch, lm_oss, info)
@@ -4736,6 +5374,7 @@ def main() -> int:
     phase("sampled", path_sampled, torch, lm16, info)
     phase("spec_flagship", spec_flagship, torch, lm16, dirs, info)
     phase("batch_spec_flagship", batch_spec_flagship, torch, lm16, info)
+    serve_phases(torch, lm16, dirs, info)
     del lm16
     torch.cuda.empty_cache()
     phase("batch_spec_int8", batch_spec_int8, torch, dirs["llama1b_int8_2l"], info)

@@ -17,7 +17,15 @@ from .engine.speculation import (  # noqa: F401
     NgramSpeculator,
     SpeculativeDecoder,
 )
+from .engine.facade import Engine, LocalRegistry, ModelInfo  # noqa: F401
+from .engine.batch import BatchEngine, Request  # noqa: F401
 from .engine.fused_spec import (  # noqa: F401
     FusedSpeculativeDecoder,
     fused_self_speculative_decoder,
 )
+from .engine.remote import RemoteChatSession, RemoteConfig  # noqa: F401
+from .grammar.decode import constrained_generate  # noqa: F401
+from .grammar.matcher import GrammarSession  # noqa: F401
+from .sessions.transform import TransformSchema  # noqa: F401
+from .sessions.tts import TextToSpeechSession  # noqa: F401
+from .engine.paged_batch import PagedBatchEngine  # noqa: F401

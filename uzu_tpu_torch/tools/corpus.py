@@ -13,9 +13,9 @@ structure, where random weights and random tokens have none:
 
 Byte-level tokenization (vocab 256) keeps the pipeline self-contained: no
 tokenizer artifact, and perplexity is directly bits-per-byte comparable.
-All text is ASCII. Generation is deterministic per seed. The JAX module's
-`write_byte_tokenizer` needs the `tokenizers` package and waits for the
-port's tokenizer layer.
+All text is ASCII. Generation is deterministic per seed.
+`write_byte_tokenizer` writes the same files as the JAX module's (HF
+`tokenizers`, as there).
 """
 
 from __future__ import annotations
@@ -221,3 +221,36 @@ def record_schema() -> dict:
         },
         "required": ["name", "age", "city", "active", "tags", "score"],
     }
+
+
+def write_byte_tokenizer(out_dir: str) -> str:
+    """Identity byte-level tokenizer artifact (token id i == byte i) for
+    byte-trained models: gives the sessions/grammar layers a Tokenizer
+    over the model's native vocabulary. Uses the ByteLevel byte<->unicode
+    convention so encode/decode round-trip exactly."""
+    import json
+    import os
+
+    from tokenizers import Tokenizer as HFTokenizer
+    from tokenizers import decoders, models, pre_tokenizers
+
+    # the GPT-2 bytes-to-unicode table (what ByteLevel pre/decoders use)
+    bs = (list(range(ord("!"), ord("~") + 1))
+          + list(range(0xA1, 0xAD)) + list(range(0xAE, 0x100)))
+    cs = bs[:]
+    n = 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    byte2char = {b: chr(c) for b, c in zip(bs, cs)}
+    vocab = {byte2char[i]: i for i in range(256)}
+    tok = HFTokenizer(models.BPE(vocab=vocab, merges=[], unk_token=None))
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+    tok.decoder = decoders.ByteLevel()
+    os.makedirs(out_dir, exist_ok=True)
+    tok.save(os.path.join(out_dir, "tokenizer.json"))
+    with open(os.path.join(out_dir, "tokenizer_config.json"), "w") as f:
+        json.dump({}, f)
+    return out_dir

@@ -893,3 +893,168 @@ def synth_dflash_speculator(out_dir: str, target_cfg: LanguageModelConfig, *,
         b.layer_tensors(f"{pre}.layers.{i}", lc, d, draft_cfg.hidden_dim, spec)
     b.norm_scales(f"{pre}.output_norm", d, False)
     return b.write(out_dir, model_cfg)
+
+
+# --------------------------------------------------------------------------
+# Synthetic tokenizer and chat model (offline session/server tests)
+# --------------------------------------------------------------------------
+
+SPECIAL_TOKENS = [
+    "<|pad|>", "<|system|>", "<|user|>", "<|assistant|>", "<|tool|>", "<|end|>",
+    "<think>", "</think>", "<tool_call>", "</tool_call>",
+    # harmony formatting tokens (gpt-oss encoding)
+    "<|start|>", "<|message|>", "<|channel|>", "<|constrain|>", "<|call|>", "<|return|>",
+]
+
+SYNTH_CHAT_TEMPLATE = (
+    "{% if tools %}<|system|>tools:"
+    "{% for t in tools %} {{ t.function.name }}{% endfor %}<|end|>"
+    "{% endif %}"
+    "{% for message in messages %}"
+    "<|{{ message.role }}|>{% if message.tool_calls %}"
+    "{% for tc in message.tool_calls %}<tool_call>"
+    '{"name": "{{ tc.function.name }}", "arguments": {{ tc.function.arguments }}}'
+    "</tool_call>{% endfor %}"
+    "{% else %}{{ message.content }}{% endif %}<|end|>"
+    "{% endfor %}"
+    "{% if add_generation_prompt %}<|assistant|>{% endif %}"
+)
+
+
+def synth_tokenizer(out_dir: str, vocab_size: int = 512) -> str:
+    """Write a deterministic byte-level BPE tokenizer.json +
+    tokenizer_config.json (with chat template) into `out_dir`; the files
+    are byte-identical to the JAX package's."""
+    from tokenizers import Tokenizer, decoders, models, pre_tokenizers, trainers
+
+    tok = Tokenizer(models.BPE(unk_token=None))
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+    tok.decoder = decoders.ByteLevel()
+    corpus = [
+        "hello world how are you today",
+        "the quick brown fox jumps over the lazy dog",
+        "tool call name arguments city weather get json",
+        "thinking about the answer step by step",
+        '{"name": "get_weather", "arguments": {"city": "Paris"}}',
+        "0 1 2 3 4 5 6 7 8 9 10 42 100",
+    ] * 4
+    trainer = trainers.BpeTrainer(
+        vocab_size=vocab_size - len(SPECIAL_TOKENS),
+        special_tokens=[],
+        show_progress=False,
+        initial_alphabet=pre_tokenizers.ByteLevel.alphabet(),
+    )
+    tok.train_from_iterator(corpus, trainer)
+    tok.add_special_tokens(SPECIAL_TOKENS)
+
+    os.makedirs(out_dir, exist_ok=True)
+    tok.save(os.path.join(out_dir, "tokenizer.json"))
+    cfg = {
+        "eos_token": "<|end|>",
+        "pad_token": "<|pad|>",
+        "chat_template": SYNTH_CHAT_TEMPLATE,
+        "added_tokens_decoder": {
+            str(tok.token_to_id(s)): {"content": s, "special": True} for s in SPECIAL_TOKENS
+        },
+    }
+    with open(os.path.join(out_dir, "tokenizer_config.json"), "w") as f:
+        json.dump(cfg, f, indent=1)
+    return out_dir
+
+
+def synth_chat_model(out_dir: str, *, seed: int = 0, vocab_size: int = 512,
+                     config=None, **config_kw) -> str:
+    """Full offline chat model dir: config + weights + tokenizer, with the
+    model's stop ids aligned to the tokenizer's <|end|>. `config` overrides
+    the default llama architecture (its vocab_size must match)."""
+    cfg = config if config is not None else llama_config(vocab_size=vocab_size, **config_kw)
+    synthesize(cfg, out_dir, seed=seed)
+    synth_tokenizer(out_dir, vocab_size=vocab_size)
+    from ..sessions.tokenizer import Tokenizer
+
+    eos = Tokenizer(out_dir).eos_token_ids
+    cfg_path = os.path.join(out_dir, "config.json")
+    with open(cfg_path) as f:
+        raw = json.load(f)
+    raw["generation_config"]["stop_token_ids"] = eos
+    with open(cfg_path, "w") as f:
+        json.dump(raw, f, indent=1)
+    return out_dir
+
+
+# --------------------------------------------------------------------------
+# Encoder classifier
+# --------------------------------------------------------------------------
+
+
+def classifier_config(
+    *, num_layers: int = 2, model_dim: int = 64, hidden_dim: int = 160,
+    num_heads: int = 4, num_groups: int = 2, head_dim: int = 16,
+    vocab_size: int = 256, num_labels: int = 3, labels=None,
+):
+    """Encoder-classifier config (reference: config/classifier.rs)."""
+    from ..config.model import (
+        ClassifierConfig,
+        ClassifierModelConfig,
+        PoolingType,
+        PredictionHeadConfig,
+    )
+
+    base = llama_config(
+        num_layers=num_layers, model_dim=model_dim, hidden_dim=hidden_dim,
+        num_heads=num_heads, num_groups=num_groups, head_dim=head_dim,
+        vocab_size=vocab_size,
+    )
+    head = PredictionHeadConfig(
+        dense_config=LinearConfig(),
+        activation=SiLU(alpha=1.0),
+        normalization_config=_rms(),
+        readout_config=LinearConfig(),
+        use_dense_bias=True,
+    )
+    return ClassifierModelConfig(
+        classifier_config=ClassifierConfig(
+            embedding_config=TiedEmbeddingConfig(input_scale=None, logit_soft_cap=None),
+            embedding_norm_config=_rms(),
+            transformer_config=base.decoder_config.transformer_config,
+            prediction_head_config=head,
+            vocab_size=vocab_size,
+            model_dim=model_dim,
+            hidden_dim=model_dim,
+            num_labels=num_labels,
+            classifier_pooling=PoolingType.MEAN,
+            output_labels=tuple(labels) if labels else None,
+        )
+    )
+
+
+def synthesize_classifier(model_cfg, out_dir: str, *, seed: int = 0, dtype=BF16) -> str:
+    """Write a classifier model dir (tensors under the 'classifier.' prefix,
+    like the reference's loader expects, classifier_model.rs:62); the files
+    are byte-identical to the JAX package's."""
+    cfg = model_cfg.classifier_config
+    b = ModelBuilder(seed=seed, dtype=np.dtype(dtype))
+    d = cfg.model_dim
+    spec = FullPrecisionSpec(layout=Layout.OUTPUT_INPUT)
+    emb_spec = FullPrecisionSpec(layout=Layout.INPUT_OUTPUT)
+
+    inner = ModelBuilder(seed=seed, dtype=np.dtype(dtype))
+    # the decoder emitter writes the embedding and the transformer layers
+    inner.build_decoder(DecoderConfig(embedding_config=cfg.embedding_config,
+                                      transformer_config=cfg.transformer_config,
+                                      vocab_size=cfg.vocab_size, ple_model_config=None),
+                        spec, emb_spec)
+    # it also writes transformer.output_norm, which the classifier does
+    # not have; drop it and add the classifier's own tensors
+    for name in list(inner.tensors):
+        if name.startswith("transformer.output_norm"):
+            del inner.tensors[name]
+    inner.norm_scales("embedding_norm", d, cfg.embedding_norm_config.has_biases)
+    ph = cfg.prediction_head_config
+    inner.linear("prediction_head.dense", cfg.hidden_dim, cfg.hidden_dim, spec, ph.use_dense_bias)
+    inner.norm_scales("prediction_head.norm", cfg.hidden_dim, ph.normalization_config.has_biases)
+    inner.linear("prediction_head.readout", cfg.hidden_dim, cfg.num_labels, spec, False)
+
+    b.tensors = {f"classifier.{k}": v for k, v in inner.tensors.items()}
+    b.metadata = {f"classifier.{k}": v for k, v in inner.metadata.items()}
+    return b.write(out_dir, model_cfg)
