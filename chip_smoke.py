@@ -11,6 +11,7 @@
     python3 chip_smoke.py --spec-only    # phase 16 alone, with K1/K3's verify-shape rows
     python3 chip_smoke.py --batch-spec-only  # phase 17 alone, with K1/K5/K6/K9's verify rows
     python3 chip_smoke.py --serve-only   # phase 18 alone (the servers, the CLI, the classifier)
+    python3 chip_smoke.py --parallel-only  # phase 19 alone, with its shard-shape kernel rows
 
 Phases, each of which ends the run with a non-zero exit if it fails:
 
@@ -253,6 +254,30 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     encoder classifier (12 layers, d 768, bf16) on the card against the
     host within TOL, and padded to two buckets within TOL. HTTP latency,
     first chunks and tok/s are printed beside the engines' own.
+
+19. multi-device execution (`parallel/`, the engines and servers over a
+    mesh) on the flagship at full width. A world of one: `initialize()`
+    joins a process group of one over NCCL (one all-reduce probes it) and
+    `LanguageModel.from_dir(tp=1, dp=1)` runs over its (1, 1) mesh: a
+    greedy stream of PARALLEL_TOKENS and `PagedBatchEngine` and
+    `BatchEngine` over 4 requests equal the unsharded model's token for
+    token in the same run, with the same launches (K1 4 x layers + 1 a
+    forward pass), tok/s beside the unsharded stream's. Then two spawned
+    ranks share the card, tp=2 over gloo with CUDA tensors (NCCL refuses
+    two ranks on one device), after a probe of gloo's all-reduce,
+    all-gather and broadcast on CUDA tensors (a failed collective fails
+    the phase): each rank holds 16 of the 32
+    heads over 4 of the 8 KV groups, 8192 of up|gate's rows and 4096 of
+    down's columns; the ranks' greedy streams are bitwise one and pass
+    phase 4's rule against the unsharded single stream, and so do their
+    `PagedBatchEngine` streams (K5 once a layer a step at half the heads);
+    the same run with the fused [up | gate] rows cut contiguously must
+    fail that rule; each rank's launches, decode tok/s and the mean time
+    of one decode row's all-reduce over gloo are recorded. Phase 2 holds
+    K1 at the shard shapes (tp=2: qkv 1536, out 2048 x 1024, up|gate
+    8192, down 2048 x 4096 at M = 1 and 256; tp=4: out 2048 x 512, down
+    2048 x 2048), K3 over a 256-row chunk and K5 over 8 x 1024 live tokens
+    at 16 heads over 4 groups to their plain versions.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Full per-shape numbers also go to
@@ -4920,6 +4945,323 @@ def serve_phases(torch, lm16, dirs: dict, info: dict) -> None:
     phase("serve_classifier", serve_classifier, torch, dirs["clf_12l"], info)
 
 
+# -- phase 19: multi-device execution (parallel/) ----------------------------
+
+# K1 at the flagship's linears cut over tp ranks: each rank's qkv rows
+# [q_r | k_r | v_r], out's columns, [up_r | gate_r] rows, down's columns
+PARALLEL_SHARD_SHAPES = {2: (("qkv", 1536, 2048), ("out", 2048, 1024),
+                             ("up|gate", 8192, 2048), ("down", 2048, 4096)),
+                         4: (("out", 2048, 512), ("down", 2048, 2048))}
+PARALLEL_TOKENS = 64  # greedy tokens of the world-of-one and two-rank streams
+PARALLEL_ENGINE_TOKENS = 16  # per request through the batch engines at tp=1
+
+
+def check_parallel_rows(torch, timer, rows, flash_usage, paged_usage) -> None:
+    """Phase 19's kernels at the shard shapes, each against its plain
+    version: K1 at the flagship's linears over tp=2 (M = 1 and 256) and the
+    column slices of tp=4 that change K/g; K3 over a 256-row chunk and K5
+    over 8 slots x 1024 live tokens at half the heads (16 over 4 groups)."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    for tp, shapes in PARALLEL_SHARD_SHAPES.items():
+        for wname, n, k in shapes:
+            w, wd = random_qweights(torch, gen, n, k, 4)["symmetric"]
+            for m in ((1, 256) if tp == 2 else (1,)):
+                qmm_row(torch, timer, rows, w, wd, f"{wname}/tp{tp}", m, "symmetric", gen)
+    h, g, dh = 16, 4, 64
+    q, kc, vc = (torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+                 for shape in ((256, h, dh), (1024, g, dh), (1024, g, dh)))
+    flash_row(torch, timer, rows, flash_usage, q, kc, vc, 765, "tp2", {})
+    b, page = 8, 512
+    maxp = 4096 // page
+    p_total = b * maxp + 1
+    k = torch.randn((g, p_total, page, dh), device="cuda", generator=gen).to(torch.bfloat16)
+    v = torch.randn((g, p_total, page, dh), device="cuda", generator=gen).to(torch.bfloat16)
+    table = torch.randperm(p_total - 1, device="cuda", generator=gen)[: b * maxp]
+    table = table.reshape(b, maxp).to(torch.int32)
+    q = torch.randn((b, h, dh), device="cuda", generator=gen).to(torch.bfloat16)
+    lengths = torch.full((b,), 1024, device="cuda", dtype=torch.int32)
+    paged_row(torch, timer, rows, paged_usage, q, k, v, table, lengths, "uniform1024", "tp2",
+              {})
+
+
+def parallel_world_of_one(torch, lm16, model_dir: str, info: dict) -> None:
+    """Part 1: `initialize()` joins a process group of one over NCCL, and
+    `LanguageModel.from_dir(tp=1, dp=1)` runs over its (1, 1) mesh at full
+    width: the greedy stream and both batch engines' streams equal the
+    unsharded model's in this run, and K1 / K3 / K5 launch as many times a
+    step as there."""
+    import torch.distributed as dist
+
+    from uzu_tpu_torch.engine.batch import BatchEngine
+    from uzu_tpu_torch.engine.engine import LanguageModel, StreamMetrics
+    from uzu_tpu_torch.engine.paged_batch import PagedBatchEngine
+    from uzu_tpu_torch.ops.cuda.build import LAUNCHES, reset_launches
+    from uzu_tpu_torch.parallel import initialize
+
+    joined = initialize()
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        raise AssertionError(f"expected a world of one over nccl, got "
+                             f"{dist.get_backend()} x {dist.get_world_size()}")
+    probe = torch.ones(4, device="cuda")
+    dist.all_reduce(probe)
+    torch.cuda.synchronize()
+    lm = LanguageModel.from_dir(model_dir, device="cuda", max_context=4096, tp=1, dp=1)
+    if lm.mesh is None or tuple(lm.mesh.mesh.shape) != (1, 1):
+        raise AssertionError("the model is not over a (1, 1) mesh")
+    vocab = FLAGSHIP["vocab_size"]
+    prompt = prompt_tokens(GEN_PROMPT, vocab)
+    for model in (lm16, lm):
+        model.generate_list(prompt[:16], 2, stop_token_ids=[])
+    out = {}
+    # in turns (unsharded, mesh, mesh, unsharded): the host moves tok/s
+    for key, model in (("unsharded", lm16), ("mesh", lm), ("mesh", lm), ("unsharded", lm16)):
+        metrics = StreamMetrics()
+        reset_launches()
+        toks = model.generate_list(prompt, PARALLEL_TOKENS, stop_token_ids=[],
+                                   metrics=metrics)
+        torch.cuda.synchronize()
+        run = dict(tokens=toks, decode_tok_s=[metrics.decode_tokens_per_second],
+                   prefill_tok_s=[metrics.prefill_tokens_per_second],
+                   launches=dict(LAUNCHES), passes=metrics.num_forward_passes)
+        if key in out:
+            if toks != out[key]["tokens"] or run["launches"] != out[key]["launches"]:
+                raise AssertionError(f"{key}: two greedy runs differ")
+            for k in ("decode_tok_s", "prefill_tok_s"):
+                out[key][k] += run[k]
+        else:
+            out[key] = run
+    if out["mesh"]["tokens"] != out["unsharded"]["tokens"]:
+        raise AssertionError("the world-of-one stream differs from the unsharded one")
+    if out["mesh"]["launches"] != out["unsharded"]["launches"]:
+        raise AssertionError(f"launches differ: {out['mesh']['launches']} against "
+                             f"{out['unsharded']['launches']}")
+    layers = len(lm.params["layers"])
+    k1 = out["mesh"]["launches"]["quant_matmul_int4"]
+    if k1 != (4 * layers + 1) * out["mesh"]["passes"]:
+        raise AssertionError(f"K1 launched {k1} times over {out['mesh']['passes']} forward "
+                             f"passes, expected {4 * layers + 1} a pass")
+    prompts = batched_prompts(vocab)[:4]
+    engines = {}
+    for name, make in (("paged", lambda m: PagedBatchEngine(
+            m, batch_size=4, decode_chunk=8, num_pages=16, stop_token_ids=[])),
+                       ("dense", lambda m: BatchEngine(m, batch_size=4, decode_chunk=8,
+                                                       stop_token_ids=[]))):
+        streams = {}
+        for key, model in (("unsharded", lm16), ("mesh", lm)):
+            eng = make(model)
+            reset_launches()
+            reqs = [eng.submit(p, PARALLEL_ENGINE_TOKENS) for p in prompts]
+            seconds, _ = drive(torch, eng)
+            streams[key] = dict(tokens=[r.tokens for r in reqs], seconds=seconds,
+                                launches=dict(LAUNCHES))
+            del eng
+        if streams["mesh"]["tokens"] != streams["unsharded"]["tokens"]:
+            raise AssertionError(f"{name} engine: the world-of-one streams differ")
+        engines[name] = streams
+    if engines["paged"]["mesh"]["launches"]["paged_attention"] <= 0:
+        raise AssertionError("paged_attention was not launched on the world-of-one run")
+    info["parallel_world_of_one"] = dict(
+        backend=dist.get_backend(), world=dist.get_world_size(), joined=joined,
+        nccl_all_reduce=probe.tolist(), tokens_head=out["mesh"]["tokens"][:16],
+        decode_tok_s=out["mesh"]["decode_tok_s"],
+        unsharded_decode_tok_s=out["unsharded"]["decode_tok_s"],
+        prefill_tok_s=out["mesh"]["prefill_tok_s"],
+        unsharded_prefill_tok_s=out["unsharded"]["prefill_tok_s"],
+        launches=out["mesh"]["launches"], forward_passes=out["mesh"]["passes"],
+        engines={name: dict(requests=len(prompts), tokens=PARALLEL_ENGINE_TOKENS,
+                            seconds=s["mesh"]["seconds"],
+                            unsharded_seconds=s["unsharded"]["seconds"],
+                            launches=s["mesh"]["launches"])
+                 for name, s in engines.items()})
+    log("PARALLEL_WORLD_OF_ONE " + json.dumps(info["parallel_world_of_one"]))
+    del lm
+    torch.cuda.empty_cache()
+
+
+def _parallel_rank(rank: int, store: str, model_dir: str, prompt, paged, results) -> None:
+    """One of two ranks sharing the card over gloo with CUDA tensors: the
+    probe of the collectives tp needs, then the flagship over tp=2 (a
+    clean greedy stream and one with the fused [up | gate] rows cut
+    contiguously, each with its launches; `PagedBatchEngine` over the
+    clean model on the `paged` prompts), and the mean all-reduce time of
+    one decode row."""
+    try:
+        import torch
+        import torch.distributed as dist
+
+        sys.path.insert(0, REPO)
+        from uzu_tpu_torch.engine.engine import LanguageModel, StreamMetrics
+        from uzu_tpu_torch.engine.paged_batch import PagedBatchEngine
+        from uzu_tpu_torch.ops.cuda.build import LAUNCHES, reset_launches
+        from uzu_tpu_torch.parallel import initialize, make_mesh
+        from uzu_tpu_torch.parallel.mesh import Split, axis_rank
+        from uzu_tpu_torch.parallel.sharding import apply_specs, decoder_param_specs
+
+        initialize(init_method=f"file://{store}", world_size=2, rank=rank, backend="gloo",
+                   device_type="cuda")
+        probe = {}
+        for name, fn in (
+                ("all_reduce", lambda t: dist.all_reduce(t)),
+                ("all_gather", lambda t: dist.all_gather([torch.empty_like(t)
+                                                          for _ in range(2)], t)),
+                ("broadcast", lambda t: dist.broadcast(t, src=0))):
+            t = torch.full((8,), float(rank + 1), device="cuda")
+            fn(t)
+            torch.cuda.synchronize()
+            probe[name] = t.tolist()
+        mesh = make_mesh(tp=2, dp=1, device_type="cuda")
+        full = LanguageModel.from_dir(model_dir, device="cuda", max_context=4096)
+        cfg = full.config.decoder_config
+
+        def contiguous(params):
+            specs = decoder_param_specs(cfg, params, mesh)
+            for ls in specs["layers"]:
+                ls["mlp"]["up"]["w"] = Split(dim=0)
+            return apply_specs(params, specs, axis_rank(mesh, "tp"), 2,
+                               mesh.get_group("tp"))
+
+        out = dict(probe=probe)
+        for key, fn in (("clean", None), ("contiguous_up_gate", contiguous)):
+            lm = LanguageModel(full.config, full.params, device="cuda", max_context=4096,
+                               mesh=mesh, shard_fn=fn)
+            lm.generate_list(prompt[:16], 2, stop_token_ids=[])
+            metrics = StreamMetrics()
+            reset_launches()
+            toks = lm.generate_list(prompt, PARALLEL_TOKENS, stop_token_ids=[],
+                                    metrics=metrics)
+            torch.cuda.synchronize()
+            out[key] = dict(tokens=toks, decode_tok_s=metrics.decode_tokens_per_second,
+                            prefill_tok_s=metrics.prefill_tokens_per_second,
+                            launches=dict(LAUNCHES), passes=metrics.num_forward_passes,
+                            heads=lm.decoder_config.transformer_config.layer_configs[0]
+                            .mixer_config.num_heads,
+                            up_rows=int(lm.params["layers"][0]["mlp"]["up"]["w"].shape[0]),
+                            down_cols=int(lm.params["layers"][0]["mlp"]["down"]["w"].w.shape[1]))
+            if fn is None:
+                eng = PagedBatchEngine(lm, batch_size=4, decode_chunk=8, num_pages=16,
+                                       stop_token_ids=[])
+                reset_launches()
+                reqs = [eng.submit(p, PARALLEL_ENGINE_TOKENS) for p in paged]
+                t0 = time.perf_counter()
+                eng.run()
+                torch.cuda.synchronize()
+                out["paged"] = dict(tokens=[r.tokens for r in reqs], launches=dict(LAUNCHES),
+                                    seconds=time.perf_counter() - t0,
+                                    decode_steps=eng.stats["decode_chunks"] * eng.decode_chunk)
+                del eng
+            del lm
+        row = torch.ones((1, FLAGSHIP["model_dim"]), device="cuda")
+        for _ in range(5):
+            dist.all_reduce(row)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            dist.all_reduce(row)
+        torch.cuda.synchronize()
+        out["all_reduce_ms"] = (time.perf_counter() - t0) / 50 * 1e3
+        results.put((rank, out))
+        dist.destroy_process_group()
+    except Exception:  # reported to the parent, which fails the phase
+        import traceback
+
+        results.put((rank, dict(error=traceback.format_exc())))
+
+
+def parallel_two_ranks(torch, lm16, model_dir: str, info: dict) -> dict:
+    """Part 2: two spawned ranks share the card, tp=2 over gloo with CUDA
+    tensors (NCCL refuses two ranks on one device). Each holds half the
+    heads (16 over 4 groups), 8192 of up|gate's rows and 4096 of down's
+    columns; their greedy streams are bitwise one and pass phase 4's rule
+    against the unsharded single stream; the contiguous [up | gate] cut
+    must fail it. Returns rank 0's launches of the clean stream. A failed
+    collective fails the phase."""
+    import shutil
+    import tempfile
+
+    prompt = prompt_tokens(GEN_PROMPT, FLAGSHIP["vocab_size"])
+    paged = batched_prompts(FLAGSHIP["vocab_size"])[:4]
+    tmp = tempfile.mkdtemp(prefix="uzu_ranks_", dir=os.path.join(REPO, ".port_cache"))
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_parallel_rank,
+                         args=(r, os.path.join(tmp, "store"), model_dir, prompt, paged,
+                               results))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        got = dict(results.get(timeout=600) for _ in procs)
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r in (0, 1):
+        if "error" in got[r]:
+            raise AssertionError(f"rank {r} failed:\n{got[r]['error']}")
+    rec = dict(probe={r: got[r]["probe"] for r in (0, 1)})
+    if rec["probe"][0]["all_reduce"] != [3.0] * 8:
+        raise AssertionError(f"gloo's all_reduce over CUDA tensors gave {rec['probe']}")
+    clean = [got[r]["clean"] for r in (0, 1)]
+    if clean[0]["tokens"] != clean[1]["tokens"]:
+        raise AssertionError("the two ranks' greedy streams differ")
+    if (clean[0]["heads"], clean[0]["up_rows"], clean[0]["down_cols"]) != (16, 8192, 4096):
+        raise AssertionError(f"a rank's slice is not half the flagship's: {clean[0]}")
+    readings = stream_readings(torch, lm16, [prompt], [clean[0]["tokens"]])
+    check_streams(readings)
+    bad = got[0]["contiguous_up_gate"]
+    bad_readings = stream_readings(torch, lm16, [prompt], [bad["tokens"]])
+    try:
+        check_streams(bad_readings)
+    except AssertionError as e:
+        caught = str(e)
+    else:
+        raise AssertionError("the stream check passed the contiguous [up | gate] cut")
+    for name in ("quant_matmul_int4", "flash_attention"):
+        if clean[0]["launches"][name] <= 0:
+            raise AssertionError(f"{name} was not launched on the two-rank run")
+    pg = [got[r]["paged"] for r in (0, 1)]
+    if pg[0]["tokens"] != pg[1]["tokens"]:
+        raise AssertionError("the two ranks' paged streams differ")
+    paged_readings = stream_readings(torch, lm16, paged, pg[0]["tokens"])
+    check_streams(paged_readings)
+    layers = len(lm16.params["layers"])
+    if pg[0]["launches"]["paged_attention"] != pg[0]["decode_steps"] * layers:
+        raise AssertionError(f"paged_attention launched {pg[0]['launches']['paged_attention']} "
+                             f"times over {pg[0]['decode_steps']} steps x {layers} layers")
+    launches = {n: clean[0]["launches"][n] + pg[0]["launches"][n] for n in clean[0]["launches"]}
+    rec.update(
+        tokens_head=clean[0]["tokens"][:16], **stream_summary(readings),
+        decode_tok_s=[c["decode_tok_s"] for c in clean],
+        prefill_tok_s=[c["prefill_tok_s"] for c in clean],
+        launches_by_rank={r: clean[r]["launches"] for r in (0, 1)},
+        forward_passes=clean[0]["passes"],
+        all_reduce_ms={r: got[r]["all_reduce_ms"] for r in (0, 1)},
+        all_reduces_per_step=2 * len(lm16.params["layers"]),
+        fault_caught=caught, fault_max_gap=bad_readings[0]["max_gap"],
+        fault_greedy_choices=bad_readings[0]["greedy_choices"],
+        paged=dict(requests=len(paged), tokens=PARALLEL_ENGINE_TOKENS,
+                   seconds=pg[0]["seconds"], decode_steps=pg[0]["decode_steps"],
+                   launches_rank0=pg[0]["launches"], **stream_summary(paged_readings)),
+        launches=launches)
+    info["parallel_two_ranks"] = rec
+    log("PARALLEL_TWO_RANKS " + json.dumps(rec))
+    return launches
+
+
+def parallel_phase(torch, lm16, model_dir: str, info: dict) -> None:
+    """Phase 19: the world of one over NCCL, then two ranks over gloo."""
+    import torch.distributed as dist
+
+    phase = functools.partial(timed_phase, info)
+    phase("parallel_world_of_one", parallel_world_of_one, torch, lm16, model_dir, info)
+    phase("parallel_two_ranks", parallel_two_ranks, torch, lm16, model_dir, info)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def kernel_record(rows, info) -> list[dict]:
     """One entry per kernel at its main-path shape (the decode GEMV of the
     up|gate projection for K1/K2, a 256-row prefill chunk over a 1024-slot
@@ -5030,6 +5372,21 @@ def kernel_record(rows, info) -> list[dict]:
             "grouped_matmul_int4", dict(weight="up", T=BSPEC_M[0] * GPTOSS["num_active"]),
             ("batch_spec_gptoss", "verify")),
     }
+    # phase 19's shard shapes: K1 at tp=2's up|gate rows (M = 1, 256) and
+    # tp=4's down columns, K3 and K5 at half the heads; launches of rank 0
+    # of the two ranks sharing the card (tp=4 runs on no path here, so its
+    # row has none)
+    shard = {
+        "quant_matmul_int4_tp2_m1": ("quant_matmul_int4",
+                                     dict(weight="up|gate/tp2", M=1), "parallel_two_ranks"),
+        "quant_matmul_int4_tp2_m256": ("quant_matmul_int4",
+                                       dict(weight="up|gate/tp2", M=256), "parallel_two_ranks"),
+        "quant_matmul_int4_tp4_m1": ("quant_matmul_int4", dict(weight="down/tp4", M=1), None),
+        "flash_attention_tp2": ("flash_attention", dict(H=16, variant="tp2"),
+                                "parallel_two_ranks"),
+        "paged_attention_tp2": ("paged_attention", dict(H=16, variant="tp2"),
+                                "parallel_two_ranks"),
+    }
     out = []
     for name, (src, replaces, where, path, kernel) in spec.items():
         kname = name.split("_dh")[0]
@@ -5094,6 +5451,23 @@ def kernel_record(rows, info) -> list[dict]:
                 "weight", "N", "K", "M", "H", "G", "Dh", "q", "splits", "variant", "B", "page",
                 "width", "lengths", "live_tokens", "distinct_live_tokens", "E", "T", "Tp", "bm",
                 "route", "bn", "used_tiles", "distinct_experts")}))
+    for name, (kname, where, path) in shard.items():
+        mine = [r for r in rows if r["kernel"] == kname
+                and all(r.get(k) == v for k, v in where.items())]
+        src, replaces, _, _, kernel = spec[kname]
+        rep = mine[0]
+        launches = info[path]["launches"][kname] if path else 0
+        out.append(dict(
+            name=name, route="cuda", source=src, kernel=kernel, replaces=replaces,
+            launches=launches, launches_by_path={path or "none": launches},
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            err_over_rms=max(r["err_over_rms"] for r in mine), tol=rep["tol"],
+            ms=rep["ms"], device_ms=rep["device_ms"], plain_ms=rep["plain_ms"],
+            bound_ms=rep["bound_ms"], bound_by=rep["bound_by"], library_ms=rep["library_ms"],
+            library_device_ms=rep["library_device_ms"],
+            shape={k: rep[k] for k in rep if k in (
+                "weight", "N", "K", "M", "S", "H", "G", "Dh", "C", "pos0", "q", "splits",
+                "variant", "B", "page", "width", "lengths", "live_tokens")}))
     return out
 
 
@@ -5267,6 +5641,30 @@ def main() -> int:
         log("SERVE_ONLY " + json.dumps(info["phase_seconds"]))
         return 0
 
+    if "--parallel-only" in sys.argv[1:]:
+        # phase 19 alone, with its shard-shape kernel rows
+        from uzu_tpu_torch.engine.engine import LanguageModel
+
+        t0 = time.perf_counter()
+        with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as ex:
+            synth = ex.submit(synth_model, "llama1b_int4")
+            built = kbuild.build()
+            dirs = {"llama1b_int4": synth.result()}
+        log(f"BUILD kernels built in {built:.1f} s, models synthesized in "
+            f"{time.perf_counter() - t0:.1f} s")
+        timer, rows = Timer(torch), []
+        check_parallel_rows(torch, timer, rows,
+                            kernel_usage(kbuild.BUILD_LOGS.get("flash_attention", ""),
+                                         "flash_fwd"),
+                            kernel_usage(kbuild.BUILD_LOGS.get("paged_attention", ""),
+                                         "paged_decode"))
+        del timer
+        torch.cuda.empty_cache()
+        lm16 = LanguageModel.from_dir(dirs["llama1b_int4"], device="cuda", max_context=4096)
+        timed_phase(info, "parallel", parallel_phase, torch, lm16, dirs["llama1b_int4"], info)
+        log("PARALLEL_ONLY " + json.dumps(info["phase_seconds"]))
+        return 0
+
     if "--gemma-only" in sys.argv[1:]:
         # the Gemma slice alone: its kernel rows and phase 14
         t0 = time.perf_counter()
@@ -5340,6 +5738,7 @@ def main() -> int:
     check_moe_rows(torch, info)
     check_block_copy(torch, timer, rows)
     check_batch_spec_rows(torch, timer, rows, paged_usage)
+    check_parallel_rows(torch, timer, rows, usage, paged_usage)
     del timer
     torch.cuda.empty_cache()
     info["phase_seconds"]["kernels"] = time.perf_counter() - t0
@@ -5375,6 +5774,7 @@ def main() -> int:
     phase("spec_flagship", spec_flagship, torch, lm16, dirs, info)
     phase("batch_spec_flagship", batch_spec_flagship, torch, lm16, info)
     serve_phases(torch, lm16, dirs, info)
+    phase("parallel", parallel_phase, torch, lm16, dirs["llama1b_int4"], info)
     del lm16
     torch.cuda.empty_cache()
     phase("batch_spec_int8", batch_spec_int8, torch, dirs["llama1b_int8_2l"], info)

@@ -284,12 +284,15 @@ def test_cli_ppl_matches_the_jax_cli(models_root, tmp_path, capsys):
 
 
 def test_cli_refuses_mesh_flags_and_defaults_to_the_card(models_root, monkeypatch):
+    """`autotune` is not registered; the mesh flags parse (`parallel/`),
+    and with them as without them the default device is the card: no
+    card raises before any rank is started."""
     chat = os.path.join(models_root, "chatty")
-    with pytest.raises(SystemExit):
-        main(["ppl", chat, "x.txt", "--tp", "2"])
     with pytest.raises(SystemExit):
         main(["autotune", chat])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["ppl", chat, "x.txt", "--tp", "2"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["classify", os.path.join(models_root, "clf"), "hi"])
 

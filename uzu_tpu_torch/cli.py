@@ -19,6 +19,15 @@ model takes `--device` (default `cuda`: the card, raising without one;
 `cpu` runs the plain PyTorch path), and bench reports the card's name from
 `torch.cuda.get_device_name`. A bundled speculator is skipped only when
 its directory is malformed (`engine.facade.SPECULATOR_DIR_ERRORS`).
+
+`bench`, `serve`, `chat` and `ppl` take `--tp` / `--dp`: the model is
+split over a (dp, tp) mesh of tp·dp ranks (`parallel/`). Under torchrun
+(or any launcher that sets RANK / WORLD_SIZE) each rank runs this command
+and joins the launcher's group; without one, the command starts tp·dp−1
+follower processes itself (spawned, over a file store in a temporary
+directory) and runs as rank 0. Rank 0 alone prints, writes files and
+serves HTTP; the others run the same engine calls in lockstep
+(`server/lockstep.py`).
 """
 
 from __future__ import annotations
@@ -30,12 +39,14 @@ import sys
 import time
 
 
-def _load_chat(model_dir: str, max_context: int, device: str, speculate=None):
+def _load_chat(model_dir: str, max_context: int, device: str, speculate=None,
+               tp=None, dp=None):
     from uzu_tpu_torch import LanguageModel
     from uzu_tpu_torch.engine.facade import SPECULATOR_DIR_ERRORS
     from uzu_tpu_torch.sessions import ChatSession, Tokenizer
 
-    lm = LanguageModel.from_dir(model_dir, device=device, max_context=max_context)
+    lm = LanguageModel.from_dir(model_dir, device=device, max_context=max_context, tp=tp,
+                                dp=dp)
     tok = Tokenizer(model_dir)
     speculator = speculate  # "self" / "fused-self" strings pass through
     spec_cfg = os.path.join(model_dir, "speculator", "config.json")
@@ -47,7 +58,7 @@ def _load_chat(model_dir: str, max_context: int, device: str, speculate=None):
                 speculation_supported,
             )
 
-            if speculation_supported(lm.decoder_config):
+            if speculation_supported(lm.decoder_config) and lm.mesh is None:
                 draft = DFlashDraft.from_dir(os.path.dirname(spec_cfg),
                                              max_context=max_context, device=device)
                 speculator = DFlashSpeculativeDecoder(lm, draft)
@@ -61,7 +72,8 @@ def cmd_bench(args) -> int:
 
     with open(args.task) as f:
         task = json.load(f)
-    session = _load_chat(args.model_dir, args.max_context, args.device)
+    session = _load_chat(args.model_dir, args.max_context, args.device, tp=args.tp,
+                         dp=args.dp)
 
     messages = [
         {"role": m["role"], "content": m["content"]} for m in task.get("messages", [])
@@ -113,6 +125,8 @@ def cmd_bench(args) -> int:
         ),
         "text": last.text,
     }
+    if not _leader():
+        return 0
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps({
@@ -131,24 +145,30 @@ def cmd_serve(args) -> int:
         from uzu_tpu_torch.sessions import Tokenizer
 
         lm = LanguageModel.from_dir(args.model_dir, device=args.device,
-                                    max_context=args.max_context)
+                                    max_context=args.max_context, tp=args.tp, dp=args.dp)
         httpd = serve_batched(lm, Tokenizer(args.model_dir), host=args.host,
                               port=args.port, model_name=name,
                               batch_size=args.batch_size,
                               speculate=args.speculate)
+        stop = None if httpd is None else httpd.batch_server.shutdown
     else:
         if args.speculate:
             print("warning: --speculate applies to the --batched server "
                   "only; serving plain single-stream", file=sys.stderr)
-        session = _load_chat(args.model_dir, args.max_context, args.device)
+        session = _load_chat(args.model_dir, args.max_context, args.device, tp=args.tp,
+                             dp=args.dp)
         from uzu_tpu_torch.server import serve
 
         httpd = serve(session, host=args.host, port=args.port, model_name=name)
+        stop = None if httpd is None else httpd.chat_server.stop_followers
+    if httpd is None:
+        return 0  # a follower rank: rank 0 has shut the server down
     print(f"serving OpenAI-compatible API on http://{args.host}:{httpd.server_address[1]}/v1")
     try:
         while True:
             time.sleep(3600)
     except KeyboardInterrupt:
+        stop()
         httpd.shutdown()
     return 0
 
@@ -157,7 +177,11 @@ def cmd_chat(args) -> int:
     from uzu_tpu_torch.engine.sampling import SamplingParams
 
     session = _load_chat(args.model_dir, args.max_context, args.device,
-                         speculate=args.speculate)
+                         speculate=args.speculate, tp=args.tp, dp=args.dp)
+    from uzu_tpu_torch.server.lockstep import lockstep_for
+
+    lockstep = lockstep_for(session.model)
+    leader = lockstep is None or lockstep.leader
     sampling = SamplingParams(temperature=args.temperature, top_p=0.95) \
         if args.temperature else SamplingParams()
 
@@ -181,24 +205,35 @@ def cmd_chat(args) -> int:
             kw = dict(any_whitespace=False, separators=(",", ":"))
         return GrammarSession(session.tokenizer, schema=schema, **kw)
 
-    print("(interactive chat; empty line or Ctrl-D to exit)")
-    while True:
-        try:
-            line = input("> ").strip()
-        except EOFError:
-            break
-        if not line:
-            break
+    def read_line() -> str:
+        """Rank 0 reads the line and sends it to the other ranks."""
+        line = ""
+        if leader:
+            try:
+                line = input("> ").strip()
+            except EOFError:
+                pass
+        if lockstep is None:
+            return line
+        if leader:
+            lockstep.send(line)
+            return line
+        return lockstep.recv()
+
+    if leader:
+        print("(interactive chat; empty line or Ctrl-D to exit)")
+    while line := read_line():
         for ev in session.stream(line, sampling=sampling,
                                  max_new_tokens=args.max_tokens,
                                  grammar=make_grammar()):
-            if ev.kind == "text":
+            if ev.kind == "text" and leader:
                 print(ev.delta, end="", flush=True)
-        print()
         reply = session.last_reply
         session.messages.append({"role": "assistant", "content": reply.text})
         s = reply.stats
-        print(f"  [{s.tokens_count_output} tok, {s.generate_tokens_per_second:.1f} tok/s]")
+        if leader:
+            print()
+            print(f"  [{s.tokens_count_output} tok, {s.generate_tokens_per_second:.1f} tok/s]")
     return 0
 
 
@@ -267,11 +302,14 @@ def cmd_ppl(args) -> int:
     from uzu_tpu_torch.tools.quality import sequence_nll
 
     lm = LanguageModel.from_dir(args.model_dir, device=args.device,
-                                max_context=args.max_context, kv_quant=args.kv_quant)
+                                max_context=args.max_context, kv_quant=args.kv_quant,
+                                tp=args.tp, dp=args.dp)
     tok = Tokenizer(args.model_dir)
     with open(args.textfile) as f:
         ids = tok.encode(f.read())[: args.max_context]
-    print(json.dumps(sequence_nll(lm, ids)))
+    nll = sequence_nll(lm, ids)
+    if _leader():
+        print(json.dumps(nll))
     return 0
 
 
@@ -290,6 +328,84 @@ def _version() -> str:
     return uzu_tpu_torch.__version__
 
 
+def _leader() -> bool:
+    from uzu_tpu_torch.server.lockstep import is_leader
+
+    return is_leader()
+
+
+def _mesh_flags(sp) -> None:
+    """Multi-device flags: split the model over a (dp, tp) mesh of ranks
+    (`parallel/`; no flags = one device)."""
+    sp.add_argument("--tp", type=int, default=None,
+                    help="tensor-parallel ways (splits heads and hidden widths over ranks)")
+    sp.add_argument("--dp", type=int, default=None,
+                    help="data-parallel ways (model replicas; batch sizes must divide by dp)")
+
+
+def _follower(rank: int, world: int, store: str, device: str, argv: list) -> None:
+    """A spawned rank other than 0: join rank 0's group, run the command."""
+    from uzu_tpu_torch.parallel.distributed import initialize
+
+    sys.stdout = open(os.devnull, "w")
+    if _device_type(device) == "cpu":
+        import torch
+
+        # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    initialize(init_method=f"file://{store}", world_size=world, rank=rank,
+               device_type=_device_type(device))
+    main(argv)
+
+
+def _device_type(device: str) -> str:
+    import torch
+
+    return torch.device(device).type
+
+
+def _run_ranks(args, argv: list) -> int:
+    """Run the command over tp·dp ranks: inside a launcher's group as it
+    stands; otherwise spawn the followers and run as rank 0."""
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from uzu_tpu_torch.parallel.distributed import initialize
+    from uzu_tpu_torch.runtime import resolve_device
+
+    world = (args.tp or 1) * (args.dp or 1)
+    if dist.is_initialized() or "RANK" in os.environ:
+        return args.fn(args)
+    resolve_device(args.device)  # no card raises here, before any rank starts
+    tmp = tempfile.mkdtemp(prefix="uzu_ranks_")
+    store = os.path.join(tmp, "store")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_follower, args=(r, world, store, args.device, argv))
+             for r in range(1, world)]
+    for p in procs:
+        p.start()
+    try:
+        initialize(init_method=f"file://{store}", world_size=world, rank=0,
+                   device_type=_device_type(args.device))
+        rc = args.fn(args)
+        for p in procs:
+            p.join()
+        if any(p.exitcode for p in procs):
+            raise RuntimeError(f"a follower rank failed: exit codes "
+                               f"{[p.exitcode for p in procs]}")
+        return rc
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _device_flag(sp) -> None:
     sp.add_argument("--device", default="cuda",
                     help="torch device of the model: 'cuda' (default; raises without a "
@@ -303,6 +419,7 @@ def main(argv=None) -> int:
     b = sub.add_parser("bench")
     b.add_argument("model_dir"); b.add_argument("task"); b.add_argument("out")
     b.add_argument("--max-context", type=int, default=4096, dest="max_context")
+    _mesh_flags(b)
     _device_flag(b)
     b.set_defaults(fn=cmd_bench)
 
@@ -321,6 +438,7 @@ def main(argv=None) -> int:
                         "+ 8 rounds per dispatch), or 'fused-ngram' "
                         "(device prompt-lookup drafts + 8 rounds, zero "
                         "draft compute); requires --batched")
+    _mesh_flags(s)
     _device_flag(s)
     s.set_defaults(fn=cmd_serve)
 
@@ -343,6 +461,7 @@ def main(argv=None) -> int:
                         "layer-truncated self-draft), 'fused-self' "
                         "(multi-round fused dispatches), or 'fused-ngram' "
                         "(fused prompt-lookup, zero draft compute)")
+    _mesh_flags(c)
     _device_flag(c)
     c.set_defaults(fn=cmd_chat)
 
@@ -365,10 +484,14 @@ def main(argv=None) -> int:
     pp.add_argument("model_dir"); pp.add_argument("textfile")
     pp.add_argument("--max-context", type=int, default=2048, dest="max_context")
     pp.add_argument("--kv-quant", action="store_true", dest="kv_quant")
+    _mesh_flags(pp)
     _device_flag(pp)
     pp.set_defaults(fn=cmd_ppl)
 
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = p.parse_args(argv)
+    if (getattr(args, "tp", None) or 1) * (getattr(args, "dp", None) or 1) > 1:
+        return _run_ranks(args, argv)
     return args.fn(args)
 
 

@@ -29,7 +29,12 @@ attention-only models).
   crosses it; with `ring_windows` it is pinned at max_context (a ring is
   position-modulo and cannot be row-copied across capacities), and each
   sliding-window layer keeps its ring of window + the largest prefill
-  bucket slots.
+  bucket slots;
+- over a mesh (`LanguageModel(mesh=...)`), tp splits each slot's heads
+  and widths inside the model and every dp rank holds and steps every
+  slot, as the paged engines do (so every rank's host bookkeeping is the
+  same with no exchange); B must still be a multiple of dp, the
+  reference's check, where dp shards the slots.
 
 Greedy outputs equal single-request generation up to summation order
 (tests pin the streams). The model runs where `lm` runs (the card unless
@@ -475,6 +480,12 @@ class BatchEngine(BatchEngineBase):
         models only. admit_greedy: fill every free slot before a decode
         chunk (False: at most one admission between decode chunks)."""
         self._init_host_state(lm, batch_size, sampling, stop_token_ids)
+        if lm.mesh is not None:
+            from ..parallel.mesh import dp_size
+
+            if batch_size % dp_size(lm.mesh):
+                raise ValueError(f"batch_size={batch_size} must be a multiple of the mesh's "
+                                 f"dp={dp_size(lm.mesh)}")
         self.decode_chunk = decode_chunk
         self.admit_greedy = admit_greedy
         self.queue: deque[Request] = deque()

@@ -17,7 +17,15 @@ Counterpart of `uzu_tpu/engine/engine.py` (`LanguageModel`,
   log-probability and top alternatives (computed on the device inside the
   chunk, read with its tokens);
 - the first prefill chunk and the first decode chunk can be captured by
-  the profiler (`tools/profile.py`, armed by UZU_TPU_PROFILE).
+  the profiler (`tools/profile.py`, armed by UZU_TPU_PROFILE);
+- over a (dp, tp) mesh (`mesh=`, or `tp=`/`dp=`, `parallel/`) the model
+  holds this rank's tensor-parallel slice of the params and runs the
+  rank-local config (heads, groups and hidden widths over tp); every
+  state it makes is this rank's slice; the reductions sit in the split
+  linears, so the logits are whole and the same on every rank, and so is
+  every token sampled from them (the tests hold the ranks' streams
+  bitwise equal). dp ranks run the single stream and every batch
+  engine's slots alike.
 
 The model runs on the card unless the caller passes `device="cpu"`.
 """
@@ -75,12 +83,38 @@ class LanguageModel:
         device=None,
         max_context: int = 4096,
         prefill_buckets=DEFAULT_PREFILL_BUCKETS,
+        shard_fn=None,
+        mesh=None,
+        tp: int | None = None,
+        dp: int | None = None,
         kv_quant: bool = False,
         ring_windows: bool = False,
     ):
+        """`mesh` (a (dp, tp) `DeviceMesh`, `parallel.make_mesh`) or
+        `tp`/`dp` (a mesh over the default process group, joined if need
+        be) make this a distributed model: `params` are full and this
+        rank's slice is kept, unless `shard_fn` maps them (e.g. already
+        sliced by `from_dir_sharded`)."""
         self.device = resolve_device(device)
+        if mesh is None and (tp is not None or dp is not None):
+            from ..parallel.mesh import make_mesh
+
+            mesh = make_mesh(tp=tp, dp=dp, device_type=self.device.type)
+        self.mesh = mesh
         self.config = config
         self.decoder_config = config.decoder_config
+        if shard_fn is not None:
+            params = shard_fn(params)
+        elif mesh is not None:
+            from ..parallel.sharding import shard_decoder_params
+
+            params = shard_decoder_params(self.decoder_config, params, mesh)
+        if mesh is not None:
+            from ..parallel.mesh import tp_size
+            from ..parallel.sharding import local_config
+
+            # the config this rank runs: heads, groups and widths over tp
+            self.decoder_config = local_config(config.decoder_config, tp_size(mesh), params)
         self.max_context = max_context
         self.prefill_buckets = tuple(sorted(prefill_buckets))
         # largest number of decode steps per chunk (one host read per
@@ -106,6 +140,22 @@ class LanguageModel:
         tree.assert_all_validated()
         return cls(config, params, device=device, **kw)
 
+    @classmethod
+    def from_dir_sharded(cls, model_dir: str, mesh, *, device=None,
+                         random_seed: int | None = None, **kw) -> "LanguageModel":
+        """Streamed sharded load (`parallel.distributed.load_params_sharded`):
+        each rank reads the file group by group and keeps only its slice,
+        so no rank holds the whole tree on its host; `shard_load_stats`
+        records the bytes. `from_dir(tp=, dp=)` is fine otherwise."""
+        from ..parallel.distributed import load_params_sharded
+
+        device = resolve_device(device)
+        config, params, stats = load_params_sharded(model_dir, mesh, random_seed=random_seed,
+                                                    device=device)
+        lm = cls(config, params, device=device, mesh=mesh, shard_fn=lambda p: p, **kw)
+        lm.shard_load_stats = stats
+        return lm
+
     # -- state -----------------------------------------------------------
 
     def new_state(self, ring_size: int = 0, batch_size: int = 0,
@@ -114,11 +164,17 @@ class LanguageModel:
         the batched state of the dense batch engine: every leaf with a
         leading [B] dimension (KV [B, C, G, Dh], recurrent states [B, ...],
         pos [B]). ctx_capacity < max_context allocates shorter KV caches
-        (the batch engine grows them by context bucket)."""
+        (the batch engine grows them by context bucket). Over a mesh, this
+        rank's tensor-parallel slice (`parallel.sharding.shard_state`)."""
+        full_cfg = self.config.decoder_config
         state = init_state(
-            self.decoder_config, ctx_capacity or self.max_context, device=self.device,
+            full_cfg, ctx_capacity or self.max_context, device=self.device,
             kv_quant=self.kv_quant, ring_windows=self.ring_windows,
             ring_extra=max(self.prefill_buckets))
+        if self.mesh is not None and self.decoder_config is not full_cfg:
+            from ..parallel.sharding import shard_state
+
+            state = shard_state(full_cfg, state, self.mesh)
         if ring_size:
             state["ring"] = torch.full((ring_size,), -1, dtype=torch.int32, device=self.device)
         if batch_size:

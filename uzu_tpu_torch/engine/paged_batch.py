@@ -1,10 +1,11 @@
 """Continuous batching over a PAGED KV cache.
 
-Counterpart of `uzu_tpu/engine/paged_batch.py` (without its mesh branch:
-the port's `LanguageModel` has no mesh yet). Slots draw fixed pages from
-shared per-layer pools (`models/paged_kv.py`), so KV memory follows the
-tokens actually held, and a shared prompt prefix is one set of physical
-pages.
+Counterpart of `uzu_tpu/engine/paged_batch.py`. Slots draw fixed pages
+from shared per-layer pools (`models/paged_kv.py`), so KV memory follows
+the tokens actually held, and a shared prompt prefix is one set of
+physical pages. Over a mesh the pools are made from the model's
+rank-local config, so they split on the KV-group dim over tp; every dp
+rank holds every slot, as in the reference.
 
 - Admission prefills one chunk per scheduler step straight into the
   slot's pages (`paged_prefill_chunk`); a prompt that shares full pages

@@ -12,7 +12,11 @@ identity transitions. Speculative verification passes `defer_ssm`
 `decoder_commit_deferred`) and, for a token tree, `positions` (RoPE
 positions pos + depth), `tree_mask` (the ancestor matrix; node i is
 written to slot pos + i) and, on recurrent mixers, `tree_parents` and
-`tree_conv_src`. Sequence-parallel prefill waits for `parallel/`.
+`tree_conv_src`. Sequence-parallel prefill (`parallel/seqpar.py`) passes
+`seq_group`: each rank holds a slice of the chunk's rows, and K/V and
+their positions are all-gathered over the group before the cache append,
+so every rank's cache holds the whole chunk and its queries see the whole
+context.
 
 Residual discipline:
     h = pre_mixer_norm(x)            (layer 0 may have no pre-norm)
@@ -148,6 +152,8 @@ def attention_forward(
     # [0, ctx_limit): the cache stays max_context-sized, but a step at
     # position p reads only the smallest bucket covering p
     tree=None,  # (suffix_start, ancestor_mask [S, S]) for tree verification
+    seq_group=None,  # sequence-parallel prefill: x/positions are this rank's
+    # row slice; K/V are all-gathered over the group before the cache append
 ):
     s = x.shape[0]
     q, k_new, v_new = project_qkv(cfg, layer_cfg, params, x, positions)
@@ -156,6 +162,9 @@ def attention_forward(
         # not at their positions: siblings share a position
         write_positions = positions if tree is None else tree[0] + torch.arange(
             s, dtype=torch.int32, device=x.device)
+        if seq_group is not None and k_new is not None:
+            k_new, v_new, write_positions = (
+                _gather_rows(t, seq_group) for t in (k_new, v_new, write_positions))
         new_kv = kv_append(kv, k_new, v_new, write_positions, true_length)
     else:
         new_kv = kv
@@ -189,6 +198,16 @@ def attention_forward(
         suffix_mask=None if tree is None else tree[1], **scales,
     )
     return attention_output(params, x, attn.reshape(s, -1)), new_kv
+
+
+def _gather_rows(t: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's rows of `t`, concatenated in rank order."""
+    import torch.distributed as dist
+
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts, dim=0)
 
 
 # --------------------------------------------------------------------------
@@ -281,9 +300,14 @@ def layer_forward(
     defer_ssm: bool = False,
     tree_parents=None,
     tree_conv_src=None,
+    seq_group=None,
 ):
     mixer_cfg = layer_cfg.mixer_config
     if not isinstance(mixer_cfg, AttentionConfig):
+        if seq_group is not None:
+            raise NotImplementedError(
+                "sequence-parallel prefill supports attention mixers only (a recurrent "
+                "state would have to pass from rank to rank)")
         if tree_parents is not None:
             # tree verification: the recurrence runs along ancestor edges
             # and nothing commits (replay inputs come back instead)
@@ -299,7 +323,8 @@ def layer_forward(
         owns = layer_state is not None
         x, new_state = residual_block(layer_cfg, params, x, lambda h: attention_forward(
             mixer_cfg, layer_cfg, params["mixer"], h, positions,
-            layer_state if owns else shared_kv, owns, true_length, ctx_limit, tree))
+            layer_state if owns else shared_kv, owns, true_length, ctx_limit, tree,
+            seq_group))
         new_state = new_state if owns else None
     return ple_apply(layer_cfg, params, x, per_layer_input), new_state
 
@@ -342,6 +367,9 @@ def decoder_forward(
                         # recurrent mixers; -1 reads the incoming state)
     tree_conv_src=None,  # {kernel_size: [S, K] int tensor}: each node's
                          # conv window into [state rows; node rows]
+    seq_group=None,  # sequence-parallel prefill: tokens/positions are this
+                     # rank's slice (see attention_forward); the readout row
+                     # is `readout_row`, on its owner rank
 ):
     """Run the decoder; returns (logits, new_state), and with
     `collect_layers` also the tapped layer outputs [S, n_tap, D].
@@ -374,7 +402,7 @@ def decoder_forward(
             layer_cfg, params["layers"][i], x, positions, state["layers"][i], shared_kv,
             true_length, ctx_limit, None if per_layer is None else per_layer[:, i],
             tree=tree, defer_ssm=defer_ssm, tree_parents=tree_parents,
-            tree_conv_src=tree_conv_src,
+            tree_conv_src=tree_conv_src, seq_group=seq_group,
         )
         new_layer_states.append(new_state)
         if i in collect_layers:

@@ -22,6 +22,14 @@ Every step stays on the device: a stable sort picks the top k, the grouped
 layout keeps its used-tile count on the device, and the per-token combine
 is a fixed-order sum over the k pairs of each token (no atomics), so no
 host sync enters a decode step and greedy output repeats run to run.
+
+Under tensor parallelism (`parallel/sharding.py`) a dense expert stack
+keeps its hidden slice on each rank, its down stack wrapped in a
+`SplitInput`: the routed sum is then a partial sum, reduced once together
+with the shared experts' partial sum, and the down biases (weighted by
+the routed probs) are added after the reduction. Quantized stacks stay
+whole on every rank, so their routed sum is whole and only the shared
+experts' part is reduced.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from ..ops.cuda.grouped_matmul import (
     route_layout,
 )
 from ..ops.cuda.moe_gemv import moe_expert_gemv
+from ..ops.linear import SplitInput, all_reduce_sum
 from ..quant.format import StackedQuantized, dequantize_stacked
 
 # at or below this many rows, read only the routed experts' weights
@@ -160,8 +169,21 @@ def _routed_forward(cfg, params, x, ids, probs):
 def moe_forward(cfg: MixtureOfExpertsConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     """x [S, D] -> [S, D] in x's dtype."""
     ids, probs = router_topk(cfg, params, x)
+    down = params["down"]
+    split = down["w"].group if isinstance(down["w"], SplitInput) else None
+    if split is not None:
+        # a hidden slice of dense stacks: the biases wait for the reduction
+        params = {**params, "down": {"w": down["w"].w}}
     y = _routed_forward(cfg, params, x, ids, probs)
     if "shared" in params:
         fused = x.float() @ params["shared"]["up"]["w"].float().t()
-        y = y + _expert_hidden(cfg, fused) @ params["shared"]["down"]["w"].float().t()
+        sw = params["shared"]["down"]["w"]
+        part = _expert_hidden(cfg, fused) @ (sw.w if isinstance(sw, SplitInput) else sw).float().t()
+        if isinstance(sw, SplitInput) and split is None:
+            part = all_reduce_sum(part, sw.group)
+        y = y + part
+    if split is not None:
+        y = all_reduce_sum(y, split)
+        if "b" in down:
+            y = y + torch.einsum("skd,sk->sd", down["b"][ids].float(), probs)
     return y.to(x.dtype)

@@ -113,9 +113,10 @@ def _next_conv_state(padded: torch.Tensor, true_length, taps: int) -> torch.Tens
 
 
 def _short_conv_forward(cfg: ShortConvConfig, params, x, state, true_length, defer=False):
-    b, s, d = x.shape
+    b, s, _ = x.shape
     k = cfg.kernel_size
     proj = linear_apply(params["in"]["w"], x).float()  # [B, S, 3D]
+    d = proj.shape[-1] // 3  # D, or D / tp on a tensor-parallel rank
     pre, post, xin = proj[..., :d], proj[..., d:2 * d], proj[..., 2 * d:]
     xg = torch.where(_valid_mask(b, s, true_length, x.device), xin * pre, 0.0)
 
@@ -471,8 +472,8 @@ def _tree_conv(padded: torch.Tensor, conv_src: torch.Tensor, w: torch.Tensor,
 
 
 def _short_conv_tree(cfg: ShortConvConfig, params, x, state, conv_src):
-    d = x.shape[1]
     proj = linear_apply(params["in"]["w"], x).float()
+    d = proj.shape[1] // 3
     pre, post, xin = proj[:, :d], proj[:, d:2 * d], proj[:, 2 * d:]
     padded = torch.cat([state["conv"].float(), xin * pre])
     conv = _tree_conv(padded, conv_src, params["conv_w"], params.get("conv_b"))

@@ -6,10 +6,15 @@ dequant matmul kernel K1/K2 (`ops/cuda/quant_matmul.py`) for up to
 GEMM_THRESHOLD_M rows; above that, as in the JAX package, the weight is
 dequantized once and contracted by a plain matmul. HybridSpec linears
 (`HybridLinear`: QLoRA adapter and Hadamard incoherence around a quantized
-base) take `hybrid_apply`, whose base runs through the same route.
+base) take `hybrid_apply`, whose base runs through the same route. Under tensor parallelism a linear
+whose input dimension is split over the ranks holds a `SplitInput`: each
+rank's product is a partial sum, all-reduced before the bias is added, so
+the whole bias is added once.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -20,9 +25,34 @@ from .cuda import quant_matmul as qmm
 GEMM_THRESHOLD_M = 1024
 
 
+@dataclasses.dataclass
+class SplitInput:
+    """This rank's column slice `w` of a linear whose input dimension is
+    split over the tensor-parallel process group `group`
+    (`parallel/sharding.py`); `linear_apply` sums the ranks' products."""
+
+    w: object  # torch.Tensor, QuantizedTensor, HybridLinear or StackedQuantized
+    group: object  # torch.distributed.ProcessGroup
+
+    def to(self, device) -> "SplitInput":
+        return dataclasses.replace(self, w=self.w.to(device))
+
+
+def all_reduce_sum(y: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's `y` over `group`, in f32 (the partial sums
+    of a split contraction), returned in y's dtype."""
+    import torch.distributed as dist
+
+    yf = y.float().contiguous()
+    dist.all_reduce(yf, group=group)
+    return yf.to(y.dtype)
+
+
 def linear_apply(w, x: torch.Tensor, bias=None) -> torch.Tensor:
     """x: [..., K] -> [..., N]."""
-    if isinstance(w, HybridLinear):
+    if isinstance(w, SplitInput):
+        y = all_reduce_sum(linear_apply(w.w, x), w.group)
+    elif isinstance(w, HybridLinear):
         y = hybrid_apply(w, x)
     elif isinstance(w, QuantizedTensor):
         y = quant_matmul(w, x)

@@ -11,6 +11,17 @@ choice and its scheduler as they stand there. A scheduler exception still
 cancels the in-flight requests with finish_reason "error" and scheduling
 goes on; its traceback is kept in `BatchedChatServer.errors`, so a caller
 can fail loudly on it.
+
+Over a model that spans several ranks (`parallel/`), rank 0 serves and
+journals every submit and cancel; before each engine step it sends the
+journal to the other ranks, whose `follow` loop replays it and steps the
+same engine in lockstep (`server/lockstep.py`); an idle rank 0 sends
+nothing. There `serve_batched` blocks until rank 0 shuts down and returns
+None. Over several ranks an engine exception is fatal
+(`Lockstep.fatal_on_error`): rank 0 fails every request with
+finish_reason "error", refuses later ones and tells the other ranks to
+stop; another rank raises out of `follow`. Grammar requests are served by
+a model on one rank only (a matcher does not travel).
 """
 
 from __future__ import annotations
@@ -26,6 +37,7 @@ from ..engine.sampling import SamplingParams
 from ..sessions.parser import StreamParser
 from ..sessions.template import ChatTemplate
 from ..sessions.tokenizer import StreamDecoder, Tokenizer
+from .lockstep import lockstep_for
 
 
 class BatchedChatServer:
@@ -114,8 +126,52 @@ class BatchedChatServer:
         self._shutdown = False
         #: formatted tracebacks of the scheduler's engine exceptions
         self.errors: list[str] = []
-        self._thread = threading.Thread(target=self._scheduler, daemon=True)
-        self._thread.start()
+        # several ranks: rank 0's submits and cancels since the last step
+        self._lockstep = lockstep_for(lm)
+        self._journal: list = []
+        self._busy = False  # the last step's answer: the engine has work
+        if self._lockstep is None or self._lockstep.leader:
+            self._thread = threading.Thread(target=self._scheduler, daemon=True)
+            self._thread.start()
+
+    # -- lockstep over ranks ------------------------------------------------
+
+    def _cancel(self, req, reason: str) -> None:
+        """engine.cancel, journaled for the other ranks (lock held)."""
+        if self.engine.cancel(req, reason) and self._lockstep is not None:
+            self._journal.append(("cancel", req.id, reason))
+
+    def _step(self) -> bool:
+        """One engine step; first the journal to the other ranks (lock
+        held). With nothing to replay and nothing to run, no step and no
+        message."""
+        if self._lockstep is not None:
+            if not self._journal and not self._busy:
+                return False
+            self._lockstep.send(self._journal + [("step",)])
+            self._journal = []
+        self._busy = self.engine.step()
+        return self._busy
+
+    def follow(self) -> None:
+        """A rank other than 0: replay rank 0's journal and step in
+        lockstep until it shuts down. Any exception, here or on rank 0
+        (which aborts the groups), ends it and propagates."""
+        reqs = {}
+        with self._lockstep.fatal_on_error():
+            while True:
+                for msg in self._lockstep.recv():
+                    if msg[0] == "submit":
+                        req = self.engine.submit(*msg[1], **msg[2])
+                        reqs[req.id] = req
+                    elif msg[0] == "cancel":
+                        self.engine.cancel(reqs[msg[1]], msg[2])
+                    elif msg[0] == "step":
+                        self.engine.step()
+                    else:  # shutdown
+                        return
+                for rid in [rid for rid, r in reqs.items() if r.finished]:
+                    del reqs[rid]
 
     # -- scheduling ---------------------------------------------------------
 
@@ -137,7 +193,7 @@ class BatchedChatServer:
             # spanning the duplication seam falsely match
             entry[3] = max(scanned, len(tokens))
             if hit:
-                self.engine.cancel(req, "stop")
+                self._cancel(req, "stop")
                 del self._stop_watch[rid]
 
     def _scheduler(self):
@@ -145,7 +201,7 @@ class BatchedChatServer:
             busy = False
             try:
                 with self._lock:
-                    busy = self.engine.step()
+                    busy = self._step()
                     self._scan_stop_watch()
                     for rid, ev in list(self._events.items()):
                         req = self._requests.get(rid)
@@ -157,15 +213,22 @@ class BatchedChatServer:
                 # an engine exception must not wedge the server: an exited
                 # scheduler thread leaves every done.wait() and stream poll
                 # hanging forever. Fail the in-flight requests loudly and
-                # keep scheduling (fresh requests get fresh state).
+                # keep scheduling (fresh requests get fresh state). Over
+                # several ranks it is fatal: the ranks may no longer pair
+                # their collectives, so the lockstep ends and so does
+                # scheduling.
                 import traceback
 
                 self.errors.append(traceback.format_exc())
                 traceback.print_exc()
                 with self._lock:
+                    if self._lockstep is not None:
+                        self._lockstep.fail()
+                    admitting = self.engine._admitting
                     for req in (list(self.engine.queue)
                                 + [s.request for s in self.engine.slots
-                                   if not s.free]):
+                                   if not s.free]
+                                + ([admitting[0]] if admitting else [])):
                         try:
                             self.engine.cancel(req, "error")
                         except Exception:
@@ -175,6 +238,8 @@ class BatchedChatServer:
                         ev.set()
                         self._events.pop(rid, None)
                         self._requests.pop(rid, None)
+                if self.failed:
+                    return
             if not busy:
                 self._wake.wait(timeout=0.05)
                 self._wake.clear()
@@ -182,12 +247,18 @@ class BatchedChatServer:
     def submit(self, prompt_ids, max_tokens: int, seed: int = 0, grammar=None,
                sampling=None, logprobs: int = 0, presence_penalty: float = 0.0,
                frequency_penalty: float = 0.0):
+        if grammar is not None and self._lockstep is not None:
+            raise ValueError("grammar requests need a model on one rank (a grammar "
+                             "matcher does not travel to the other ranks)")
+        kw = dict(seed=seed, grammar=grammar, sampling=sampling, logprobs=logprobs,
+                  presence_penalty=presence_penalty, frequency_penalty=frequency_penalty)
         with self._lock:
-            req = self.engine.submit(prompt_ids, max_tokens, seed=seed,
-                                     grammar=grammar, sampling=sampling,
-                                     logprobs=logprobs,
-                                     presence_penalty=presence_penalty,
-                                     frequency_penalty=frequency_penalty)
+            if self.failed:
+                raise RuntimeError("the engine of this distributed model failed (see the "
+                                   "server's errors); restart the server")
+            req = self.engine.submit(prompt_ids, max_tokens, **kw)
+            if self._lockstep is not None:
+                self._journal.append(("submit", (list(prompt_ids), max_tokens), kw))
             ev = threading.Event()
             self._events[req.id] = ev
             self._requests[req.id] = req
@@ -202,9 +273,18 @@ class BatchedChatServer:
 
         return grammar_from_request(self.tokenizer, body)
 
+    @property
+    def failed(self) -> bool:
+        """An engine exception has ended the lockstep over several ranks."""
+        return self._lockstep is not None and self._lockstep.failed
+
     def shutdown(self):
         self._shutdown = True
         self._wake.set()
+        if self._lockstep is not None:
+            self._thread.join()
+            if not self.failed:
+                self._lockstep.send([("shutdown",)])
 
     # -- request handling ----------------------------------------------------
 
@@ -351,7 +431,7 @@ class BatchedChatServer:
                 # wasting decode on the abandoned request
                 if not req.finished:
                     with self._lock:
-                        self.engine.cancel(req, "cancelled")
+                        self._cancel(req, "cancelled")
 
         def chunk_body():
             yield {**base, "choices": [{"index": 0, "delta": {"role": "assistant"}}]}
@@ -555,7 +635,13 @@ def make_handler(server: BatchedChatServer):
 
 
 def serve_batched(lm, tokenizer, host="127.0.0.1", port=8000, **kw):
+    """Start the server (non-blocking) and return the HTTPServer; on a rank
+    other than 0 of a distributed model, follow rank 0's engine until it
+    shuts down, then return None."""
     server = BatchedChatServer(lm, tokenizer, **kw)
+    if server._lockstep is not None and not server._lockstep.leader:
+        server.follow()
+        return None
     httpd = ThreadingHTTPServer((host, port), make_handler(server))
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()

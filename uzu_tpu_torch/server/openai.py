@@ -5,11 +5,19 @@ reference serves /v1/models + /v1/chat/completions from one ChatSession
 behind a mutex (serialized single-session serving). Same design here;
 continuous batching replaces it in the scheduler milestone.
 
-The port's copy of `uzu_tpu/server/openai.py`.
+The port's copy of `uzu_tpu/server/openai.py`. Over a model that spans
+several ranks (`parallel/`), rank 0 serves: it sends each request's body
+to the other ranks as it takes the session (`server/lockstep.py`), and
+their `follow` loop runs the same request on their own session; a stream
+whose client leaves runs to its end, so every rank runs the same forward
+passes. There `serve` blocks until rank 0 shuts down and returns None. An
+exception while a rank runs a request is fatal over several ranks
+(`Lockstep.fatal_on_error`): rank 0 then refuses later requests.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import threading
 import time
@@ -18,6 +26,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ..engine.sampling import SamplingParams
 from ..sessions.chat import ChatSession
+from .lockstep import lockstep_for
 
 
 def _sampling_from_request(body: dict, default: SamplingParams) -> SamplingParams:
@@ -31,6 +40,31 @@ class ChatCompletionServer:
         self.session = session
         self.model_name = model_name
         self.lock = threading.Lock()
+        self._lockstep = lockstep_for(session.model)
+
+    def _replay(self, body: dict):
+        """Rank 0: send the request to the other ranks (session lock held);
+        returns the context to run it in (fatal on an exception over
+        several ranks)."""
+        if self._lockstep is None:
+            return contextlib.nullcontext()
+        if self._lockstep.leader:
+            self._lockstep.send(body)
+        return self._lockstep.fatal_on_error()
+
+    def follow(self) -> None:
+        """A rank other than 0: run rank 0's requests until it shuts down."""
+        with self._lockstep.fatal_on_error():
+            while (body := self._lockstep.recv()) is not None:
+                result = self.handle_chat(body)
+                if not isinstance(result, dict):
+                    for _ in result:
+                        pass
+
+    def stop_followers(self) -> None:
+        if self._lockstep is not None and not self._lockstep.failed:
+            with self.lock:
+                self._lockstep.send(None)
 
     # -- request handling ---------------------------------------------------
 
@@ -78,7 +112,7 @@ class ChatCompletionServer:
         created = int(time.time())
 
         if not stream:
-            with self.lock:
+            with self.lock, self._replay(body):
                 # stateless API: reset and replay the full message list
                 self.session.reset()
                 reply = self.session.reply(
@@ -131,7 +165,7 @@ class ChatCompletionServer:
             # streaming requests would interleave one session's state. A
             # closed generator (client disconnect) exits here and releases
             # it; the in-flight decode stops with the inner generator.
-            with self.lock:
+            with self.lock, self._replay(body):
                 self.session.reset()
                 for ev in self.session.stream(
                     messages, sampling=sampling, max_new_tokens=max_tokens,
@@ -229,6 +263,9 @@ def make_handler(server: ChatCompletionServer):
                     self.wfile.flush()
                 self.wfile.write(b"data: [DONE]\n\n")
             except (BrokenPipeError, ConnectionResetError):
+                if server._lockstep is not None:
+                    for _ in result:  # the other ranks run the request to its end
+                        pass
                 result.close()  # stops the in-flight generation + frees the session
 
     return Handler
@@ -236,9 +273,16 @@ def make_handler(server: ChatCompletionServer):
 
 def serve(session: ChatSession, host: str = "127.0.0.1", port: int = 8000,
           model_name: str = "uzu-tpu") -> ThreadingHTTPServer:
-    """Start the server (non-blocking); returns the HTTPServer instance."""
+    """Start the server (non-blocking); returns the HTTPServer instance. On
+    a rank other than 0 of a distributed model, follow rank 0's requests
+    until it stops them (`httpd.chat_server.stop_followers()`), then
+    return None."""
     server = ChatCompletionServer(session, model_name)
+    if server._lockstep is not None and not server._lockstep.leader:
+        server.follow()
+        return None
     httpd = ThreadingHTTPServer((host, port), make_handler(server))
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
+    httpd.chat_server = server
     return httpd
