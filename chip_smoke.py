@@ -12,6 +12,7 @@
     python3 chip_smoke.py --batch-spec-only  # phase 17 alone, with K1/K5/K6/K9's verify rows
     python3 chip_smoke.py --serve-only   # phase 18 alone (the servers, the CLI, the classifier)
     python3 chip_smoke.py --parallel-only  # phase 19 alone, with its shard-shape kernel rows
+    python3 chip_smoke.py --train-only   # phase 20 alone, with K3b's rows of phase 2
 
 Phases, each of which ends the run with a non-zero exit if it fails:
 
@@ -54,7 +55,11 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    instantiation; and a row check: at bm 8 each routed row's K9 output is
    bitwise the same whether its tile holds 1 or 8 rows), and P1, the bisect
    probe's zero-padded scale-block copy (bitwise equal), timed beside an
-   empty kernel's launch (the launch floor).
+   empty kernel's launch (the launch floor), and K3b, K3's gradient
+   (dQ, dK, dV each against `flash_attention_bwd_plain`, a second launch
+   bitwise the first) at the trainer's shape (S=512 from position 0 over
+   1024 slots, 6 heads over 2 groups, f32), at the flagship's heads in
+   bf16 and f32 and with a window, beside SDPA's backward.
 3. path INT4: the Llama-1B-shaped INT4 flagship (16 layers, d 2048, vocab
    128256, random weights from a seed) loaded with `LanguageModel.from_dir`
    on the card; greedy generation of 64 tokens after a 128-token prompt,
@@ -279,6 +284,26 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     2048 x 2048), K3 over a 256-row chunk and K5 over 8 x 1024 live tokens
     at 16 heads over 4 groups to their plain versions.
 
+20. the in-repo trainer and what it feeds (`tools/train_tiny.py`,
+    `ops/cuda/autotune.py`, `tools/exp_serving_smoke.py`): TINY_DIMS (8
+    layers, d 384, 6 heads over 2 groups at Dh 64, vocab 256; ~18M
+    parameters, f32) trained on the card at batch 16 x 512 for
+    TRAIN_STEPS steps through `train_tiny.train` (K3 forward, K3b
+    backward): losses finite, the last 10's mean below TRAIN_DROP x the
+    first 10's; step 0's loss within TRAIN_LOSS_RTOL and every leaf's
+    gradient within TRAIN_GRAD_TOL rel. L2 of the host CPU's (a spawned
+    process, alongside); K3 and K3b each launched layers x batch times a
+    step; steps/s and tokens/s. `write_trained` writes bf16 and INT4 g32
+    directories under `.port_cache/`; the INT4 one on the card greedy twice,
+    identical (K1, K3), its held-out NLL within tests/test_train_tiny.py:61's
+    bound of the bf16 one's, and the n-gram chain's acceptance on it (a
+    reading). `autotune_shapes` over the flagship's linear shapes at M =
+    1, 8, 256 into `.port_cache/tile_table.json`, `qmm_plan` reading back
+    every entry, each tabled plan within TOL of the plain version, and a
+    short `validate_e2e` on the flagship (ms/token with and without the
+    table). `exp_serving_smoke` over the 2-layer INT8 flagship: every
+    stage line, in order.
+
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Full per-shape numbers also go to
 `.port_cache/chip_smoke.json`.
@@ -303,6 +328,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12  # H100 SXM f32 peak outside the tensor cores (NVIDIA data sheet)
 TOL = 2e-2  # max |kernel - plain| over RMS(plain): bf16 operands, f32 sums
 
 FLAGSHIP = dict(num_layers=16, model_dim=2048, hidden_dim=8192, num_heads=32,
@@ -1295,6 +1321,115 @@ def check_flash_hybrid(torch, timer, rows, usage) -> None:
         case(256, 1024, 765, FLASH_VARIANTS, quant=quant)
         case(16, 4096, 4096 - 19, ("plain", "sinks"), quant=quant)
         case(128, 1024, 0, ("plain",), dtype=torch.float32, quant=quant)
+
+
+def flash_bwd_row(torch, timer, rows, q, kc, vc, pos0: int, window, variant: str) -> None:
+    """One K3b case: dQ, dK and dV against `flash_attention_bwd_plain` from
+    the same K3 output and dO (each err/RMS <= TOL), a second launch
+    bitwise the first, its time, the plain version's, the yardstick (SDPA's
+    backward over the visible keys, is_causal where the queries start at
+    position 0, else the same mask given explicitly; enable_gqa), and two
+    bounds: the five products' FLOPs of the visible (query, key) pairs over
+    the bf16 tensor-core peak, as every kernel row (`bound_ms`; K3 takes f32
+    operands there as bf16 hi + lo pairs), and over the f32 CUDA-core peak
+    the kernel runs at now (`bound_cuda_core_ms`), each against the bytes
+    read and written once."""
+    import torch.nn.functional as F
+
+    from uzu_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+    )
+
+    s, h, dh = q.shape
+    c, g, _ = kc.shape
+    scale = dh ** -0.5
+    qname = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    qpos = torch.arange(s, device="cuda", dtype=torch.int32) + pos0
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    d_out = torch.randn((s, h, dh), device="cuda", generator=gen)
+    out = flash_attention(q, kc, vc, qpos, scale=scale, sliding_window_size=window)
+
+    def run():
+        return flash_attention_bwd(q, kc, vc, qpos, out, d_out, scale=scale,
+                                   sliding_window_size=window)
+
+    got, again = run(), run()
+    want = flash_attention_bwd_plain(q, kc, vc, qpos, out, d_out, scale=scale,
+                                     sliding_window_size=window)
+    torch.cuda.synchronize()
+    errs = {name: rel_err(a, b) for name, a, b in zip(("dq", "dk", "dv"), got, want)}
+    worst = max(e for _, e in errs.values())
+    where = f"flash_attention_bwd S={s} H={h} G={g} C={c} pos0={pos0} q {qname} {variant}"
+    if not worst <= TOL:
+        raise AssertionError(f"{where}: error {errs} of RMS > {TOL}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{where}: two launches on the same inputs differ")
+    # the work this run's data needs: (query row, key) pairs each head sees
+    qp = pos0 + torch.arange(s)
+    lo = (qp - window + 1).clamp(min=0) if window else torch.zeros_like(qp)
+    visible = int((qp + 1 - lo).sum())
+    kv_rows = int(qp[-1] + 1 - lo[0])
+    esz = q.element_size()
+    nbytes = (q.numel() * esz + 2 * kv_rows * g * dh * esz  # q, k and v read
+              + 2 * s * h * dh * 4  # O and dO read
+              + s * h * dh * 4 + 2 * c * g * dh * 4)  # dQ, dK and dV written
+    flops = 10.0 * visible * h * dh  # S, dP, dV, dQ, dK: 2 Dh each
+    tb = nbytes / HBM_BYTES_PER_S
+    b_ms, b_by = bound(nbytes, flops)
+    lib_ms = lib_dev_ms = None
+    end = int(qp[-1]) + 1
+    qt = q.detach().transpose(0, 1)[None].clone().requires_grad_(True)
+    kt = kc[:end].transpose(0, 1)[None].clone().requires_grad_(True)
+    vt = vc[:end].transpose(0, 1)[None].clone().requires_grad_(True)
+    if pos0 == 0 and not window and end == s:
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale,
+                                           enable_gqa=True)
+    else:
+        kpos = torch.arange(end, device="cuda")
+        mask = kpos[None, :] <= qpos.long()[:, None]
+        if window:
+            mask &= kpos[None, :] > qpos.long()[:, None] - window
+        o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=scale,
+                                           enable_gqa=True)
+    go = d_out.transpose(0, 1)[None].to(o.dtype)
+    lib_ms, lib_dev_ms = timer.both(
+        lambda: torch.autograd.grad(o, (qt, kt, vt), go, retain_graph=True))
+    del o, qt, kt, vt
+    ms, dev_ms = timer.both(run)
+    row = dict(kernel="flash_attention_bwd", S=s, H=h, G=g, Dh=dh, C=c, pos0=pos0, q=qname,
+               variant=variant, window=window, bitwise_repeat=True,
+               err_over_rms_by_grad={k: e for k, (_, e) in errs.items()},
+               max_abs_err=max(a for a, _ in errs.values()), err_over_rms=worst, tol=TOL,
+               ms=ms, device_ms=dev_ms,
+               plain_ms=timer.ms(lambda: flash_attention_bwd_plain(
+                   q, kc, vc, qpos, out, d_out, scale=scale, sliding_window_size=window), 3),
+               library_ms=lib_ms, library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by,
+               bound_cuda_core_ms=max(tb, flops / F32_FLOPS) * 1e3, flops=flops, bytes=nbytes)
+    rows.append(row)
+    log("KERNEL " + json.dumps(row))
+
+
+def check_flash_bwd(torch, timer, rows) -> None:
+    """K3b at the trainer's shape (S=512 from position 0 over its 1024-slot
+    cache, 6 heads over 2 groups, Dh 64, f32), at the flagship's heads (32
+    over 8, S=256 at position 765 over 1024 slots) in bf16 and f32, and with
+    a window of 512."""
+    from uzu_tpu_torch.tools.train_tiny import TINY_DIMS
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def case(s, h, g, c, pos0, dtype, window, variant):
+        q, kc, vc = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
+                     for shape in ((s, h, 64), (c, g, 64), (c, g, 64)))
+        flash_bwd_row(torch, timer, rows, q, kc, vc, pos0, window, variant)
+
+    case(TRAIN_SEQ, TINY_DIMS["num_heads"], TINY_DIMS["num_groups"], TINY_DIMS["max_seq"], 0,
+         torch.float32, None, "train")
+    case(256, 32, 8, 1024, 765, torch.bfloat16, None, "plain")
+    case(256, 32, 8, 1024, 765, torch.float32, None, "plain")
+    case(256, 32, 8, 1024, 765, torch.bfloat16, 512, "window")
 
 
 def check_paged_gptoss(torch, timer, rows, usage) -> None:
@@ -3315,7 +3450,7 @@ def tools_bisect(torch, info: dict) -> None:
 
 # -- phase 16: single-stream speculative decoding ---------------------------------------
 
-SPEC_TOKENS = 64  # the flagship's streams
+SPEC_TOKENS = 48  # the flagship's streams (cut from 64 to make room for phase 20)
 SPEC_HYBRID_TOKENS = 32
 SPEC_CONTROL_TOKENS = 32
 SPEC_DRAFT_LAYERS = 4  # the self-drafts' depth
@@ -3712,7 +3847,7 @@ def spec_gptoss(torch, lm_oss, info: dict) -> None:
 # -- phase 17: speculative continuous batching ------------------------------------------
 
 BSPEC_SLOTS, BSPEC_BLOCK = 8, 8  # the paged engine's slots; drafts per slot (9-row blocks)
-BSPEC_TOKENS = 32
+BSPEC_TOKENS = 24  # cut from 32 to make room for phase 20
 BSPEC_HYBRID_SLOTS, BSPEC_HYBRID_TOKENS = 4, 32
 BSPEC_DRAFT_LAYERS = {"flagship": 4, "hybrid": 6}
 BSPEC_ROUNDS = 8  # fused rounds per dispatch
@@ -5262,6 +5397,286 @@ def parallel_phase(torch, lm16, model_dir: str, info: dict) -> None:
         dist.destroy_process_group()
 
 
+# -- phase 20: the trainer on the card, its weights served, the autotuner, the smoke ----
+
+TRAIN_STEPS = 80
+TRAIN_BATCH, TRAIN_SEQ = 16, 512  # the trainer's defaults
+TRAIN_CORPUS = 1_000_000  # corpus tokens the windows come from (the trainer's default: 30M)
+TRAIN_DROP = 0.75  # mean of the last 10 losses below this share of the first 10's
+TRAIN_LOSS_RTOL = 1e-3  # step 0's loss, card against host
+TRAIN_GRAD_TOL = 2e-2  # step 0's gradient of each leaf, card against host, rel. L2
+TRAINED_TOKENS = 48  # greedy tokens of the trained INT4 model, twice
+AUTOTUNE_M = (1, 8, 256)  # the flagship's decode step, the paged step, a prefill chunk
+SMOKE_MODEL = "llama1b_int8_2l"  # the serving smoke's model, synthesized for phases 5-6
+TRAIN_MODELS = ("llama1b_int4", SMOKE_MODEL)
+
+
+def _param_paths(tree, prefix: str = "") -> dict:
+    """{path: tensor} of a parameter tree (dicts and lists)."""
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items()
+                for k2, v2 in _param_paths(v, f"{prefix}{k}.").items()}
+    if isinstance(tree, list):
+        return {k2: v2 for i, v in enumerate(tree)
+                for k2, v2 in _param_paths(v, f"{prefix}{i}.").items()}
+    return {prefix[:-1]: tree}
+
+
+def _step0(device: str, batch, threads: int = 0) -> tuple[float, dict]:
+    """The trainer's step 0 on `device`: the loss of `batch` [B, S+1] at
+    the initial params (seed 0) and each leaf's gradient, on the host."""
+    import tempfile
+
+    import torch
+
+    from uzu_tpu_torch.tools import train_tiny as tt
+
+    if threads:
+        torch.set_num_threads(threads)
+    tmp = tempfile.mkdtemp(prefix="tiny_init_")
+    try:
+        lm = tt._build_init(tt.TINY_DIMS, 0, tmp, device)
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    leaves = _param_paths(lm.params)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    loss = tt._loss_fn(lm.decoder_config, lm.params, lm.new_state(),
+                       torch.from_numpy(batch).to(lm.device))
+    loss.backward()
+    return loss.item(), {k: t.grad.float().cpu().numpy() for k, t in leaves.items()}
+
+
+def host_step0(batch) -> tuple[float, dict]:
+    """`_step0` on the host CPU, in a spawned process: all cores but two."""
+    sys.path.insert(0, REPO)
+    return _step0("cpu", batch, threads=max(1, (os.cpu_count() or 4) - 2))
+
+
+def train_tiny_phase(torch, info: dict) -> tuple:
+    """Phase 20's trainer: TINY_DIMS at batch TRAIN_BATCH, seq TRAIN_SEQ
+    for TRAIN_STEPS steps through `train_tiny.train` on the card. Step 0's
+    loss and gradients on the card (twice: the gradients' repeatability is
+    reported) against the host CPU's (a spawned process, alongside the
+    training); the losses finite and dropping; K3 and K3b launched layers
+    x batch times a step; steps/s and tokens/s of the step loop."""
+    import numpy as np
+
+    from uzu_tpu_torch.ops.cuda.build import LAUNCHES, reset_launches
+    from uzu_tpu_torch.tools import train_tiny as tt
+
+    dims = tt.TINY_DIMS
+    batch0 = tt.train_data(dims, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                           corpus_tokens=TRAIN_CORPUS)[0]
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as ex:
+        host = ex.submit(host_step0, batch0)
+        card_loss, card_grads = _step0("cuda", batch0)
+        again_loss, again_grads = _step0("cuda", batch0)
+        repeat = {k: bool(np.array_equal(v, again_grads[k])) for k, v in card_grads.items()}
+        del again_grads
+        torch.cuda.empty_cache()
+        stats: dict = {}
+        reset_launches()
+        lm, params, losses = tt.train(dims, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                                      seq=TRAIN_SEQ, corpus_tokens=TRAIN_CORPUS, scan_k=25,
+                                      log=log, device="cuda", stats=stats)
+        launches = dict(LAUNCHES)
+        host_loss, host_grads = host.result()
+    grad_rel = {k: float(np.linalg.norm(card_grads[k].astype(np.float64) - g)
+                         / max(np.linalg.norm(g.astype(np.float64)), 1e-30))
+                for k, g in host_grads.items()}
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    per_step = dims["num_layers"] * TRAIN_BATCH
+    secs = stats["loop_seconds"]
+    reading = dict(
+        steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, dims=dims,
+        loss_first10=first, loss_last10=last, losses=losses,
+        step0_card_loss=card_loss, step0_card_loss_again=again_loss,
+        step0_host_loss=host_loss, step0_loss_rel=abs(card_loss - host_loss) / host_loss,
+        step0_first_train_loss=losses[0],
+        step0_grad_rel_l2_worst=max(grad_rel.values()),
+        step0_grad_rel_l2_worst_leaf=max(grad_rel, key=grad_rel.get),
+        step0_grad_rel_l2_embedding=grad_rel["embedding.tied"],
+        step0_grads_bitwise_repeat={k: v for k, v in repeat.items() if not v} or "all",
+        loop_seconds=secs, steps_per_s=TRAIN_STEPS / secs,
+        tokens_per_s=TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ / secs,
+        launches=launches, launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()
+                                              if v})
+    log("TRAIN " + json.dumps({k: v for k, v in reading.items() if k != "losses"}))
+    info["train_tiny"] = reading
+    if not all(np.isfinite(losses)):
+        raise AssertionError("train_tiny: a loss is not finite")
+    if not last < TRAIN_DROP * first:
+        raise AssertionError(f"train_tiny: the last 10 losses' mean {last:.4f} is not below "
+                             f"{TRAIN_DROP} x the first 10's {first:.4f}")
+    if not reading["step0_loss_rel"] <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"train_tiny: step 0's loss {card_loss} on the card, {host_loss} "
+                             f"on the host (rel. {reading['step0_loss_rel']:.2e})")
+    if not reading["step0_grad_rel_l2_worst"] <= TRAIN_GRAD_TOL:
+        raise AssertionError(f"train_tiny: step 0's gradient of "
+                             f"{reading['step0_grad_rel_l2_worst_leaf']} is "
+                             f"{reading['step0_grad_rel_l2_worst']:.2e} rel. L2 off the host's")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        if launches[name] != TRAIN_STEPS * per_step:
+            raise AssertionError(f"train_tiny: {name} launched {launches[name]} times, not "
+                                 f"{TRAIN_STEPS} steps x {per_step}")
+    return lm, params
+
+
+def trained_serve_phase(torch, lm, params, info: dict) -> None:
+    """The trained weights written by `write_trained` (bf16 and INT4 g32
+    under .port_cache/), the INT4 directory served on the card (greedy
+    twice, identical; K1 and K3 launched), its held-out NLL against the
+    bf16 directory's under tests/test_train_tiny.py:61's bound, and the
+    n-gram chain's acceptance on it (a reading)."""
+    import numpy as np
+
+    from uzu_tpu_torch.config.model import IntSpec, Layout
+    from uzu_tpu_torch.engine.engine import LanguageModel
+    from uzu_tpu_torch.engine.speculation import (
+        NgramSpeculator,
+        SpeculationMetrics,
+        SpeculativeDecoder,
+    )
+    from uzu_tpu_torch.ops.cuda.build import LAUNCHES, reset_launches
+    from uzu_tpu_torch.tools import train_tiny as tt
+    from uzu_tpu_torch.tools.corpus import generate_tokens, heldout_prompts
+    from uzu_tpu_torch.tools.quality import sequence_nll
+
+    out = os.path.join(REPO, ".port_cache", "tiny_real")
+    d_bf = tt.write_trained(lm, params, out + "_bf16")
+    d_i4 = tt.write_trained(lm, params, out + "_int4", linear_spec=IntSpec(
+        bits=4, group_size=32, is_symmetric=True, layout=Layout.OUTPUT_INPUT))
+    lm_i4 = LanguageModel.from_dir(d_i4, device="cuda", max_context=1024,
+                                   prefill_buckets=(32, 256))
+    prompt = np.asarray(heldout_prompts(k=1, length=64)[0])
+    reset_launches()
+    a = lm_i4.generate_list(prompt, TRAINED_TOKENS, stop_token_ids=[])
+    launches = dict(LAUNCHES)
+    b = lm_i4.generate_list(prompt, TRAINED_TOKENS, stop_token_ids=[])
+    lm_bf = LanguageModel.from_dir(d_bf, device="cuda", max_context=1024,
+                                   prefill_buckets=(32, 256))
+    ev = generate_tokens(600, seed=12345)
+    nll_bf = sequence_nll(lm_bf, ev[:512])["nll"]
+    nll_i4 = sequence_nll(lm_i4, ev[:512])["nll"]
+    m = SpeculationMetrics()
+    spec = list(SpeculativeDecoder(lm_i4, NgramSpeculator(k=15)).generate(
+        prompt, TRAINED_TOKENS, stop_token_ids=[], metrics=m))
+    reading = dict(greedy=a[:16], greedy_repeat_equal=a == b, launches=launches,
+                   nll_bf16=nll_bf, nll_int4=nll_i4, nll_bound=0.25 * max(nll_bf, 1.0),
+                   ngram_acceptance=m.acceptance_rate, ngram_proposed=m.num_tokens_proposed,
+                   ngram_accepted=m.num_tokens_accepted,
+                   ngram_tokens_per_pass=(len(spec) - 1) / max(m.num_verify_passes, 1),
+                   ngram_equal_share=sum(x == y for x, y in zip(spec, a)) / len(a),
+                   text=bytes(int(t) for t in a).decode("latin-1"))
+    log("TRAINED " + json.dumps(reading))
+    info["trained_int4"] = reading
+    if a != b:
+        raise AssertionError("trained INT4 model: two greedy runs differ")
+    for k in ("quant_matmul_int4", "flash_attention"):
+        if not launches.get(k):
+            raise AssertionError(f"trained INT4 model: kernel {k} was not launched")
+    if not abs(nll_i4 - nll_bf) < 0.25 * max(nll_bf, 1.0):
+        raise AssertionError(f"trained INT4 model: NLL {nll_i4:.4f} against bf16 {nll_bf:.4f}")
+
+
+def autotune_phase(torch, lm16, info: dict) -> None:
+    """`autotune_shapes` over the flagship's linear shapes at AUTOTUNE_M on
+    the card, the table saved under .port_cache/ (never into the package),
+    `qmm_plan` reading back each entry at each M of its bucket, each tabled
+    plan's output within TOL of RMS of the plain version, and a short
+    `validate_e2e` on the flagship (ms/token with the table and without)."""
+    from uzu_tpu_torch.ops.cuda import autotune as at
+    from uzu_tpu_torch.ops.cuda import quant_matmul as qmm
+    from uzu_tpu_torch.ops.cuda.flash_attention import num_sms
+
+    shapes = at.model_linear_shapes(model_config("llama1b_int4").decoder_config)
+    timings: dict = {}
+    t0 = time.perf_counter()
+    table = at.autotune_shapes(shapes, m_list=AUTOTUNE_M, reps=16, verbose=False,
+                               timings=timings)
+    tune_s = time.perf_counter() - t0
+    path = os.path.join(REPO, ".port_cache", "tile_table.json")
+    if os.path.exists(path):
+        os.remove(path)
+    at.save_table(table, path)
+    prior = os.environ.get("UZU_TPU_TILE_TABLE")
+    os.environ["UZU_TPU_TILE_TABLE"] = path
+    at._load_table.cache_clear()
+    sms = num_sms(torch.device("cuda"))
+    gen = torch.Generator().manual_seed(5)
+    checks = []
+    try:
+        for key, entry in table.items():
+            bits, n, k, bucket = key.split(":")
+            n, k = int(n), int(k)
+            w = at._random_weight(n, k, int(bits), 32, gen, "cuda")
+            for m in (mm for mm in AUTOTUNE_M if at.m_bucket(mm) == bucket):
+                plan = qmm.qmm_plan(m, n, k, int(bits), sms)
+                if plan != at.entry_plan(entry, k, bucket, int(bits)):
+                    raise AssertionError(f"autotune: qmm_plan({m}, {n}, {k}) = {plan} does not "
+                                         f"read back the entry {key} = {entry}")
+                x = torch.randn((m, k), generator=gen).to(device="cuda", dtype=torch.bfloat16)
+                abs_err, err = rel_err(qmm.quant_matmul(w, x), qmm.quant_matmul_plain(w, x))
+                checks.append(dict(key=key, M=m, entry=entry, err_over_rms=err))
+                if not err <= TOL:
+                    raise AssertionError(f"autotune: {key} at M={m} with {entry}: error "
+                                         f"{err:.3e} of RMS > {TOL}")
+            del w
+        e2e = at.validate_e2e(None, steps=32, rounds=3, verbose=False, lm=lm16)
+    finally:
+        if prior is None:
+            os.environ.pop("UZU_TPU_TILE_TABLE", None)
+        else:
+            os.environ["UZU_TPU_TILE_TABLE"] = prior
+        at._load_table.cache_clear()
+    cells = {cell: dict(best_ms=min(c["ms"] for c in cands),
+                        heuristic_ms=next(c["ms"] for c in cands if c["heuristic"]))
+             for cell, cands in timings.items()}
+    heuristic_won = sum(c["heuristic_ms"] == c["best_ms"] for c in cells.values())
+    reading = dict(shapes=shapes, m=AUTOTUNE_M, seconds=tune_s, table=table,
+                   heuristic_was_best=f"{heuristic_won} of {len(cells)}", cells=cells,
+                   checks=checks, timings=timings, validate_e2e=e2e)
+    log("AUTOTUNE " + json.dumps({k: v for k, v in reading.items() if k != "timings"}))
+    info["autotune"] = reading
+
+
+def serving_smoke_phase(torch, model_dir: str, info: dict) -> None:
+    """`tools/exp_serving_smoke.py` on the card over the 2-layer INT8
+    flagship: every stage line must appear, in order."""
+    from uzu_tpu_torch.ops.cuda.build import LAUNCHES, reset_launches
+    from uzu_tpu_torch.tools import exp_serving_smoke
+
+    lines: list = []
+
+    def keep(line: str) -> None:
+        lines.append(line)
+        log("SMOKE " + line)
+
+    reset_launches()
+    exp_serving_smoke.main(model_dir, device="cuda", log=keep)
+    stages = [json.loads(line)["stage"] for line in lines]
+    info["serving_smoke"] = dict(stages=stages, launches=dict(LAUNCHES),
+                                 readings=[json.loads(line) for line in lines])
+    if stages != list(exp_serving_smoke.STAGES):
+        raise AssertionError(f"serving smoke: stages {stages}")
+
+
+def train_phases(torch, lm16, dirs: dict, info: dict) -> None:
+    """Phase 20: the trainer, its trained weights served, the autotuner on
+    the flagship's shapes (with `lm16`, the INT4 flagship, for the A/B),
+    the serving smoke."""
+    phase = functools.partial(timed_phase, info)
+    lm, params = phase("train_tiny", train_tiny_phase, torch, info)
+    phase("trained_int4", trained_serve_phase, torch, lm, params, info)
+    del lm, params
+    torch.cuda.empty_cache()
+    phase("autotune", autotune_phase, torch, lm16, info)
+    phase("serving_smoke", serving_smoke_phase, torch, dirs[SMOKE_MODEL], info)
+
+
 def kernel_record(rows, info) -> list[dict]:
     """One entry per kernel at its main-path shape (the decode GEMV of the
     up|gate projection for K1/K2, a 256-row prefill chunk over a 1024-slot
@@ -5312,6 +5727,12 @@ def kernel_record(rows, info) -> list[dict]:
                            "grouped_tile_dense"),
         "scale_block_copy": ("uzu_tpu_torch/csrc/block_copy.cu", "tools/exp_qmm_bisect.py:78",
                              dict(R=256, kg=16), "bisect", "block_copy"),
+        # K3b replaces no TPU kernel: it is the gradient of K3's function,
+        # which the JAX package's trainer takes through XLA (jax.value_and_grad)
+        "flash_attention_bwd": ("uzu_tpu_torch/csrc/flash_attention_bwd.cu",
+                                "uzu_tpu/tools/train_tiny.py:110",
+                                dict(S=TRAIN_SEQ, pos0=0, q="f32", variant="train"), "train_tiny",
+                                "flash_bwd_dq, flash_bwd_dkdv"),
     }
     # K3-K6 again at the Gemma models' Dh 256 (at gemma3_1b's heads, 4
     # over 1 group) and at a head dim that runs rounded up (24: K3/K4 in
@@ -5403,9 +5824,12 @@ def kernel_record(rows, info) -> list[dict]:
             ms=rep["ms"], device_ms=rep["device_ms"], plain_ms=rep["plain_ms"],
             bound_ms=rep["bound_ms"], bound_by=rep["bound_by"], library_ms=rep["library_ms"],
             library_device_ms=rep["library_device_ms"],
+            **({"bound_cuda_core_ms": rep["bound_cuda_core_ms"],
+                "launches_per_training_step": info[path]["launches_per_step"][kname]}
+               if kname == "flash_attention_bwd" else {}),
             shape={k: rep[k] for k in rep if k in ("weight", "N", "K", "M", "S", "H", "G",
                                                     "Dh", "C", "pos0", "q", "splits", "variant",
-                                                    "instance",
+                                                    "instance", "window",
                                                     "B", "page",
                                                     "lengths", "live_tokens", "E", "P", "T",
                                                     "Tp", "bm", "route", "kw", "bn",
@@ -5488,6 +5912,10 @@ def main() -> int:
     sys.path.insert(0, REPO)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # K1's plans are the built-in heuristics in every phase (the row-bitwise
+    # checks hold them), whatever tile table the checkout holds; the autotune
+    # phase alone points them at the table it measures, and restores this
+    os.environ["UZU_TPU_TILE_TABLE"] = os.devnull
     from uzu_tpu_torch.ops.cuda import build as kbuild
 
     t_start = time.perf_counter()
@@ -5665,6 +6093,27 @@ def main() -> int:
         log("PARALLEL_ONLY " + json.dumps(info["phase_seconds"]))
         return 0
 
+    if "--train-only" in sys.argv[1:]:
+        # phase 20 alone, with K3b's rows of phase 2
+        from uzu_tpu_torch.engine.engine import LanguageModel
+
+        t0 = time.perf_counter()
+        with ProcessPoolExecutor(len(TRAIN_MODELS),
+                                 mp_context=multiprocessing.get_context("spawn")) as ex:
+            synth = ex.map(synth_model, TRAIN_MODELS)
+            built = kbuild.build()
+            dirs = dict(zip(TRAIN_MODELS, synth))
+        log(f"BUILD kernels built in {built:.1f} s, models synthesized in "
+            f"{time.perf_counter() - t0:.1f} s")
+        timer, rows = Timer(torch), []
+        check_flash_bwd(torch, timer, rows)
+        del timer
+        torch.cuda.empty_cache()
+        lm16 = LanguageModel.from_dir(dirs["llama1b_int4"], device="cuda", max_context=4096)
+        train_phases(torch, lm16, dirs, info)
+        log("TRAIN_ONLY " + json.dumps(info["phase_seconds"]))
+        return 0
+
     if "--gemma-only" in sys.argv[1:]:
         # the Gemma slice alone: its kernel rows and phase 14
         t0 = time.perf_counter()
@@ -5721,6 +6170,7 @@ def main() -> int:
     check_attention_gptoss(torch, timer, rows, usage)
     check_flash_hybrid(torch, timer, rows, usage)
     check_flash_gemma(torch, timer, rows, usage)
+    check_flash_bwd(torch, timer, rows)
     check_spec_rows(torch, timer, rows, usage)
     paged_usage = kernel_usage(kbuild.BUILD_LOGS.get("paged_attention", ""), "paged_decode")
     info["paged_ptxas"] = paged_usage
@@ -5775,6 +6225,7 @@ def main() -> int:
     phase("batch_spec_flagship", batch_spec_flagship, torch, lm16, info)
     serve_phases(torch, lm16, dirs, info)
     phase("parallel", parallel_phase, torch, lm16, dirs["llama1b_int4"], info)
+    train_phases(torch, lm16, dirs, info)
     del lm16
     torch.cuda.empty_cache()
     phase("batch_spec_int8", batch_spec_int8, torch, dirs["llama1b_int8_2l"], info)

@@ -284,13 +284,16 @@ def test_cli_ppl_matches_the_jax_cli(models_root, tmp_path, capsys):
 
 
 def test_cli_refuses_mesh_flags_and_defaults_to_the_card(models_root, monkeypatch):
-    """`autotune` is not registered; the mesh flags parse (`parallel/`),
-    and with them as without them the default device is the card: no
-    card raises before any rank is started."""
+    """`autotune` is registered and measures on the card alone: without one
+    it raises, as its A/B does; the mesh flags parse (`parallel/`), and
+    with them as without them the default device is the card: no card
+    raises before any rank is started."""
     chat = os.path.join(models_root, "chatty")
-    with pytest.raises(SystemExit):
-        main(["autotune", chat])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["autotune", chat, "--reps", "4"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["autotune", chat, "--validate-e2e"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["ppl", chat, "x.txt", "--tp", "2"])
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -194,23 +194,33 @@ def test_tp_hybrid_linear_model(pool, tmp_path):
 
 
 def test_tp_stricter_checks_raise(pool, tmp_path):
-    """The port's checks beyond the JAX package's (where GSPMD reshards):
-    the JAX test's HybridSpec model cuts a Hadamard block at tp 2, and an
-    INT4 g32 model with K/tp = 16 cuts a quantization group at tp 4."""
+    """Where a plain slice would cut what GSPMD reshards, every rank keeps
+    that part whole and the result is the unsharded one: the JAX test's
+    HybridSpec model (4 heads over 2 groups) cuts a Hadamard block of qkv's
+    k rows at tp 2 (qkv kept whole, its sections taken after the
+    product); an INT4 g32 model with 4 heads over 4 groups cuts a
+    quantization group of out at tp 4 (K/tp = 16: out kept whole behind an
+    all-gather of its input); a Qwen3.5-style hybrid with 3 GDN heads over
+    1 group, which tp 2 does not divide, keeps its recurrent mixers whole
+    (weights, state, compute). Each rank's logits lie within the file's
+    F32 tolerance of JAX's unsharded logits (one f32 model; the quantized
+    and HybridSpec ones are unquantized the same way in both packages)."""
     cfg = jsynth.llama_config(num_layers=2, model_dim=64, hidden_dim=128, num_heads=4,
                               num_groups=2, head_dim=16, vocab_size=256)
-    d = jsynth.synthesize(cfg, str(tmp_path / "hybrid_odd"), seed=13,
-                          linear_spec=_hybrid_spec(), dtype=np.float32)
-    msgs = pool.run("tp_validate", d, 2)
-    assert all("layer 0 mixer.qkv" in m and "Hadamard" in m for m in msgs), msgs
+    hybrid = jsynth.synthesize(cfg, str(tmp_path / "hybrid_odd"), seed=13,
+                               linear_spec=_hybrid_spec(), dtype=np.float32)
     spec = IntSpec(bits=4, group_size=32, is_symmetric=True, layout=Layout.OUTPUT_INPUT)
     cfg = jsynth.llama_config(num_layers=2, model_dim=64, hidden_dim=128, num_heads=4,
                               num_groups=4, head_dim=16, vocab_size=256)
-    d = jsynth.synthesize(cfg, str(tmp_path / "q4_odd"), seed=13, linear_spec=spec,
-                          dtype=np.float32)
-    msgs = pool.run("tp_validate", d, 4)
-    assert all("layer 0 mixer.out" in m and "quantization group" in m for m in msgs), msgs
-    assert pool.run("tp_validate", d, 2) == [""] * 4
+    q4 = jsynth.synthesize(cfg, str(tmp_path / "q4_odd"), seed=13, linear_spec=spec,
+                           dtype=np.float32)
+    cfg = jsynth.qwen35_config(num_layers=3, model_dim=64, hidden_dim=128, num_heads=3,
+                               num_groups=1, head_dim=16, value_head_dim=16, attn_every=3)
+    gdn = jsynth.synthesize(cfg, str(tmp_path / "gdn_odd"), seed=11, dtype=np.float32)
+    for d, tp, vocab in ((hybrid, 2, 256), (q4, 4, 256), (gdn, 2, 512)):
+        toks = (np.arange(9) * 5) % vocab
+        _close_on_every_rank(pool.run("tp_logits", d, tp, 4 // tp, toks),
+                             _jax_logits(d, toks), F32_TOL)
 
 
 def test_planted_bias_before_reduce_fails(pool, tmp_path):

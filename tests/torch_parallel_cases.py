@@ -112,16 +112,6 @@ def tp_logits_fault(model_dir: str, tp: int, fault: str, toks) -> np.ndarray:
     return _prefill_logits(lm, toks)
 
 
-def tp_validate(model_dir: str, tp: int) -> str:
-    """The ValueError message of sharding the model over tp ranks ('' if
-    none)."""
-    try:
-        _lm(model_dir, tp=tp, dp=dist.get_world_size() // tp)
-    except ValueError as e:
-        return str(e)
-    return ""
-
-
 def _engine(kind: str, lm, **kw):
     from uzu_tpu_torch.engine.batch import BatchEngine
     from uzu_tpu_torch.engine.batch_spec import (SpeculativeBatchEngine,

@@ -1,4 +1,4 @@
-"""Command-line interface: bench / serve / chat / classify / synth / ppl.
+"""Command-line interface: bench / serve / chat / classify / synth / ppl / autotune.
 
 Role parity: crates/cli (main.rs:19-38 — bench | server | storage |
 interactive chat). The bench subcommand consumes the reference's
@@ -13,11 +13,13 @@ compare runs across engines.
     python -m uzu_tpu_torch.cli synth  <kind> <out_dir> [--seed N]
     python -m uzu_tpu_torch.cli storage <models_dir> [--delete ID]
     python -m uzu_tpu_torch.cli ppl    <model_dir> <text file>
+    python -m uzu_tpu_torch.cli autotune <model_dir> [--reps N] [--validate-e2e] [--out PATH]
 
 The port's counterpart of `uzu_tpu/cli.py`. Every subcommand that loads a
 model takes `--device` (default `cuda`: the card, raising without one;
 `cpu` runs the plain PyTorch path), and bench reports the card's name from
-`torch.cuda.get_device_name`. A bundled speculator is skipped only when
+`torch.cuda.get_device_name`. `autotune` measures K1's launch plans on
+the card (`ops/cuda/autotune.py`) and raises without one. A bundled speculator is skipped only when
 its directory is malformed (`engine.facade.SPECULATOR_DIR_ERRORS`).
 
 `bench`, `serve`, `chat` and `ppl` take `--tp` / `--dp`: the model is
@@ -129,10 +131,13 @@ def cmd_bench(args) -> int:
         return 0
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)
+    from uzu_tpu_torch.ops.cuda.autotune import table_in_use
+
     print(json.dumps({
         "ttft": round(out["time_to_first_token"], 4),
         "prefill_tok_s": round(out["prompt_tokens_per_second"], 2),
         "decode_tok_s": round(out["generate_tokens_per_second"], 2),
+        "tile_table": table_in_use(),
     }))
     return 0
 
@@ -313,6 +318,32 @@ def cmd_ppl(args) -> int:
     return 0
 
 
+def cmd_autotune(args) -> int:
+    """Measure K1's launch plans for a model's linear shapes on the card and
+    save the table (the reference's fleet-tuned GEMV tables), or A/B a
+    saved table against the heuristics on the decode loop. `--out` names the
+    table's file (default: this card's under `ops/cuda/tile_tables/`, which
+    K1 reads unless UZU_TPU_TILE_TABLE names another)."""
+    from uzu_tpu_torch.config import load_language_model_config
+    from uzu_tpu_torch.ops.cuda.autotune import autotune_shapes, model_linear_shapes, save_table
+
+    if args.out:
+        os.environ["UZU_TPU_TILE_TABLE"] = os.path.abspath(args.out)
+    if args.validate_e2e:
+        from uzu_tpu_torch.ops.cuda.autotune import validate_e2e
+
+        print(json.dumps(validate_e2e(args.model_dir)))
+        return 0
+    cfg = load_language_model_config(os.path.join(args.model_dir, "config.json"))
+    shapes = model_linear_shapes(cfg.decoder_config)
+    print(f"shapes: {shapes}")
+    table = autotune_shapes(shapes, reps=args.reps)
+    path = save_table(table, args.out)
+    print(f"saved {len(table)} entries to {path}; K1's plans read it from now on "
+          f"(UZU_TPU_TILE_TABLE=/dev/null holds the heuristics alone)")
+    return 0
+
+
 def _device_kind(device) -> str:
     """The card's name; "cpu" for a run on the host."""
     if device.type == "cuda":
@@ -479,6 +510,16 @@ def main(argv=None) -> int:
     st.add_argument("models_dir")
     st.add_argument("--delete", default=None)
     st.set_defaults(fn=cmd_storage)
+
+    at = sub.add_parser("autotune")
+    at.add_argument("model_dir")
+    at.add_argument("--reps", type=int, default=32)
+    at.add_argument("--validate-e2e", action="store_true", dest="validate_e2e",
+                    help="A/B the measured table against the heuristics on the decode "
+                         "loop (interleaved rounds)")
+    at.add_argument("--out", default=None,
+                    help="the table's file (default: this card's under ops/cuda/tile_tables/)")
+    at.set_defaults(fn=cmd_autotune)
 
     pp = sub.add_parser("ppl")
     pp.add_argument("model_dir"); pp.add_argument("textfile")

@@ -26,8 +26,8 @@ from ...runtime import kernel_build_dir
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
-SOURCES = ("quant_matmul", "flash_attention", "paged_attention", "moe_gemv",
-           "grouped_matmul", "block_copy")
+SOURCES = ("quant_matmul", "flash_attention", "flash_attention_bwd", "paged_attention",
+           "moe_gemv", "grouped_matmul", "block_copy")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,6 +36,7 @@ LAUNCHES: dict[str, int] = {
     "quant_matmul_int8": 0,
     "flash_attention": 0,
     "flash_attention_int8": 0,
+    "flash_attention_bwd": 0,
     "paged_attention": 0,
     "paged_attention_int8": 0,
     "moe_gemv_int4": 0,

@@ -20,6 +20,16 @@ Where one block per (KV group, 64-row tile) cannot fill the card, the
 kernel splits the KV tiles into `split_plan` ranges and merges them in a
 fixed order. `flash_partials_plain` and `flash_combine_plain` are the plain
 versions of those two halves; nothing on the main path calls them.
+
+Gradient (K3b, `csrc/flash_attention_bwd.cu`). A CUDA call whose q, k or
+v needs a gradient runs through `FlashAttention`, a
+`torch.autograd.Function`: K3 forward, unchanged, and K3b backward (dQ,
+dK, dV of K3's function in f32 from dO and K3's output, up to Dh 256). A
+CPU tensor keeps `flash_attention_plain`, which autograd differentiates.
+A gradient under a logit soft cap, sinks or an INT8 cache (K4) raises
+NotImplementedError on the card (`grad_unsupported`).
+`flash_attention_bwd_plain` is K3b's plain version; nothing on the main
+path calls it.
 """
 
 from __future__ import annotations
@@ -46,6 +56,10 @@ _F = ctypes.c_float
 _ARGTYPES = [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P, _P]
 _ARGTYPES_I8 = [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
                 _P, _P]
+_ARGTYPES_BWD = [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
+                 _P]
+BWD_MAX_DH = 256  # K3b's widest instantiation
+BWD_BLOCKS_PER_SM = 2  # K3b's dK/dV blocks resident on an SM (~100 KB of shared memory each)
 _SMS: dict[int, int] = {}
 
 
@@ -196,6 +210,19 @@ def _lib(quantized: bool = False):
     return fn
 
 
+def grad_unsupported(logit_soft_cap=None, sinks=None, quantized: bool = False) -> str | None:
+    """Why K3b cannot give this call's gradient (None if it can): it
+    differentiates K3 over a bf16 or f32 cache with neither a logit soft
+    cap nor sinks."""
+    if quantized:
+        return "an INT8 KV cache (K4)"
+    if logit_soft_cap is not None:
+        return "a logit soft cap"
+    if sinks is not None:
+        return "attention sinks"
+    return None
+
+
 def flash_attention(q, k_cache, v_cache, q_positions, *, scale,
                     sliding_window_size=None, logit_soft_cap=None,
                     sinks=None, k_scales=None, v_scales=None) -> torch.Tensor:
@@ -205,6 +232,148 @@ def flash_attention(q, k_cache, v_cache, q_positions, *, scale,
             sliding_window_size=sliding_window_size,
             logit_soft_cap=logit_soft_cap, sinks=sinks,
             k_scales=k_scales, v_scales=v_scales)
+    needs_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (q, k_cache, v_cache, sinks))
+    if not needs_grad:
+        return _launch(q, k_cache, v_cache, q_positions, scale=scale,
+                       sliding_window_size=sliding_window_size,
+                       logit_soft_cap=logit_soft_cap, sinks=sinks,
+                       k_scales=k_scales, v_scales=v_scales)
+    why = grad_unsupported(logit_soft_cap, sinks, k_scales is not None or v_scales is not None)
+    if why is not None:
+        raise NotImplementedError(f"flash_attention: no gradient kernel (K3b) under {why}")
+    return FlashAttention.apply(q, k_cache, v_cache, q_positions, float(scale),
+                                sliding_window_size)
+
+
+class FlashAttention(torch.autograd.Function):
+    """K3 forward and K3b backward of a CUDA call (no soft cap, sinks or
+    INT8 cache). Saves q, k, v, the positions and K3's output; the
+    gradients come back in the inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k_cache, v_cache, q_positions, scale, sliding_window_size):
+        out = _launch(q, k_cache, v_cache, q_positions, scale=scale,
+                      sliding_window_size=sliding_window_size)
+        ctx.save_for_backward(q, k_cache, v_cache, q_positions, out)
+        ctx.scale, ctx.window = scale, sliding_window_size
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k_cache, v_cache, q_positions, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k_cache, v_cache, q_positions, out, d_out,
+                                         scale=ctx.scale, sliding_window_size=ctx.window)
+        return (dq.to(q.dtype), dk.to(k_cache.dtype), dv.to(v_cache.dtype), None, None, None)
+
+
+def flash_attention_bwd_plain(q, k_cache, v_cache, q_positions, out, d_out, *, scale,
+                              sliding_window_size=None):
+    """K3b's plain version: (dq [S, H, Dh], dk, dv [C, G, Dh]) f32 of K3's
+    function (no soft cap or sinks), with L recomputed and D_i =
+    rowsum(dO_i * O_i) from the given output, all math in f32."""
+    s, h, dh = q.shape
+    c, g, _ = k_cache.shape
+    rep = h // g
+    qf = q.float().reshape(s, g, rep, dh)
+    kf, vf = k_cache.float(), v_cache.float()
+    do = d_out.float().reshape(s, g, rep, dh)
+    scores = torch.einsum("sgrd,cgd->grsc", qf, kf) * scale
+    qpos = q_positions[0].to(torch.int64) + torch.arange(s, device=q.device)
+    kpos = torch.arange(c, device=q.device)
+    valid = kpos[None, :] <= qpos[:, None]
+    if sliding_window_size is not None:
+        valid = valid & (kpos[None, :] > qpos[:, None] - sliding_window_size)
+    scores = scores.masked_fill(~valid, float("-inf"))
+    lse = torch.logsumexp(scores, dim=-1, keepdim=True)
+    p = torch.exp(scores - lse).masked_fill(~valid, 0.0)  # [G, rep, S, C]
+    delta = (do * out.float().reshape(s, g, rep, dh)).sum(-1)  # [S, G, rep]
+    dp = torch.einsum("sgrd,cgd->grsc", do, vf)
+    ds = p * (dp - delta.permute(1, 2, 0)[..., None])
+    dq = torch.einsum("grsc,cgd->sgrd", ds, kf) * scale
+    dk = torch.einsum("grsc,sgrd->cgd", ds, qf) * scale
+    dv = torch.einsum("grsc,sgrd->cgd", p, do)
+    return dq.reshape(s, h, dh), dk, dv
+
+
+def bwd_tile(dh: int) -> int:
+    """K3b's tile (query rows and keys) at a head dim: 64 up to Dh 64, 32
+    at 128, 16 at 256 (csrc Tile<DH>::T)."""
+    inst = head_dim_instance(dh)
+    return 64 if inst <= 64 else 32 if inst == 128 else 16
+
+
+def bwd_parts(s: int, h: int, g: int, c: int, dh: int, num_sms: int) -> int:
+    """The parts K3b's dK/dV launch cuts the query tiles into: enough that
+    the (key tile, group, part) blocks fill BWD_BLOCKS_PER_SM a SM, each
+    part at least one query tile, none empty. Shapes only."""
+    t = bwd_tile(dh)
+    row_tiles = -(-s * (h // g) // t)
+    blocks = -(-c // t) * g
+    parts = min(row_tiles, max(1, -(-BWD_BLOCKS_PER_SM * num_sms // blocks)))
+    per = -(-row_tiles // parts)
+    return -(-row_tiles // per)
+
+
+def flash_attention_bwd(q, k_cache, v_cache, q_positions, out, d_out, *, scale,
+                        sliding_window_size=None):
+    """K3b: (dq [S, H, Dh], dk, dv [C, G, Dh]) f32. A CPU tensor takes
+    `flash_attention_bwd_plain`; a CUDA one launches the kernel or raises."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k_cache, v_cache, q_positions, out, d_out,
+                                         scale=scale, sliding_window_size=sliding_window_size)
+    s, h, dh = q.shape
+    c, g, _ = k_cache.shape
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
+    if (k_cache.shape != v_cache.shape or k_cache.shape[2] != dh or h % g
+            or out.shape != q.shape or d_out.shape != q.shape or q_positions.numel() < 1):
+        raise ValueError(f"flash_attention_bwd: q {tuple(q.shape)}, k {tuple(k_cache.shape)}, "
+                         f"v {tuple(v_cache.shape)}, out {tuple(out.shape)}, d_out "
+                         f"{tuple(d_out.shape)} do not fit together")
+    if head_dim_instance(dh) is None or dh > BWD_MAX_DH:
+        raise NotImplementedError(f"flash_attention_bwd: Dh {dh} (K3b takes multiples of 8 "
+                                  f"up to {BWD_MAX_DH})")
+    if q.dtype not in (torch.bfloat16, torch.float32) or k_cache.dtype != q.dtype \
+            or v_cache.dtype != q.dtype:
+        raise ValueError("flash_attention_bwd: q, k and v must be one dtype, bf16 or f32")
+    q, k_cache, v_cache = q.contiguous(), k_cache.contiguous(), v_cache.contiguous()
+    out = out.float().contiguous()
+    d_out = d_out.float().contiguous()
+    for t in (q, k_cache, v_cache, out, d_out):
+        if t.device != q.device:
+            raise ValueError("flash_attention_bwd: every tensor must be on one device")
+    qpos = q_positions.to(device=q.device, dtype=torch.int32).contiguous()
+    dq = torch.empty((s, h, dh), dtype=torch.float32, device=q.device)
+    dk = torch.empty((c, g, dh), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    parts = bwd_parts(s, h, g, c, dh, num_sms(q.device))
+    scratch = torch.empty(2 * s * h + (2 * parts * c * g * dh if parts > 1 else 0),
+                          dtype=torch.float32, device=q.device)
+    if s and c:
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = _lib_bwd()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                            int(q.dtype == torch.bfloat16), qpos.data_ptr(), out.data_ptr(),
+                            d_out.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                            scratch.data_ptr(), s, h, g, c, dh, float(scale),
+                            int(sliding_window_size or 0), parts, stream)
+        check(rc, "flash_attention_bwd")
+        LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+def _lib_bwd():
+    fn = library("flash_attention_bwd").uz_flash_attention_bwd
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES_BWD
+        fn.restype = _I
+    return fn
+
+
+def _launch(q, k_cache, v_cache, q_positions, *, scale, sliding_window_size=None,
+            logit_soft_cap=None, sinks=None, k_scales=None, v_scales=None) -> torch.Tensor:
+    """One K3/K4 launch on CUDA tensors (no autograd)."""
     s, h, dh = q.shape
     c, g, _ = k_cache.shape
     if q.device.type != "cuda":

@@ -11,7 +11,8 @@ the JAX kernel takes them; only the first ceil(K/g) are read.
 route (the f32 GEMV for f32 x at M <= GEMV_MAX_M, `qmm_small`'s tensor
 cores for bf16 x there, `qmm_tile`'s wgmma above it) and its parameters.
 The wrapper passes it to the kernel, so the plan the CPU tests hold is the
-plan launched. `quant_matmul_split_plain` is the plain version of a plan's
+plan launched. A measured table (`autotune.py`, none ships) comes before
+the heuristics where its entry can serve the shape. `quant_matmul_split_plain` is the plain version of a plan's
 split-K tile: per-split partials, then the fixed-order merge.
 """
 
@@ -83,7 +84,19 @@ def staged_bytes(rows: int, k: int) -> int:
 
 def qmm_plan(m: int, n: int, k: int, bits: int, sms: int, x_bf16: bool = True) -> QmmPlan:
     """The launch plan of an [m, k] x [n, k]^T product over `bits`-bit codes
-    on a card with `sms` SMs. Shapes only: never the data.
+    on a card with `sms` SMs. Shapes only: never the data. A tile table's
+    entry for the shape (`autotune.lookup`) comes first where it can serve
+    the shape; its small entries are keyed without M, so the sums stay the
+    same at every M of the route. Otherwise `heuristic_plan`."""
+    from .autotune import lookup
+
+    tabled = lookup(bits, n, k, m, x_bf16)
+    return tabled if tabled is not None else heuristic_plan(m, n, k, bits, sms, x_bf16)
+
+
+def heuristic_plan(m: int, n: int, k: int, bits: int, sms: int,
+                   x_bf16: bool = True) -> QmmPlan:
+    """`qmm_plan`'s built-in rules, from shapes and the SM count.
 
     Small M, bf16 x: kw (1, 2, 4 or 8 warps walking one 16-row tile's K)
     doubles while the warps stay below SMALL_WARPS_PER_SM per SM and each
@@ -167,8 +180,10 @@ def _aligned(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0
 
 
-def quant_matmul(w: QuantizedTensor, x2: torch.Tensor) -> torch.Tensor:
-    """x2 [M, K] @ dequant(w)^T -> f32 [M, N]."""
+def quant_matmul(w: QuantizedTensor, x2: torch.Tensor, plan: QmmPlan | None = None
+                 ) -> torch.Tensor:
+    """x2 [M, K] @ dequant(w)^T -> f32 [M, N]. `plan` (the autotuner's
+    candidates) replaces `qmm_plan`'s."""
     n, k = w.shape
     if x2.dim() != 2 or x2.shape[1] != k:
         raise ValueError(f"x {tuple(x2.shape)} does not match weight {w.shape}")
@@ -194,7 +209,11 @@ def quant_matmul(w: QuantizedTensor, x2: torch.Tensor) -> torch.Tensor:
         raise ValueError("qbias and scales must share a dtype")
     if w.codes.dtype != torch.uint8:
         raise ValueError(f"codes must be uint8, not {w.codes.dtype}")
-    plan = qmm_plan(m, n, k, w.bits, num_sms(x2.device), x2.dtype == torch.bfloat16)
+    if plan is None:
+        plan = qmm_plan(m, n, k, w.bits, num_sms(x2.device), x2.dtype == torch.bfloat16)
+    elif plan.route != "tile" and (m > GEMV_MAX_M or (plan.route == "small")
+                                   != (x2.dtype == torch.bfloat16)):
+        raise ValueError(f"quant_matmul: plan {plan} cannot serve M={m} with {x2.dtype} x")
     if plan.route == "tile" and x2.dtype != torch.bfloat16:
         x2 = x2.to(torch.bfloat16)  # the tile's operands are bf16
     x2 = x2.contiguous()

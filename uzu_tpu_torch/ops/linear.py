@@ -9,7 +9,12 @@ dequantized once and contracted by a plain matmul. HybridSpec linears
 base) take `hybrid_apply`, whose base runs through the same route. Under tensor parallelism a linear
 whose input dimension is split over the ranks holds a `SplitInput`: each
 rank's product is a partial sum, all-reduced before the bias is added, so
-the whole bias is added once.
+the whole bias is added once. Where that split would cut a quantization
+group or a Hadamard block, every rank keeps the whole weight instead: an
+input-split linear holds a `GatherInput` (the ranks' input slices are
+all-gathered and the whole product taken, with no reduction), an
+output-split one a `TakeSections` (the whole product, of which the rank
+keeps its part of each output section, the layout its neighbours expect).
 """
 
 from __future__ import annotations
@@ -38,6 +43,55 @@ class SplitInput:
         return dataclasses.replace(self, w=self.w.to(device))
 
 
+@dataclasses.dataclass
+class GatherInput:
+    """A whole weight `w` of a linear whose input dimension tp splits: the
+    rank's input slice is all-gathered over `group` in rank order, then
+    the whole product is taken on every rank."""
+
+    w: object
+    group: object
+
+    def to(self, device) -> "GatherInput":
+        return dataclasses.replace(self, w=self.w.to(device))
+
+
+@dataclasses.dataclass
+class TakeSections:
+    """A whole weight `w` of a linear whose output dimension tp splits into
+    `sections`: the whole product is taken, and rank `rank` of `size` keeps
+    its equal part of each section, concatenated in order."""
+
+    w: object
+    sections: tuple
+    rank: int
+    size: int
+
+    def to(self, device) -> "TakeSections":
+        return dataclasses.replace(self, w=self.w.to(device))
+
+
+def all_gather_last(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's `x` over `group`, concatenated along the last dim in
+    rank order."""
+    import torch.distributed as dist
+
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=-1)
+
+
+def take_sections(y: torch.Tensor, sections, rank: int, size: int) -> torch.Tensor:
+    """Rank `rank` of `size`'s part of each section of y's last dim."""
+    parts, off = [], 0
+    for length in sections:
+        part = length // size
+        parts.append(y[..., off + rank * part: off + (rank + 1) * part])
+        off += length
+    return torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0].contiguous()
+
+
 def all_reduce_sum(y: torch.Tensor, group) -> torch.Tensor:
     """The sum of every rank's `y` over `group`, in f32 (the partial sums
     of a split contraction), returned in y's dtype."""
@@ -52,6 +106,10 @@ def linear_apply(w, x: torch.Tensor, bias=None) -> torch.Tensor:
     """x: [..., K] -> [..., N]."""
     if isinstance(w, SplitInput):
         y = all_reduce_sum(linear_apply(w.w, x), w.group)
+    elif isinstance(w, GatherInput):
+        y = linear_apply(w.w, all_gather_last(x, w.group))
+    elif isinstance(w, TakeSections):
+        y = take_sections(linear_apply(w.w, x), w.sections, w.rank, w.size)
     elif isinstance(w, HybridLinear):
         y = hybrid_apply(w, x)
     elif isinstance(w, QuantizedTensor):

@@ -134,7 +134,7 @@ def load_params_sharded(model_dir: str, mesh, *, random_seed: int | None = None,
     from ..config import load_language_model_config
     from ..models.loader import load_embedding, load_layer, load_norm
     from ..params.tree import ParameterLoader
-    from .sharding import _layer_specs, _whole, apply_specs, validate_layer_params, validate_tp
+    from .sharding import _layer_specs, _whole, apply_specs, kept_whole, log_kept_whole, validate_tp
 
     config = load_language_model_config(os.path.join(model_dir, "config.json"))
     cfg = config.decoder_config
@@ -157,13 +157,15 @@ def load_params_sharded(model_dir: str, mesh, *, random_seed: int | None = None,
     emb = load_embedding(tree, cfg.embedding_config, cfg.vocab_size, d)
     params: dict = {"embedding": put(emb, _whole(emb))}
     del emb
-    layers = []
+    layers, whole = [], []
     for i, lc in enumerate(tcfg.layer_configs):
         p = load_layer(tree.subtree(f"transformer.layers.{i}"), lc, d, tcfg.hidden_dim)
-        validate_layer_params(cfg, i, p, tp)
-        layers.append(put(p, _layer_specs(cfg, lc, p)))
+        spec = _layer_specs(cfg, lc, p, tp)
+        whole += kept_whole(i, spec, lc, d, tp)
+        layers.append(put(p, spec))
         del p
     params["layers"] = layers
+    log_kept_whole(whole)
     onorm = load_norm(tree.subtree("transformer.output_norm"), d, tcfg.output_norm_config)
     params["output_norm"] = put(onorm, _whole(onorm))
     del onorm

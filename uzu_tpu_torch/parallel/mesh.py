@@ -73,11 +73,17 @@ class Split:
     every rank. Otherwise the tensor is read as consecutive `sections`
     along `dim` (default: one section, the whole dim); each section is cut
     into equal parts, one per rank, and a rank keeps its part of every
-    section, concatenated in order (the fused [q|k|v] rows, for example)."""
+    section, concatenated in order (the fused [q|k|v] rows, for example).
+    `kept_whole` names what the cut of a linear weight would split (a
+    quantization group or a Hadamard block): every rank then keeps the
+    whole weight, and the linear gathers its input (`dim` the input dim)
+    or takes its own output sections (`dim` 0) instead
+    (`parallel/sharding.py`)."""
 
     dim: int | None = None
     sections: tuple | None = None
     axis: str = TP_AXIS
+    kept_whole: str | None = None
 
 
 def replicated(mesh=None) -> Split:

@@ -77,21 +77,23 @@ def _stage(mesh) -> tuple[int, int]:
 def stack_pipeline_params(cfg: DecoderConfig, params: dict, mesh) -> dict:
     """This rank's stage of full `params`: {"layers": its L/P layers (split
     over tp when the mesh has a tp axis), "embedding", "output_norm"}."""
-    from .sharding import _layer_specs, apply_specs, validate_tp
+    from .sharding import _layer_specs, apply_specs, kept_whole, log_kept_whole, validate_tp
 
     p, pp = _stage(mesh)
     tp = axis_size(mesh, TP_AXIS)
     validate_pp(cfg, pp)
     if tp > 1:
-        validate_tp(cfg, tp, params)
+        validate_tp(cfg, tp)
     lp = len(cfg.transformer_config.layer_configs) // pp
     group = mesh.get_group(TP_AXIS) if tp > 1 else None
     r = axis_rank(mesh, TP_AXIS)
-    layers = []
+    layers, whole = [], []
     for i in range(p * lp, (p + 1) * lp):
         lc = cfg.transformer_config.layer_configs[i]
-        layers.append(apply_specs(params["layers"][i], _layer_specs(cfg, lc, params["layers"][i]),
-                                  r, tp, group))
+        spec = _layer_specs(cfg, lc, params["layers"][i], tp)
+        whole += kept_whole(i, spec, lc, cfg.transformer_config.model_dim, tp)
+        layers.append(apply_specs(params["layers"][i], spec, r, tp, group))
+    log_kept_whole(whole)
     return {"layers": layers, "embedding": params["embedding"],
             "output_norm": params["output_norm"]}
 
@@ -107,7 +109,7 @@ def stack_pipeline_states(cfg: DecoderConfig, states: dict, mesh, microbatches: 
     b = states["pos"].shape[0]
     if b % microbatches:
         raise ValueError(f"batch {b} must divide into {microbatches} microbatches")
-    specs = state_specs(cfg, states, None, batched=True)
+    specs = state_specs(cfg, states, mesh, batched=True)
     tp, r = axis_size(mesh, TP_AXIS), axis_rank(mesh, TP_AXIS)
     kv = []
     for i in range(p * lp, (p + 1) * lp):

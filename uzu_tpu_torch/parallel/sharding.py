@@ -25,14 +25,28 @@ tensor, so a fused weight is cut section by section (Megatron's split):
 
 A quantized column slice is cut at group boundaries (codes [N, K/pack],
 scales and qbias [N, K/g]) and made contiguous once, as K1 needs. Where
-GSPMD would reshard, `validate_tp` raises instead: (K/tp) % g for a
-quantized column slice, and the Hadamard blocks of 32 of a HybridLinear's
-split side must fall inside one rank.
+GSPMD reshards, a plain slice cannot, so the port keeps the part whole on
+every rank and gets GSPMD's result:
+
+- a linear whose cut would split a quantization group ((K/tp) % g) or a
+  Hadamard block of 32 on its split side: the whole weight on every rank,
+  behind `GatherInput` (an input-split linear all-gathers its input, takes
+  the whole product, adds the bias once) or `TakeSections` (an
+  output-split linear takes the whole product and keeps the rank's part
+  of each section);
+- a recurrent mixer whose heads or groups (ShortConv: channels) tp does
+  not divide: its weights, state and compute whole on every rank; its
+  input is the replicated residual, so it needs no collective.
+
+`validate_tp` raises only where the JAX package does (attention heads and
+groups, MLP and expert hidden widths). The parts kept whole are logged
+once, at load.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 
 import torch
 
@@ -46,7 +60,7 @@ from ..config.model import (
     ShortConvConfig,
     TransformerLayerConfig,
 )
-from ..ops.linear import SplitInput
+from ..ops.linear import GatherInput, SplitInput, TakeSections
 from ..quant.format import HybridLinear, QuantizedTensor, StackedQuantized
 from .mesh import DP_AXIS, TP_AXIS, Split, axis_rank, axis_size, tp_size
 
@@ -91,30 +105,39 @@ def _check(cond: bool, where: str, msg: str) -> None:
         raise ValueError(f"{where}: {msg}")
 
 
-def _check_linear(w, split: Split, tp: int, where: str) -> None:
-    """The port's checks beyond the JAX package's: a quantized column slice
-    must hold whole groups, and the split side of a HybridLinear whole
-    Hadamard blocks (GSPMD reshards there; the port cannot)."""
+def mixer_splits(m, model_dim: int, tp: int) -> bool:
+    """Whether a recurrent mixer splits over tp ranks (heads and groups, or
+    ShortConv's channels); else it stays whole on every rank. Attention
+    always splits (`validate_tp` holds its heads and groups)."""
+    if isinstance(m, (Mamba2Config, DeltaNetConfig)):
+        return m.num_heads % tp == 0 and m.num_groups % tp == 0
+    if isinstance(m, ShortConvConfig):
+        return model_dim % tp == 0
+    return True
+
+
+def _cut_fault(w, split: Split, tp: int) -> str | None:
+    """What a cut of linear weight `w` under `split` over tp ranks would
+    split: a quantization group of an input-split quantized weight, or a
+    Hadamard block of 32 on a HybridLinear's split side; None if nothing."""
     if split.dim is None or tp == 1:
-        return
+        return None
     sections = split.sections or (w.shape[split.dim],)
     base = w.base if isinstance(w, HybridLinear) else w
     if isinstance(base, QuantizedTensor) and split.dim == 1:
         k = base.shape[1]
-        _check((k // tp) % base.group_size == 0 and k % tp == 0, where,
-               f"tp={tp} cuts K={k} inside a quantization group of {base.group_size} "
-               f"((K/tp) % g must be 0)")
+        if k % tp or (k // tp) % base.group_size:
+            return f"a quantization group of {base.group_size} (K={k})"
     if isinstance(w, HybridLinear):
         signs = w.output_signs if split.dim == 0 else w.input_signs
-        if signs is not None:
-            _check(all(s % (tp * RHT_BLOCK) == 0 for s in sections), where,
-                   f"tp={tp} cuts a Hadamard block of {RHT_BLOCK} (sections {sections} "
-                   f"must each split into multiples of {RHT_BLOCK})")
+        if signs is not None and any(s % (tp * RHT_BLOCK) for s in sections):
+            return f"a Hadamard block of {RHT_BLOCK} (sections {sections})"
+    return None
 
 
-def validate_tp(cfg: DecoderConfig, tp: int, params: dict | None = None) -> None:
-    """Raise ValueError unless every layer splits evenly over tp ranks. With
-    `params`, also the weight-level checks of the module docstring."""
+def validate_tp(cfg: DecoderConfig, tp: int) -> None:
+    """Raise ValueError where the JAX package does: tp must divide every
+    attention layer's heads and groups and every MLP's hidden width."""
     tcfg = cfg.transformer_config
     for i, lc in enumerate(tcfg.layer_configs):
         m = lc.mixer_config
@@ -122,13 +145,6 @@ def validate_tp(cfg: DecoderConfig, tp: int, params: dict | None = None) -> None
         if isinstance(m, AttentionConfig):
             _check(m.num_heads % tp == 0 and m.num_groups % tp == 0, where,
                    f"tp={tp} must divide num_heads={m.num_heads} and num_groups={m.num_groups}")
-        elif isinstance(m, (Mamba2Config, DeltaNetConfig)):
-            _check(m.num_heads % tp == 0 and m.num_groups % tp == 0, where,
-                   f"tp={tp} must divide the recurrent num_heads={m.num_heads} and "
-                   f"num_groups={m.num_groups}")
-        elif isinstance(m, ShortConvConfig):
-            _check(tcfg.model_dim % tp == 0, where,
-                   f"tp={tp} must divide the ShortConv channels {tcfg.model_dim}")
         mlp = lc.mlp_config
         if isinstance(mlp, DenseMLPConfig):
             _check(_hidden(lc, cfg) % tp == 0, where,
@@ -136,30 +152,50 @@ def validate_tp(cfg: DecoderConfig, tp: int, params: dict | None = None) -> None
         if isinstance(mlp, MixtureOfExpertsConfig):
             _check(mlp.expert_hidden_dim % tp == 0, where,
                    f"tp={tp} must divide expert_hidden_dim={mlp.expert_hidden_dim}")
-    if params is not None:
-        for i, p in enumerate(params["layers"]):
-            validate_layer_params(cfg, i, p, tp)
 
 
-def validate_layer_params(cfg: DecoderConfig, i: int, p: dict, tp: int) -> None:
-    """The weight-level checks of layer i's params (module docstring)."""
-    lc = cfg.transformer_config.layer_configs[i]
-    for path, w, split in _linear_rules(cfg, lc, p):
-        _check_linear(w, split, tp, f"layer {i} {path}")
+def kept_whole(layer: int, spec: dict, lc: TransformerLayerConfig, model_dim: int,
+               tp: int) -> list[str]:
+    """What of layer `layer` (rule tree `spec`) every rank keeps whole
+    where tp would cut it: the recurrent mixer, or linears by path."""
+    if tp == 1:
+        return []
+    if not mixer_splits(lc.mixer_config, model_dim, tp):
+        return [f"layer {layer} mixer ({type(lc.mixer_config).__name__}: tp={tp} does not "
+                f"divide its heads, groups or channels)"]
+    out = []
+    for part in ("mixer", "mlp"):
+        for name, sub in spec[part].items():
+            subs = sub.items() if name == "shared" else [(None, sub)]
+            for sname, ssub in subs:
+                if isinstance(ssub, dict) and getattr(ssub.get("w"), "kept_whole", None):
+                    path = ".".join(x for x in (part, name, sname) if x)
+                    out.append(f"layer {layer} {path} (a cut splits {ssub['w'].kept_whole})")
+    return out
+
+
+def log_kept_whole(parts: list[str]) -> None:
+    """One log line naming what every rank keeps whole."""
+    if parts:
+        logging.getLogger(__name__).warning(
+            "tensor parallel: kept whole on every rank (a cut would split them): %s",
+            "; ".join(parts))
 
 
 def local_config(cfg: DecoderConfig, tp: int, params: dict | None = None) -> DecoderConfig:
     """The config a tp rank runs: attention heads and KV groups, recurrent
-    heads and groups, MLP hidden widths and (dense stacks only) expert
-    hidden widths divided by tp. A ShortConv mixer's channels follow its
-    weights' shapes."""
+    heads and groups (of a mixer that splits), MLP hidden widths and (dense
+    stacks only) expert hidden widths divided by tp. A ShortConv mixer's
+    channels follow its weights' shapes."""
     if tp == 1:
         return cfg
     tcfg = cfg.transformer_config
     layers = []
     for i, lc in enumerate(tcfg.layer_configs):
         m, mlp = lc.mixer_config, lc.mlp_config
-        if isinstance(m, (AttentionConfig, Mamba2Config, DeltaNetConfig)):
+        if isinstance(m, AttentionConfig) or (
+                isinstance(m, (Mamba2Config, DeltaNetConfig))
+                and mixer_splits(m, tcfg.model_dim, tp)):
             m = dataclasses.replace(m, num_heads=m.num_heads // tp,
                                     num_groups=m.num_groups // tp)
         if isinstance(mlp, MixtureOfExpertsConfig) and not (
@@ -259,37 +295,51 @@ def _ssm_specs(m, model_dim: int, p: dict) -> dict:
     return out
 
 
-def _layer_specs(cfg: DecoderConfig, lc: TransformerLayerConfig, p: dict) -> dict:
+def _keep_whole_where_cut(spec: dict, p: dict, tp: int) -> None:
+    """Mark each linear rule of `spec` whose cut of its weight in `p` would
+    split a group or a block (`_cut_fault`) as kept whole, in place."""
+    for name, sub in spec.items():
+        if not isinstance(sub, dict):
+            continue
+        w = sub.get("w")
+        if isinstance(w, Split) and "w" in p[name]:
+            fault = _cut_fault(p[name]["w"], w, tp)
+            if fault is not None:
+                sub["w"] = dataclasses.replace(w, kept_whole=fault)
+        elif name == "shared":
+            _keep_whole_where_cut(sub, p[name], tp)
+
+
+def _layer_specs(cfg: DecoderConfig, lc: TransformerLayerConfig, p: dict,
+                 tp: int = 1) -> dict:
+    """One layer's rules over tp ranks: a recurrent mixer that tp does not
+    split stays whole, and a linear whose cut would split a group or a
+    Hadamard block is kept whole (module docstring)."""
     m = lc.mixer_config
+    model_dim = cfg.transformer_config.model_dim
     if isinstance(m, AttentionConfig):
         mixer = _attention_specs(m, p["mixer"])
+    elif mixer_splits(m, model_dim, tp):
+        mixer = _ssm_specs(m, model_dim, p["mixer"])
     else:
-        mixer = _ssm_specs(m, cfg.transformer_config.model_dim, p["mixer"])
+        mixer = _whole(p["mixer"])
     out = {"mixer": mixer, "mlp": _mlp_specs(lc, cfg, p["mlp"])}
+    if tp > 1:
+        _keep_whole_where_cut(out["mixer"], p["mixer"], tp)
+        _keep_whole_where_cut(out["mlp"], p["mlp"], tp)
     for k in p:
         if k not in out:
             out[k] = _whole(p[k])
     return out
 
 
-def _linear_rules(cfg, lc, p):
-    """(path, weight, Split) of every linear weight of one layer."""
-    spec = _layer_specs(cfg, lc, p)
-    for part in ("mixer", "mlp"):
-        for name, sub in spec[part].items():
-            if isinstance(sub, dict) and isinstance(sub.get("w"), Split):
-                yield f"{part}.{name}", p[part][name]["w"], sub["w"]
-            elif name == "shared":
-                for sname, ssub in sub.items():
-                    yield f"{part}.shared.{sname}", p[part]["shared"][sname]["w"], ssub["w"]
-
-
 def decoder_param_specs(cfg: DecoderConfig, params: dict, mesh=None) -> dict:
     """The slice rules of every parameter: a tree of `Split`s, a prefix of
     `params` (one rule covers a whole quantized or hybrid weight)."""
+    tp = tp_size(mesh)
     specs = {
         "embedding": _whole(params["embedding"]),
-        "layers": [_layer_specs(cfg, lc, params["layers"][i])
+        "layers": [_layer_specs(cfg, lc, params["layers"][i], tp)
                    for i, lc in enumerate(cfg.transformer_config.layer_configs)],
         "output_norm": _whole(params["output_norm"]),
     }
@@ -323,7 +373,7 @@ def cut(t: torch.Tensor, dim: int, sections, r: int, n: int) -> torch.Tensor:
 def _cut_weight(w, split: Split, r: int, n: int):
     """Rank r's slice of a weight (tensor, quantized, hybrid) under a rule;
     quantized columns are cut in codes' and groups' units."""
-    if split.dim is None or n == 1:
+    if split.dim is None or n == 1 or split.kept_whole:
         return w
     if isinstance(w, torch.Tensor):
         return cut(w, split.dim, split.sections, r, n)
@@ -361,7 +411,8 @@ def _cut_weight(w, split: Split, r: int, n: int):
 def apply_specs(params, specs, r: int, n: int, group=None, device=None):
     """Rank r of n's slice of `params` under a rule tree; a weight cut on
     its input dimension (the last dim of a "w", a partial sum) becomes a
-    `SplitInput` over `group`."""
+    `SplitInput` over `group`, and a weight kept whole a `GatherInput`
+    (input dim) or a `TakeSections` (output dim)."""
     if isinstance(specs, Split):
         out = _cut_weight(params, specs, r, n)
         if device is not None:
@@ -372,9 +423,13 @@ def apply_specs(params, specs, r: int, n: int, group=None, device=None):
         for k, v in params.items():
             sub = apply_specs(v, specs[k], r, n, group, device)
             s = specs[k]
-            if (k == "w" and isinstance(s, Split) and s.dim is not None and n > 1
-                    and s.dim == len(v.shape) - 1):
-                sub = SplitInput(sub, group)
+            if k == "w" and isinstance(s, Split) and s.dim is not None and n > 1:
+                last = s.dim == len(v.shape) - 1
+                if s.kept_whole:
+                    sub = (GatherInput(sub, group) if last else
+                           TakeSections(sub, tuple(s.sections or (v.shape[s.dim],)), r, n))
+                elif last:
+                    sub = SplitInput(sub, group)
             out[k] = sub
         return out
     if isinstance(specs, list):
@@ -386,8 +441,11 @@ def shard_decoder_params(cfg: DecoderConfig, params: dict, mesh, device=None) ->
     """This rank's tensor-parallel slice of full `params` (on the host or
     any device), moved to `device`. Replicated over dp."""
     tp = tp_size(mesh)
-    validate_tp(cfg, tp, params)
+    validate_tp(cfg, tp)
     specs = decoder_param_specs(cfg, params, mesh)
+    log_kept_whole([part for i, (lc, spec) in enumerate(zip(
+        cfg.transformer_config.layer_configs, specs["layers"]))
+        for part in kept_whole(i, spec, lc, cfg.transformer_config.model_dim, tp)])
     group = mesh.get_group(TP_AXIS) if tp > 1 else None
     return apply_specs(params, specs, axis_rank(mesh, TP_AXIS), tp, group, device)
 
@@ -402,17 +460,21 @@ def state_specs(cfg: DecoderConfig, state: dict, mesh=None, *, batched: bool = F
     turn (the slot dim over dp when batched, then tp's)."""
     lead = 1 if batched else 0
     dp = (Split(dim=0, axis=DP_AXIS),) if batched else ()
+    model_dim = cfg.transformer_config.model_dim
+    tp = tp_size(mesh)
     layers = []
     for layer_state, lc in zip(state["layers"], cfg.transformer_config.layer_configs):
         m = lc.mixer_config
         if layer_state is None:
             layers.append(None)
+        elif not mixer_splits(m, model_dim, tp):
+            layers.append({k: dp for k in layer_state})
         elif isinstance(m, AttentionConfig):
             # k/v/k_q/v_q [C, G, Dh] and scales [C, G] on G; ring positions whole
             layers.append({k: dp + ((Split(dim=lead + 1),) if v.dim() - lead >= 2 else ())
                            for k, v in layer_state.items()})
         else:
-            _, conv_sections = _recurrent_sections(m, cfg.transformer_config.model_dim)
+            _, conv_sections = _recurrent_sections(m, model_dim)
             rules = {}
             for k, v in layer_state.items():
                 if k == "conv":

@@ -100,13 +100,19 @@ class ModelBuilder:
             )
 
     def linear(self, prefix: str, input_dim: int, output_dim: int, spec,
-               has_biases: bool) -> None:
-        """Emit one linear's tensors under `prefix` per the weight spec."""
+               has_biases: bool, weights: np.ndarray | None = None) -> None:
+        """Emit one linear's tensors under `prefix` per the weight spec.
+        `weights` (float [N, K]) gives exact values (quantized specs
+        quantize them); otherwise random values are drawn."""
         self.metadata[f"{prefix}.weights.spec"] = config_dumps(spec)
         if isinstance(spec, FullPrecisionSpec):
-            self.dense(f"{prefix}.weights.weights", (output_dim, input_dim))
+            if weights is not None:
+                self.tensors[f"{prefix}.weights.weights"] = cast(weights, self.dtype)
+            else:
+                self.dense(f"{prefix}.weights.weights", (output_dim, input_dim))
         elif isinstance(spec, (IntSpec, MLXSpec)):
-            weights = self._random((output_dim, input_dim), self.weight_scale)
+            if weights is None:
+                weights = self._random((output_dim, input_dim), self.weight_scale)
             parts = quantize_reference(weights, spec.bits, spec.group_size, _method(spec),
                                        dtype=self.dtype)
             for leaf, arr in parts.items():
@@ -115,7 +121,8 @@ class ModelBuilder:
             # the JAX synthesizer's draws in its order: the weights, the
             # input and output signs, then the adapter
             base = spec.quantization_spec
-            stored = self._random((output_dim, input_dim), self.weight_scale)
+            stored = (self._random((output_dim, input_dim), self.weight_scale)
+                      if weights is None else weights)
             if spec.incoherence_block_size is not None:
                 si = self.rng.choice([-1, 1], input_dim).astype(np.int32)
                 so = self.rng.choice([-1, 1], output_dim).astype(np.int32)
@@ -135,12 +142,17 @@ class ModelBuilder:
         if has_biases:
             self.dense(f"{prefix}.biases", (output_dim,))
 
-    def embedding(self, prefix: str, vocab: int, dim: int, spec) -> None:
+    def embedding(self, prefix: str, vocab: int, dim: int, spec,
+                  weights: np.ndarray | None = None) -> None:
         self.metadata[f"{prefix}.spec"] = config_dumps(spec)
         if isinstance(spec, FullPrecisionSpec):
-            self.dense(f"{prefix}.weights", (vocab, dim))
+            if weights is not None:
+                self.tensors[f"{prefix}.weights"] = cast(weights, self.dtype)
+            else:
+                self.dense(f"{prefix}.weights", (vocab, dim))
         elif isinstance(spec, (IntSpec, MLXSpec)):
-            weights = self._random((vocab, dim), self.weight_scale)
+            if weights is None:
+                weights = self._random((vocab, dim), self.weight_scale)
             parts = quantize_reference(weights, spec.bits, spec.group_size, _method(spec),
                                        dtype=self.dtype)
             for leaf, arr in parts.items():
