@@ -12,13 +12,24 @@
     python3 chip_smoke.py --batch-spec-only  # phase 17 alone, with K1/K5/K6/K9's verify rows
     python3 chip_smoke.py --serve-only   # phase 18 alone (the servers, the CLI, the classifier)
     python3 chip_smoke.py --parallel-only  # phase 19 alone, with its shard-shape kernel rows
-    python3 chip_smoke.py --train-only   # phase 20 alone, with K3b's rows of phase 2
+    python3 chip_smoke.py --train-only   # phase 20 alone, with K3's L and K3b's rows of phase 2
+    python3 chip_smoke.py --flash-bwd-only  # K3's L and K3b's rows of phase 2 alone
+    python3 chip_smoke.py --step-profile-only  # STEP_REPS timed steps, one profiled; host µs
 
 Phases, each of which ends the run with a non-zero exit if it fails:
 
 1. build: compile every CUDA kernel of the port from `uzu_tpu_torch/csrc/`
-   (one nvcc per source, in parallel) while the run's models are
+   (one nvcc per source, in parallel) while the flagship's models are
    synthesized (one process each); print the card's name and power limit.
+   Two side processes start with the run (`side_process`), each
+   synthesizing its own models (SIDE_MODELS, in the order its phases need
+   them). Once phase 2's timed rows and phase 3's single stream are done,
+   they share the card with this process: the second runs phases 7-8, 13
+   and 14 and gpt-oss's and the hybrid's parts of phases 9-10 and 16-17,
+   the third phases 19, 20 and 15 (on its own copy of the INT4 flagship),
+   and this one the rest; each sends back its readings, and an error in
+   any fails the run. A phase that needs a model waits for that model
+   alone.
 2. kernels: each kernel against its plain PyTorch version on the card at
    the shapes its path gives it (bf16 inputs or INT8 codes, f32
    accumulation), with its time, the plain version's time, one PyTorch
@@ -55,11 +66,22 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    instantiation; and a row check: at bm 8 each routed row's K9 output is
    bitwise the same whether its tile holds 1 or 8 rows), and P1, the bisect
    probe's zero-padded scale-block copy (bitwise equal), timed beside an
-   empty kernel's launch (the launch floor), and K3b, K3's gradient
-   (dQ, dK, dV each against `flash_attention_bwd_plain`, a second launch
-   bitwise the first) at the trainer's shape (S=512 from position 0 over
-   1024 slots, 6 heads over 2 groups, f32), at the flagship's heads in
-   bf16 and f32 and with a window, beside SDPA's backward.
+   empty kernel's launch (the launch floor); K3's row log-sum-exp at the
+   flagship's heads (its K3 row, a one-split and a many-split chunk, bf16
+   and f32: within LSE_TOL of `flash_attention_lse_plain`, the output
+   bitwise the same with and without it), K3b's launch plan (the
+   wrapper's equal to the kernel's at every instantiation, within 227 KB
+   of shared memory), and K3b, K3's gradient (dQ, dK, dV each against
+   `flash_attention_bwd_plain` within TOL and K3B_TOL, a second launch
+   bitwise the first; each row with its parts, and PERF.md's time of the
+   former kernel where it had one, printed as a constant) at the
+   trainer's shape (S=512 from position 0 over 1024 slots, 6 heads over
+   2 groups, f32; with --flash-bwd-only each launch's device ms), at the
+   flagship's heads in bf16 and f32 and with a window, and at Dh 32 (8/2
+   heads), 128 (16/4) and 256 (4/1), beside SDPA's backward (both device
+   times after a BWD_SPIN spin, past the host's time to enqueue
+   autograd's backward), with ptxas's registers and spills of its
+   kernels.
 3. path INT4: the Llama-1B-shaped INT4 flagship (16 layers, d 2048, vocab
    128256, random weights from a seed) loaded with `LanguageModel.from_dir`
    on the card; greedy generation of 64 tokens after a 128-token prompt,
@@ -289,11 +311,13 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     layers, d 384, 6 heads over 2 groups at Dh 64, vocab 256; ~18M
     parameters, f32) trained on the card at batch 16 x 512 for
     TRAIN_STEPS steps through `train_tiny.train` (K3 forward, K3b
-    backward): losses finite, the last 10's mean below TRAIN_DROP x the
-    first 10's; step 0's loss within TRAIN_LOSS_RTOL and every leaf's
-    gradient within TRAIN_GRAD_TOL rel. L2 of the host CPU's (a spawned
-    process, alongside); K3 and K3b each launched layers x batch times a
-    step; steps/s and tokens/s. `write_trained` writes bf16 and INT4 g32
+    backward), after one step under the profiler (K3b's and K3's device
+    ms inside the step, its device-busy share): losses finite, the last
+    10's mean below TRAIN_DROP x the first 10's; step 0's loss within
+    TRAIN_LOSS_RTOL and every leaf's gradient within TRAIN_GRAD_TOL rel.
+    L2 of the host CPU's (a spawned process, alongside); K3 and K3b each
+    launched layers x batch times a step; steps/s and tokens/s.
+    `write_trained` writes bf16 and INT4 g32
     directories under `.port_cache/`; the INT4 one on the card greedy twice,
     identical (K1, K3), its held-out NLL within tests/test_train_tiny.py:61's
     bound of the bf16 one's, and the n-gram chain's acceptance on it (a
@@ -328,7 +352,6 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
-F32_FLOPS = 67e12  # H100 SXM f32 peak outside the tensor cores (NVIDIA data sheet)
 TOL = 2e-2  # max |kernel - plain| over RMS(plain): bf16 operands, f32 sums
 
 FLAGSHIP = dict(num_layers=16, model_dim=2048, hidden_dim=8192, num_heads=32,
@@ -462,7 +485,8 @@ class Timer:
         self.torch = torch
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
-    def ms(self, fn, reps: int = REPS, spin: bool = False, flush: bool = True) -> float:
+    def ms(self, fn, reps: int = REPS, spin: bool = False, flush: bool = True,
+           spin_cycles: int = SPIN_CYCLES) -> float:
         torch = self.torch
         fn()
         events = []
@@ -470,7 +494,7 @@ class Timer:
             if flush:
                 self.flush.zero_()
             if spin:
-                torch.cuda._sleep(self.SPIN_CYCLES)
+                torch.cuda._sleep(spin_cycles)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -480,9 +504,9 @@ class Timer:
         torch.cuda.synchronize()
         return statistics.median(a.elapsed_time(b) for a, b in events)
 
-    def both(self, fn) -> tuple[float, float]:
+    def both(self, fn, spin_cycles: int = SPIN_CYCLES) -> tuple[float, float]:
         """(ms, device ms) of `fn`: without and with the spin."""
-        return self.ms(fn), self.ms(fn, spin=True)
+        return self.ms(fn), self.ms(fn, spin=True, spin_cycles=spin_cycles)
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -1323,25 +1347,47 @@ def check_flash_hybrid(torch, timer, rows, usage) -> None:
         case(128, 1024, 0, ("plain",), dtype=torch.float32, quant=quant)
 
 
-def flash_bwd_row(torch, timer, rows, q, kc, vc, pos0: int, window, variant: str) -> None:
+# device ms of K3b's former CUDA-core kernels at its first four rows, by
+# (q, variant): constants from PERF.md section 6 (NVIDIA H100 80GB HBM3,
+# 700.00 W), printed beside each row's reading and never measured here
+K3B_CUDA_CORE_DEVICE_MS = {("f32", "train"): 0.3390, ("bf16", "plain"): 0.7674,
+                           ("f32", "plain"): 0.7705, ("bf16", "window"): 0.4915}
+# K3b's own limit beside TOL, max |kernel - plain| over RMS(plain): about 5x
+# its readings (<= 2.04e-4) and under the 1.9e-2 a kernel that rounds dO, P
+# and dS to bf16 once reads (tests/test_torch_flash_bwd.py), so a kernel
+# that lost the lo halves of its pairs fails
+K3B_TOL = 1e-3
+LSE_TOL = 1e-4  # K3's L against flash_attention_lse_plain, absolute (natural log)
+# the spin before K3b's and SDPA's backward device times: ~4 ms, past the
+# host's time to enqueue autograd's SDPA backward (up to ~1.3 ms), which
+# Timer's ~0.1 ms spin let into that device time
+BWD_SPIN = 8_000_000
+
+
+def flash_bwd_row(torch, timer, rows, q, kc, vc, pos0: int, window, variant: str,
+                  breakdown: bool = False) -> None:
     """One K3b case: dQ, dK and dV against `flash_attention_bwd_plain` from
-    the same K3 output and dO (each err/RMS <= TOL), a second launch
-    bitwise the first, its time, the plain version's, the yardstick (SDPA's
-    backward over the visible keys, is_causal where the queries start at
-    position 0, else the same mask given explicitly; enable_gqa), and two
-    bounds: the five products' FLOPs of the visible (query, key) pairs over
-    the bf16 tensor-core peak, as every kernel row (`bound_ms`; K3 takes f32
-    operands there as bf16 hi + lo pairs), and over the f32 CUDA-core peak
-    the kernel runs at now (`bound_cuda_core_ms`), each against the bytes
-    read and written once."""
+    the same K3 output and dO (each err/RMS <= TOL and <= K3B_TOL; K3b
+    without L, so one K3 launch asks for it), a second launch given K3's L
+    bitwise the first,
+    its time (given L: K3b alone, as the trainer's backward runs it), the
+    plain version's, the yardstick (SDPA's backward over the visible keys,
+    is_causal where the queries start at position 0, else the same mask
+    given explicitly; enable_gqa), and the bound: the five products' FLOPs
+    of the visible (query, key) pairs over the bf16 tensor-core peak, as
+    every kernel row (whatever hi + lo products the kernel takes for f32),
+    against the bytes read and written once. With `breakdown`, each of
+    K3b's launches' device ms from a profiler trace."""
     import torch.nn.functional as F
 
     from uzu_tpu_torch.ops.cuda.flash_attention import (
-        flash_attention,
+        _launch,
+        bwd_parts,
         flash_attention_bwd,
         flash_attention_bwd_plain,
     )
 
+    t_row = time.perf_counter()
     s, h, dh = q.shape
     c, g, _ = kc.shape
     scale = dh ** -0.5
@@ -1349,21 +1395,27 @@ def flash_bwd_row(torch, timer, rows, q, kc, vc, pos0: int, window, variant: str
     qpos = torch.arange(s, device="cuda", dtype=torch.int32) + pos0
     gen = torch.Generator(device="cuda").manual_seed(7)
     d_out = torch.randn((s, h, dh), device="cuda", generator=gen)
-    out = flash_attention(q, kc, vc, qpos, scale=scale, sliding_window_size=window)
+    lse = torch.empty((s, h), device="cuda")
+    out = _launch(q, kc, vc, qpos, scale=scale, sliding_window_size=window, lse=lse)
 
     def run():
         return flash_attention_bwd(q, kc, vc, qpos, out, d_out, scale=scale,
-                                   sliding_window_size=window)
+                                   sliding_window_size=window, lse=lse)
 
-    got, again = run(), run()
+    got = flash_attention_bwd(q, kc, vc, qpos, out, d_out, scale=scale,
+                              sliding_window_size=window)
+    again = run()
     want = flash_attention_bwd_plain(q, kc, vc, qpos, out, d_out, scale=scale,
                                      sliding_window_size=window)
     torch.cuda.synchronize()
     errs = {name: rel_err(a, b) for name, a, b in zip(("dq", "dk", "dv"), got, want)}
     worst = max(e for _, e in errs.values())
-    where = f"flash_attention_bwd S={s} H={h} G={g} C={c} pos0={pos0} q {qname} {variant}"
+    where = (f"flash_attention_bwd S={s} H={h} G={g} Dh={dh} C={c} pos0={pos0} q {qname} "
+             f"{variant}")
     if not worst <= TOL:
         raise AssertionError(f"{where}: error {errs} of RMS > {TOL}")
+    if not worst <= K3B_TOL:
+        raise AssertionError(f"{where}: error {errs} of RMS > K3b's {K3B_TOL}")
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"{where}: two launches on the same inputs differ")
     # the work this run's data needs: (query row, key) pairs each head sees
@@ -1373,12 +1425,10 @@ def flash_bwd_row(torch, timer, rows, q, kc, vc, pos0: int, window, variant: str
     kv_rows = int(qp[-1] + 1 - lo[0])
     esz = q.element_size()
     nbytes = (q.numel() * esz + 2 * kv_rows * g * dh * esz  # q, k and v read
-              + 2 * s * h * dh * 4  # O and dO read
+              + 2 * s * h * dh * 4 + s * h * 4  # O, dO and L read
               + s * h * dh * 4 + 2 * c * g * dh * 4)  # dQ, dK and dV written
     flops = 10.0 * visible * h * dh  # S, dP, dV, dQ, dK: 2 Dh each
-    tb = nbytes / HBM_BYTES_PER_S
     b_ms, b_by = bound(nbytes, flops)
-    lib_ms = lib_dev_ms = None
     end = int(qp[-1]) + 1
     qt = q.detach().transpose(0, 1)[None].clone().requires_grad_(True)
     kt = kc[:end].transpose(0, 1)[None].clone().requires_grad_(True)
@@ -1395,41 +1445,161 @@ def flash_bwd_row(torch, timer, rows, q, kc, vc, pos0: int, window, variant: str
                                            enable_gqa=True)
     go = d_out.transpose(0, 1)[None].to(o.dtype)
     lib_ms, lib_dev_ms = timer.both(
-        lambda: torch.autograd.grad(o, (qt, kt, vt), go, retain_graph=True))
+        lambda: torch.autograd.grad(o, (qt, kt, vt), go, retain_graph=True), BWD_SPIN)
     del o, qt, kt, vt
-    ms, dev_ms = timer.both(run)
+    ms, dev_ms = timer.both(run, BWD_SPIN)
     row = dict(kernel="flash_attention_bwd", S=s, H=h, G=g, Dh=dh, C=c, pos0=pos0, q=qname,
-               variant=variant, window=window, bitwise_repeat=True,
+               kernel_device_ms=(launch_device_ms(torch, run, f"k3b_{qname}_{variant}")
+                                 if breakdown else None),
+               variant=variant, window=window,
+               parts=bwd_parts(s, h, g, c, dh, torch.cuda.get_device_properties(0)
+                               .multi_processor_count, qname == "f32"),
+               bitwise_repeat=True,
                err_over_rms_by_grad={k: e for k, (_, e) in errs.items()},
+               max_abs_err_by_grad={k: a for k, (a, _) in errs.items()},
                max_abs_err=max(a for a, _ in errs.values()), err_over_rms=worst, tol=TOL,
-               ms=ms, device_ms=dev_ms,
+               k3b_tol=K3B_TOL, ms=ms, device_ms=dev_ms,
+               cuda_core_device_ms=(K3B_CUDA_CORE_DEVICE_MS.get((qname, variant))
+                                    if dh == 64 else None),
+               cuda_core_from="PERF.md section 6, a constant",
                plain_ms=timer.ms(lambda: flash_attention_bwd_plain(
                    q, kc, vc, qpos, out, d_out, scale=scale, sliding_window_size=window), 3),
-               library_ms=lib_ms, library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by,
-               bound_cuda_core_ms=max(tb, flops / F32_FLOPS) * 1e3, flops=flops, bytes=nbytes)
+               library_ms=lib_ms, library_device_ms=lib_dev_ms,
+               below_library=dev_ms < lib_dev_ms, bound_ms=b_ms, bound_by=b_by,
+               flops=flops, bytes=nbytes)
+    row["seconds"] = time.perf_counter() - t_row
     rows.append(row)
     log("KERNEL " + json.dumps(row))
 
 
-def check_flash_bwd(torch, timer, rows) -> None:
+def launch_device_ms(torch, fn, name: str, reps: int = 5) -> dict | None:
+    """{kernel: mean device ms a call} of the kernels `fn` launches, from a
+    profiler trace of `reps` calls (.port_cache/traces_k3b/<name>.json);
+    None where the trace holds no device event twice."""
+    import re
+
+    out_dir = os.path.join(REPO, ".port_cache", "traces_k3b")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, name + ".json")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            kernels = [e for e in json.load(f)["traceEvents"]
+                       if e.get("cat") == "kernel" and "dur" in e]
+        if kernels:
+            break
+    else:
+        return None
+    out: dict = {}
+    for e in kernels:
+        m = re.search(r"(flash_\w+)", e["name"])
+        key = m[1] if m else e["name"]
+        out[key] = out.get(key, 0.0) + e["dur"] / 1e3 / reps
+    return out
+
+
+def check_bwd_plan(info: dict) -> None:
+    """The wrapper's `bwd_plan` against the kernel's own (csrc `Plan`, from
+    `uz_flash_attention_bwd_plan`) at every instantiation, bf16 and f32:
+    streamed tile, dK/dV column slices and blocks per SM equal, and both
+    launches' blocks within 227 KB of shared memory."""
+    import ctypes
+
+    from uzu_tpu_torch.ops.cuda.build import library
+    from uzu_tpu_torch.ops.cuda.flash_attention import bwd_plan
+
+    fn = library("flash_attention_bwd").uz_flash_attention_bwd_plan
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    readings = []
+    for dh in (32, 64, 128, 256):
+        for f32 in (False, True):
+            got = (ctypes.c_int * 5)()
+            if fn(dh, int(not f32), got) != 0:
+                raise AssertionError(f"K3b plan: no instantiation for Dh {dh}")
+            tile, slices, per_sm, dq_smem, kv_smem = got
+            readings.append(dict(Dh=dh, f32=f32, tile=tile, dkdv_slices=slices,
+                                 blocks_per_sm=per_sm, dq_smem=dq_smem, dkdv_smem=kv_smem))
+            if (tile, slices, per_sm) != tuple(bwd_plan(dh, f32)) \
+                    or max(dq_smem, kv_smem) > 227 * 1024:
+                raise AssertionError(f"K3b plan at Dh {dh} f32={f32}: the kernel's "
+                                     f"{readings[-1]}, the wrapper's {bwd_plan(dh, f32)}")
+    info["k3b_plan"] = readings
+    log("K3B_PLAN " + json.dumps(readings))
+
+
+def check_flash_bwd(torch, timer, rows, breakdown: bool = False) -> None:
     """K3b at the trainer's shape (S=512 from position 0 over its 1024-slot
     cache, 6 heads over 2 groups, Dh 64, f32), at the flagship's heads (32
-    over 8, S=256 at position 765 over 1024 slots) in bf16 and f32, and with
-    a window of 512."""
+    over 8, S=256 at position 765 over 1024 slots) in bf16 and f32 and with
+    a window of 512, and at the other instantiations from the same
+    positions: Dh 32 at the hybrid's 8/2 heads, Dh 128 at 16/4, Dh 256 at
+    gemma3_1b's 4/1 (bf16). With `breakdown`, each row also gives each
+    launch's device ms from a profiler trace (the profiler's first set-up
+    takes ~10 s)."""
     from uzu_tpu_torch.tools.train_tiny import TINY_DIMS
 
     gen = torch.Generator(device="cuda").manual_seed(3)
 
-    def case(s, h, g, c, pos0, dtype, window, variant):
+    def case(s, h, g, c, pos0, dtype, window, variant, dh=64, breakdown=False):
         q, kc, vc = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
-                     for shape in ((s, h, 64), (c, g, 64), (c, g, 64)))
-        flash_bwd_row(torch, timer, rows, q, kc, vc, pos0, window, variant)
+                     for shape in ((s, h, dh), (c, g, dh), (c, g, dh)))
+        flash_bwd_row(torch, timer, rows, q, kc, vc, pos0, window, variant, breakdown)
 
     case(TRAIN_SEQ, TINY_DIMS["num_heads"], TINY_DIMS["num_groups"], TINY_DIMS["max_seq"], 0,
-         torch.float32, None, "train")
-    case(256, 32, 8, 1024, 765, torch.bfloat16, None, "plain")
-    case(256, 32, 8, 1024, 765, torch.float32, None, "plain")
-    case(256, 32, 8, 1024, 765, torch.bfloat16, 512, "window")
+         torch.float32, None, "train", breakdown=breakdown)
+    case(256, 32, 8, 1024, 765, torch.bfloat16, None, "plain", breakdown=breakdown)
+    case(256, 32, 8, 1024, 765, torch.float32, None, "plain", breakdown=breakdown)
+    case(256, 32, 8, 1024, 765, torch.bfloat16, 512, "window", breakdown=breakdown)
+    case(256, 8, 2, 1024, 765, torch.bfloat16, None, "dh32", dh=32, breakdown=breakdown)
+    case(256, 16, 4, 1024, 765, torch.bfloat16, None, "dh128", dh=128, breakdown=breakdown)
+    case(256, 4, 1, 1024, 765, torch.bfloat16, None, "dh256", dh=256, breakdown=breakdown)
+
+
+def check_flash_lse(torch, info: dict) -> None:
+    """K3's L at the flagship's heads (32 over 8 groups, Dh 64), bf16 and
+    f32: its K3 row (S=256 at position 765 over 1024 slots; the plan's
+    splits), a first 1024-row chunk (one split) and a 16-row chunk at the
+    end of 4096 slots (many): within LSE_TOL of `flash_attention_lse_plain`,
+    and the output with the L pointer bitwise the output without it."""
+    from uzu_tpu_torch.ops.cuda.flash_attention import (
+        _launch,
+        flash_attention_lse_plain,
+        launch_split_plan,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    h, g, dh = 32, 8, 64
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    readings = []
+    for s, c, pos0 in ((256, 1024, 765), (1024, 1024, 0), (16, 4096, 4096 - 19)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, kc, vc = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
+                         for shape in ((s, h, dh), (c, g, dh), (c, g, dh)))
+            qpos = torch.arange(s, device="cuda", dtype=torch.int32) + pos0
+            want = flash_attention_lse_plain(q, kc, vc, qpos, scale=dh ** -0.5)
+            lse = torch.full((s, h), float("nan"), device="cuda")
+            plain_out = _launch(q, kc, vc, qpos, scale=dh ** -0.5)
+            out = _launch(q, kc, vc, qpos, scale=dh ** -0.5, lse=lse)
+            torch.cuda.synchronize()
+            err = (lse - want).abs().max().item()
+            same = torch.equal(out, plain_out)
+            splits = launch_split_plan(s, h, g, c, dh, sms)[0]
+            readings.append(dict(S=s, C=c, pos0=pos0, q=str(dtype).split(".")[-1],
+                                 splits=splits, lse_max_abs_err=err, out_bitwise=same))
+            if not (err <= LSE_TOL and same):
+                raise AssertionError(f"K3 lse at S={s} C={c} ({splits} splits), q {dtype}: "
+                                     f"error {err:.3e} (tol {LSE_TOL}), output bitwise {same}")
+    if 1 not in {r["splits"] for r in readings} or max(r["splits"] for r in readings) < 2:
+        raise AssertionError(f"K3 lse: no one-split and several-split case: {readings}")
+    info["k3_lse"] = readings
+    log("K3_LSE " + json.dumps(readings))
 
 
 def check_paged_gptoss(torch, timer, rows, usage) -> None:
@@ -1721,8 +1891,39 @@ SPEC_MODELS = ("llama1b_int4", "llama1b_int8_2l", "gptoss_int4", "qwen08_int4",
                "dflash_flagship")
 BSPEC_MODELS = ("llama1b_int4", "llama1b_int8_2l", "gptoss_int4", "qwen08_int4")
 SERVE_MODELS = ("llama1b_int4", "clf_12l")
-MODELS = ("llama1b_int4", "llama1b_int8_2l", "gptoss_int4", "gptoss_int8_2l", "qwen08_int4",
-          "lfm2_4l", "mamba2_4l", *GEMMA_MODELS, *SLICE_MODELS, "dflash_flagship", "clf_12l")
+# the full run's models: the first process's (one synthesis process
+# each), and each side process's (its synthesis processes, its models in
+# the order its phases need them)
+HEAD_MODELS = ("llama1b_int4", "llama1b_int8_2l", "dflash_flagship", "clf_12l")
+SIDE_MODELS = {"second": (3, ("qwen08_int4", "gptoss_int4", "lfm2_4l", "mamba2_4l",
+                              "gptoss_int8_2l", *GEMMA_MODELS)),
+               "third": (1, SLICE_MODELS)}
+MODELS = (*HEAD_MODELS, *(name for _, names in SIDE_MODELS.values() for name in names))
+# the first process's models that it hands to the side processes
+SHARED_MODELS = ("llama1b_int4", "llama1b_int8_2l")
+
+
+class ModelDirs:
+    """The model directories of `names`, each synthesized by a job of
+    `pool` submitted in that order, and of the finished ones `add` is
+    given: a lookup waits for its model alone, and the seconds the first
+    lookup of each waited are kept."""
+
+    def __init__(self, pool, names):
+        self.jobs = {name: pool.submit(synth_model, name) for name in names}
+        self.given: dict = {}
+        self.waited: dict = {}
+
+    def add(self, paths: dict) -> None:
+        self.given.update(paths)
+
+    def __getitem__(self, name: str) -> str:
+        if name in self.given:
+            return self.given[name]
+        t = time.perf_counter()
+        out = self.jobs[name].result()
+        self.waited.setdefault(name, time.perf_counter() - t)
+        return out
 
 
 def prompt_tokens(n: int, vocab: int):
@@ -5406,6 +5607,7 @@ TRAIN_DROP = 0.75  # mean of the last 10 losses below this share of the first 10
 TRAIN_LOSS_RTOL = 1e-3  # step 0's loss, card against host
 TRAIN_GRAD_TOL = 2e-2  # step 0's gradient of each leaf, card against host, rel. L2
 TRAINED_TOKENS = 48  # greedy tokens of the trained INT4 model, twice
+STEP_REPS = 20  # timed unprofiled steps before the profiled one, --step-profile-only
 AUTOTUNE_M = (1, 8, 256)  # the flagship's decode step, the paged step, a prefill chunk
 SMOKE_MODEL = "llama1b_int8_2l"  # the serving smoke's model, synthesized for phases 5-6
 TRAIN_MODELS = ("llama1b_int4", SMOKE_MODEL)
@@ -5455,13 +5657,138 @@ def host_step0(batch) -> tuple[float, dict]:
     return _step0("cpu", batch, threads=max(1, (os.cpu_count() or 4) - 2))
 
 
+def train_step_profile(torch, batch, steps: int = 0) -> dict:
+    """One training step of TINY_DIMS (seed 0; AdamW; `batch` [B, S+1]) on
+    the card under torch.profiler, after a warm step and `steps` timed
+    unprofiled ones: K3b's device ms inside the step (its kernels,
+    flash_bwd_*), K3's (flash_fwd, flash_combine), the device-busy ms over
+    the traced window and their share, the host ms of the attention's
+    autograd ops (FlashAttention*, with the profiler's own cost), and the
+    step's wall ms (host clock to a synchronize): each unprofiled step's,
+    their median, and the profiled one's.
+    The trace goes to .port_cache/traces_train/."""
+    import shutil
+    import tempfile
+
+    from uzu_tpu_torch.tools import train_tiny as tt
+
+    t_start = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tiny_init_")
+    try:
+        lm = tt._build_init(tt.TINY_DIMS, 0, tmp, "cuda")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    leaves = list(_param_paths(lm.params).values())
+    for t in leaves:
+        t.requires_grad_(True)
+    opt = torch.optim.AdamW(leaves, lr=1e-4, weight_decay=0.01)
+    state0 = lm.new_state()
+    tokens = torch.from_numpy(batch).to(lm.device)
+
+    def step() -> float:
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        tt._loss_fn(lm.decoder_config, lm.params, state0, tokens).backward()
+        opt.step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    step()  # the allocator's pools and AdamW's state
+    steps_ms = [step() for _ in range(steps)]
+    out_dir = os.path.join(REPO, ".port_cache", "traces_train")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    path = os.path.join(out_dir, "step.json")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for attempt in range(2):  # once more where the profiler kept no device event
+        with torch.profiler.profile(activities=acts) as prof:
+            profiled_ms = step()
+        prof.export_chrome_trace(path)
+        try:
+            kernels, busy_ms, window_ms = trace_device_time(path)
+            break
+        except AssertionError:
+            if attempt:
+                raise
+    del lm, opt, leaves, state0
+    torch.cuda.empty_cache()
+
+    def of(*keys):
+        mine = [v for name, v in kernels.items() if any(k in name for k in keys)]
+        return sum(v[1] for v in mine), sum(v[0] for v in mine)
+
+    k3b_ms, k3b_n = of("flash_bwd_")
+    k3_ms, k3_n = of("flash_fwd", "flash_combine")
+    with open(path) as f:  # the host's time in the attention's autograd ops
+        host: dict = {}
+        for e in json.load(f)["traceEvents"]:
+            if e.get("cat") == "cpu_op" and "FlashAttention" in e.get("name", ""):
+                h = host.setdefault(e["name"], [0, 0.0])
+                h[0] += 1
+                h[1] += e["dur"] / 1e3
+    reading = dict(
+        batch=list(batch.shape), steps_ms=steps_ms,
+        step_ms=statistics.median(steps_ms) if steps_ms else None, profiled_step_ms=profiled_ms,
+        flash_attention_host_ms=host,
+        device_busy_ms=busy_ms, window_ms=window_ms, busy_share=busy_ms / window_ms,
+        k3b_device_ms=k3b_ms, k3b_kernels=k3b_n, k3b_share_of_busy=k3b_ms / busy_ms,
+        k3_device_ms=k3_ms, k3_kernels=k3_n,
+        top_kernels=[[name, n, ms] for name, (n, ms) in
+                     sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]],
+        seconds=time.perf_counter() - t_start)
+    log("TRAIN_STEP_PROFILE " + json.dumps(reading))
+    if not (k3b_n and k3_n):
+        raise AssertionError(f"train step profile: {k3b_n} K3b and {k3_n} K3 kernels traced")
+    return reading
+
+
+def attention_host_us(torch, pairs: int = 20, rounds: int = 10) -> dict:
+    """The host's µs to enqueue one call of the trainer's attention through
+    `flash_attention` (K3 with its L) and one of its gradient
+    (`torch.autograd.grad`: K3b) at the trainer's shape (S=512 from
+    position 0 over 1024 slots, 6 heads over 2 groups, Dh 64, f32), with
+    the card held by a spin meanwhile so that only the host is timed:
+    medians over `rounds` x `pairs` calls."""
+    from uzu_tpu_torch.ops.cuda.flash_attention import flash_attention
+    from uzu_tpu_torch.tools.train_tiny import TINY_DIMS
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    h, g, dh = TINY_DIMS["num_heads"], TINY_DIMS["num_groups"], TINY_DIMS["head_dim"]
+    q = torch.randn((TRAIN_SEQ, h, dh), device="cuda", generator=gen).requires_grad_(True)
+    k, v = (torch.randn((TINY_DIMS["max_seq"], g, dh), device="cuda", generator=gen)
+            .requires_grad_(True) for _ in range(2))
+    qpos = torch.arange(TRAIN_SEQ, device="cuda", dtype=torch.int32)
+    d_out = torch.randn((TRAIN_SEQ, h, dh), device="cuda", generator=gen)
+
+    def pair() -> tuple[float, float]:
+        t0 = time.perf_counter()
+        o = flash_attention(q, k, v, qpos, scale=dh ** -0.5)
+        t1 = time.perf_counter()
+        torch.autograd.grad(o, (q, k, v), d_out)
+        return (t1 - t0) * 1e6, (time.perf_counter() - t1) * 1e6
+
+    pair()
+    torch.cuda.synchronize()
+    fwd, bwd = [], []
+    for _ in range(rounds):
+        torch.cuda._sleep(100_000_000)  # ~50 ms of the card, past the round's enqueues
+        for f, b in (pair() for _ in range(pairs)):
+            fwd.append(f)
+            bwd.append(b)
+        torch.cuda.synchronize()
+    return dict(forward_us=statistics.median(fwd), backward_us=statistics.median(bwd),
+                calls=len(fwd))
+
+
 def train_tiny_phase(torch, info: dict) -> tuple:
     """Phase 20's trainer: TINY_DIMS at batch TRAIN_BATCH, seq TRAIN_SEQ
     for TRAIN_STEPS steps through `train_tiny.train` on the card. Step 0's
     loss and gradients on the card (twice: the gradients' repeatability is
     reported) against the host CPU's (a spawned process, alongside the
     training); the losses finite and dropping; K3 and K3b launched layers
-    x batch times a step; steps/s and tokens/s of the step loop."""
+    x batch times a step; steps/s and tokens/s of the step loop. First,
+    before the host reference starts, one step under the profiler
+    (`train_step_profile`)."""
     import numpy as np
 
     from uzu_tpu_torch.ops.cuda.build import LAUNCHES, reset_launches
@@ -5470,6 +5797,8 @@ def train_tiny_phase(torch, info: dict) -> tuple:
     dims = tt.TINY_DIMS
     batch0 = tt.train_data(dims, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                            corpus_tokens=TRAIN_CORPUS)[0]
+    # before the host reference's process starts: the step's host time alone
+    info["train_step_profile"] = train_step_profile(torch, batch0)
     with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as ex:
         host = ex.submit(host_step0, batch0)
         card_loss, card_grads = _step0("cuda", batch0)
@@ -5732,7 +6061,7 @@ def kernel_record(rows, info) -> list[dict]:
         "flash_attention_bwd": ("uzu_tpu_torch/csrc/flash_attention_bwd.cu",
                                 "uzu_tpu/tools/train_tiny.py:110",
                                 dict(S=TRAIN_SEQ, pos0=0, q="f32", variant="train"), "train_tiny",
-                                "flash_bwd_dq, flash_bwd_dkdv"),
+                                "flash_bwd_prep, flash_bwd_dq, flash_bwd_dkdv, flash_bwd_sum"),
     }
     # K3-K6 again at the Gemma models' Dh 256 (at gemma3_1b's heads, 4
     # over 1 group) and at a head dim that runs rounded up (24: K3/K4 in
@@ -5824,8 +6153,7 @@ def kernel_record(rows, info) -> list[dict]:
             ms=rep["ms"], device_ms=rep["device_ms"], plain_ms=rep["plain_ms"],
             bound_ms=rep["bound_ms"], bound_by=rep["bound_by"], library_ms=rep["library_ms"],
             library_device_ms=rep["library_device_ms"],
-            **({"bound_cuda_core_ms": rep["bound_cuda_core_ms"],
-                "launches_per_training_step": info[path]["launches_per_step"][kname]}
+            **({"launches_per_training_step": info[path]["launches_per_step"][kname]}
                if kname == "flash_attention_bwd" else {}),
             shape={k: rep[k] for k in rep if k in ("weight", "N", "K", "M", "S", "H", "G",
                                                     "Dh", "C", "pos0", "q", "splits", "variant",
@@ -5895,6 +6223,184 @@ def kernel_record(rows, info) -> list[dict]:
     return out
 
 
+def kernel_phase(torch, info: dict) -> list:
+    """Phase 2: every kernel's rows against its plain version, alone on
+    the card; returns the rows."""
+    from uzu_tpu_torch.ops.cuda import build as kbuild
+
+    timer = Timer(torch)
+    rows: list = []
+    info["qmm_ptxas"] = template_usage(kbuild.BUILD_LOGS.get("quant_matmul", ""), "qmm")
+    log("QMM_PTXAS " + json.dumps(info["qmm_ptxas"]))
+    check_quant_matmul(torch, timer, rows)
+    check_quant_matmul_hybrid(torch, timer, rows)
+    check_qmm_rows(torch, info)
+    usage = kernel_usage(kbuild.BUILD_LOGS.get("flash_attention", ""), "flash_fwd")
+    info["flash_ptxas"] = usage
+    log("FLASH_PTXAS " + json.dumps(usage))
+    check_flash_attention(torch, timer, rows, usage)
+    check_flash_attention_int8(torch, timer, rows, usage)
+    check_attention_gptoss(torch, timer, rows, usage)
+    check_flash_hybrid(torch, timer, rows, usage)
+    check_flash_gemma(torch, timer, rows, usage)
+    t_k3b = time.perf_counter()
+    check_flash_lse(torch, info)
+    info["flash_bwd_ptxas"] = template_usage(kbuild.BUILD_LOGS.get("flash_attention_bwd", ""),
+                                             "flash_bwd")
+    log("FLASH_BWD_PTXAS " + json.dumps(info["flash_bwd_ptxas"]))
+    check_bwd_plan(info)
+    check_flash_bwd(torch, timer, rows)
+    # the part of the kernels phase that K3's L and K3b's rows take
+    info["k3_lse_k3b_rows_seconds"] = time.perf_counter() - t_k3b
+    check_spec_rows(torch, timer, rows, usage)
+    paged_usage = kernel_usage(kbuild.BUILD_LOGS.get("paged_attention", ""), "paged_decode")
+    info["paged_ptxas"] = paged_usage
+    log("PAGED_PTXAS " + json.dumps(paged_usage))
+    check_paged_attention(torch, timer, rows, paged_usage)
+    check_paged_gptoss(torch, timer, rows, paged_usage)
+    check_paged_gemma(torch, timer, rows, paged_usage)
+    info["moe_ptxas"] = template_usage(kbuild.BUILD_LOGS.get("moe_gemv", ""), "moe")
+    log("MOE_PTXAS " + json.dumps(info["moe_ptxas"]))
+    check_moe_gemv(torch, timer, rows)
+    info["grouped_ptxas"] = template_usage(kbuild.BUILD_LOGS.get("grouped_matmul", ""), "grouped")
+    log("GROUPED_PTXAS " + json.dumps(info["grouped_ptxas"]))
+    check_grouped_matmul(torch, timer, rows)
+    check_grouped_rows(torch, info)
+    check_moe_rows(torch, info)
+    check_block_copy(torch, timer, rows)
+    check_batch_spec_rows(torch, timer, rows, paged_usage)
+    check_parallel_rows(torch, timer, rows, usage, paged_usage)
+    del timer
+    torch.cuda.empty_cache()
+    return rows
+
+
+def head_phases(torch, lm16, dirs, info: dict) -> None:
+    """The first process's phases after phase 3: the flagships' (the INT4
+    one, `lm16`, and the 2-layer INT8 one) of phases 3-6, 9-12 and 16-17,
+    and phase 18."""
+    phase = functools.partial(timed_phase, info)
+    phase("path_int4_kv_int8", path_int4_kv_int8, torch, lm16, info)
+    phase("paged_int4", path_paged_int4, torch, lm16, info)
+    phase("path_int8", path_int8, torch, dirs["llama1b_int8_2l"], info)
+    phase("paged_int8", path_paged_int8, torch, dirs["llama1b_int8_2l"], info)
+    phase("control", control_planted_faults, torch, lm16, info)
+    phase("whole_path", whole_path_check, torch, lm16, 2, FLAGSHIP["vocab_size"],
+          "whole_path", info)
+    phase("tools_profile", tools_profile, torch, lm16, "flagship", FLAGSHIP["vocab_size"], info)
+    phase("tools_microbench", tools_microbench, torch, lm16, info)
+    phase("tools_step_breakdown", tools_step_breakdown, torch, dirs["llama1b_int4"], info)
+    phase("tools_quality", tools_quality, torch, lm16, info)
+    phase("tools_bisect", tools_bisect, torch, info)
+    phase("sampled", path_sampled, torch, lm16, info)
+    phase("spec_flagship", spec_flagship, torch, lm16, dirs, info)
+    phase("batch_spec_flagship", batch_spec_flagship, torch, lm16, info)
+    phase("batch_spec_int8", batch_spec_int8, torch, dirs["llama1b_int8_2l"], info)
+    torch.cuda.empty_cache()
+    serve_phases(torch, lm16, dirs, info)
+
+
+def second_phases(torch, dirs, info: dict) -> None:
+    """The second process's phases, in the order of its models' synthesis:
+    phase 13 (the hybrids, with their parts of phases 16-17), gpt-oss's
+    (phases 7-8 and its parts of 9-10 and 16-17) and phase 14 (Gemma)."""
+    phase = functools.partial(timed_phase, info)
+    lm_h = phase("hybrid", path_hybrid, torch, dirs["qwen08_int4"], info)
+    phase("hybrid_chunking", hybrid_chunking_check, torch, lm_h, info)
+    phase("whole_path_hybrid", whole_path_check, torch, lm_h, 4, QWEN08["vocab_size"],
+          "whole_path_hybrid", info, True)
+    phase("recurrent_families", path_recurrent_families, torch, dirs, info)
+    phase("batched", path_batched, torch, lm_h, info)
+    phase("control_batched", control_batched_fault, torch, lm_h, info)
+    phase("spec_hybrid", spec_hybrid, torch, lm_h, info)
+    phase("batch_spec_hybrid", batch_spec_hybrid, torch, lm_h, info)
+    phase("tools_profile_hybrid", tools_profile, torch, lm_h, "hybrid", QWEN08["vocab_size"],
+          info)
+    del lm_h
+    torch.cuda.empty_cache()
+    lm_oss = phase("gptoss_int4", path_gptoss_int4, torch, dirs["gptoss_int4"], info)
+    phase("paged_gptoss", path_paged_gptoss, torch, lm_oss, info)
+    phase("gptoss_int8", path_gptoss_int8, torch, dirs["gptoss_int8_2l"], info)
+    torch.cuda.empty_cache()
+    phase("control_moe", control_moe_faults, torch, lm_oss, info)
+    phase("whole_path_gptoss", whole_path_check, torch, lm_oss, 2, GPTOSS["vocab_size"],
+          "whole_path_gptoss", info)
+    phase("spec_gptoss", spec_gptoss, torch, lm_oss, info)
+    phase("batch_spec_gptoss", batch_spec_gptoss, torch, lm_oss, info)
+    phase("tools_profile_gptoss", tools_profile, torch, lm_oss, "gptoss", GPTOSS["vocab_size"],
+          info)
+    del lm_oss
+    torch.cuda.empty_cache()
+    gemma_phases(torch, dirs, info)
+
+
+def third_phases(torch, dirs, info: dict) -> None:
+    """The third process's phases: 19 and 20 on the INT4 flagship (its own
+    copy, loaded from the first process's synthesis), then phase 15."""
+    from uzu_tpu_torch.engine.engine import LanguageModel
+
+    lm16 = LanguageModel.from_dir(dirs["llama1b_int4"], device="cuda", max_context=4096)
+    timed_phase(info, "parallel", parallel_phase, torch, lm16, dirs["llama1b_int4"], info)
+    train_phases(torch, lm16, dirs, info)
+    del lm16
+    torch.cuda.empty_cache()
+    slice_phases(torch, dirs, info)
+
+
+def side_process(conn, name: str) -> None:
+    """A side process of the full run: synthesizes its SIDE_MODELS, waits
+    for the first process's word that phase 2's timed rows are done (the
+    flagship's single-stream reading and SHARED_MODELS' directories; None
+    stops it there), runs its phases (`second_phases` or `third_phases`)
+    and sends back ("ok", its readings), ("stopped", {}) or ("error", the
+    traceback)."""
+    import traceback
+
+    try:
+        import torch
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        t0 = time.perf_counter()
+        info: dict = {"phase_seconds": {}}
+        workers, names = SIDE_MODELS[name]
+        with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+            dirs = ModelDirs(ex, names)
+            word = conn.recv()
+            if word is None:
+                ex.shutdown(cancel_futures=True)
+                result = ("stopped", {})
+            else:
+                dirs.add(word.pop("model_dirs"))
+                info.update(word)
+                {"second": second_phases, "third": third_phases}[name](torch, dirs, info)
+                info[f"{name}_process"] = dict(seconds=time.perf_counter() - t0,
+                                               model_wait_seconds=dirs.waited)
+                result = ("ok", info)
+    except BaseException:
+        result = ("error", traceback.format_exc())
+    with contextlib.suppress(OSError):
+        conn.send(result)
+
+
+def side_results(sides: dict) -> list[dict]:
+    """Each side process's readings once all have ended; their errors are
+    raised here."""
+    out, errors = [], []
+    for name, (conn, proc) in sides.items():
+        try:
+            status, payload = conn.recv()
+        except EOFError:
+            status, payload = "error", "it ended without a result"
+        proc.join()
+        if status == "error":
+            errors.append(f"the {name} process failed (exit code {proc.exitcode}):\n{payload}")
+        out.append(payload)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5959,6 +6465,7 @@ def main() -> int:
             usage = kernel_usage(kbuild.BUILD_LOGS.get(source, ""), "flash_fwd")
             log("FLASH_PTXAS " + json.dumps(usage))
             check_flash_attention(torch, timer, rows, usage)
+            check_flash_lse(torch, info)
             check_flash_attention_int8(torch, timer, rows, usage)
             check_attention_gptoss(torch, timer, rows, usage)
             check_flash_hybrid(torch, timer, rows, usage)
@@ -6093,8 +6600,36 @@ def main() -> int:
         log("PARALLEL_ONLY " + json.dumps(info["phase_seconds"]))
         return 0
 
+    if "--flash-bwd-only" in sys.argv[1:]:
+        # K3's L and K3b's rows of phase 2 alone (with ptxas's usage of K3b)
+        log(f"BUILD flash_attention, flash_attention_bwd built in "
+            f"{kbuild.build(('flash_attention', 'flash_attention_bwd')):.1f} s")
+        log("FLASH_BWD_PTXAS " + json.dumps(
+            template_usage(kbuild.BUILD_LOGS.get("flash_attention_bwd", ""), "flash_bwd")))
+        timer, rows = Timer(torch), []
+        t0 = time.perf_counter()
+        check_flash_lse(torch, info)
+        check_bwd_plan(info)
+        check_flash_bwd(torch, timer, rows, breakdown=True)
+        log(f"FLASH_BWD_ONLY {len(rows)} rows in {time.perf_counter() - t0:.1f} s")
+        return 0
+
+    if "--step-profile-only" in sys.argv[1:]:
+        # one profiled training step alone (phase 20's), to read K3b inside
+        # a step in two checkouts in turns
+        from uzu_tpu_torch.tools import train_tiny as tt
+
+        log(f"BUILD flash_attention, flash_attention_bwd built in "
+            f"{kbuild.build(('flash_attention', 'flash_attention_bwd')):.1f} s")
+        batch = tt.train_data(tt.TINY_DIMS, steps=1, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                              corpus_tokens=TRAIN_CORPUS)[0]
+        reading = train_step_profile(torch, batch, STEP_REPS)
+        reading = dict(attention_host_us(torch), step_ms=reading["step_ms"])
+        log("ATTENTION_HOST_US " + json.dumps(reading))
+        return 0
+
     if "--train-only" in sys.argv[1:]:
-        # phase 20 alone, with K3b's rows of phase 2
+        # phase 20 alone, with K3's L and K3b's rows of phase 2
         from uzu_tpu_torch.engine.engine import LanguageModel
 
         t0 = time.perf_counter()
@@ -6105,7 +6640,11 @@ def main() -> int:
             dirs = dict(zip(TRAIN_MODELS, synth))
         log(f"BUILD kernels built in {built:.1f} s, models synthesized in "
             f"{time.perf_counter() - t0:.1f} s")
+        log("FLASH_BWD_PTXAS " + json.dumps(
+            template_usage(kbuild.BUILD_LOGS.get("flash_attention_bwd", ""), "flash_bwd")))
         timer, rows = Timer(torch), []
+        check_flash_lse(torch, info)
+        check_bwd_plan(info)
         check_flash_bwd(torch, timer, rows)
         del timer
         torch.cuda.empty_cache()
@@ -6132,119 +6671,44 @@ def main() -> int:
         log("GEMMA_ONLY " + json.dumps(info["phase_seconds"]))
         return 0
 
-    # phase 1: build the kernels while the models are synthesized
-    built: dict = {}
-
-    def run_build():
-        try:
-            built["seconds"] = kbuild.build()
-        except Exception as e:  # reported and re-raised by the main thread
-            built["error"] = e
-
-    th = threading.Thread(target=run_build)
-    th.start()
-    t0 = time.perf_counter()
-    with ProcessPoolExecutor(len(MODELS), mp_context=multiprocessing.get_context("spawn")) as ex:
-        dirs = dict(zip(MODELS, ex.map(synth_model, MODELS)))
-    info["phase_seconds"]["synthesize"] = time.perf_counter() - t0
-    th.join()
-    if "error" in built:
-        raise built["error"]
-    info["build_seconds"] = built["seconds"]
-    log(f"BUILD kernels built in {built['seconds']:.1f} s "
-        f"(synthesis {info['phase_seconds']['synthesize']:.1f} s alongside)")
-
-    t0 = time.perf_counter()
-    timer = Timer(torch)
-    rows: list = []
-    info["qmm_ptxas"] = template_usage(kbuild.BUILD_LOGS.get("quant_matmul", ""), "qmm")
-    log("QMM_PTXAS " + json.dumps(info["qmm_ptxas"]))
-    check_quant_matmul(torch, timer, rows)
-    check_quant_matmul_hybrid(torch, timer, rows)
-    check_qmm_rows(torch, info)
-    usage = kernel_usage(kbuild.BUILD_LOGS.get("flash_attention", ""), "flash_fwd")
-    info["flash_ptxas"] = usage
-    log("FLASH_PTXAS " + json.dumps(usage))
-    check_flash_attention(torch, timer, rows, usage)
-    check_flash_attention_int8(torch, timer, rows, usage)
-    check_attention_gptoss(torch, timer, rows, usage)
-    check_flash_hybrid(torch, timer, rows, usage)
-    check_flash_gemma(torch, timer, rows, usage)
-    check_flash_bwd(torch, timer, rows)
-    check_spec_rows(torch, timer, rows, usage)
-    paged_usage = kernel_usage(kbuild.BUILD_LOGS.get("paged_attention", ""), "paged_decode")
-    info["paged_ptxas"] = paged_usage
-    log("PAGED_PTXAS " + json.dumps(paged_usage))
-    check_paged_attention(torch, timer, rows, paged_usage)
-    check_paged_gptoss(torch, timer, rows, paged_usage)
-    check_paged_gemma(torch, timer, rows, paged_usage)
-    info["moe_ptxas"] = template_usage(kbuild.BUILD_LOGS.get("moe_gemv", ""), "moe")
-    log("MOE_PTXAS " + json.dumps(info["moe_ptxas"]))
-    check_moe_gemv(torch, timer, rows)
-    info["grouped_ptxas"] = template_usage(kbuild.BUILD_LOGS.get("grouped_matmul", ""), "grouped")
-    log("GROUPED_PTXAS " + json.dumps(info["grouped_ptxas"]))
-    check_grouped_matmul(torch, timer, rows)
-    check_grouped_rows(torch, info)
-    check_moe_rows(torch, info)
-    check_block_copy(torch, timer, rows)
-    check_batch_spec_rows(torch, timer, rows, paged_usage)
-    check_parallel_rows(torch, timer, rows, usage, paged_usage)
-    del timer
-    torch.cuda.empty_cache()
-    info["phase_seconds"]["kernels"] = time.perf_counter() - t0
-
-    phase = functools.partial(timed_phase, info)
-    lm16 = phase("path_int4", path_int4, torch, dirs["llama1b_int4"], info)
-    phase("path_int4_kv_int8", path_int4_kv_int8, torch, lm16, info)
-    phase("paged_int4", path_paged_int4, torch, lm16, info)
-    phase("path_int8", path_int8, torch, dirs["llama1b_int8_2l"], info)
-    phase("paged_int8", path_paged_int8, torch, dirs["llama1b_int8_2l"], info)
-    lm_oss = phase("gptoss_int4", path_gptoss_int4, torch, dirs["gptoss_int4"], info)
-    phase("paged_gptoss", path_paged_gptoss, torch, lm_oss, info)
-    phase("gptoss_int8", path_gptoss_int8, torch, dirs["gptoss_int8_2l"], info)
-    torch.cuda.empty_cache()
-    phase("control", control_planted_faults, torch, lm16, info)
-    phase("control_moe", control_moe_faults, torch, lm_oss, info)
-    phase("whole_path", whole_path_check, torch, lm16, 2, FLAGSHIP["vocab_size"],
-          "whole_path", info)
-    phase("whole_path_gptoss", whole_path_check, torch, lm_oss, 2, GPTOSS["vocab_size"],
-          "whole_path_gptoss", info)
-    phase("spec_gptoss", spec_gptoss, torch, lm_oss, info)
-    phase("batch_spec_gptoss", batch_spec_gptoss, torch, lm_oss, info)
-    phase("tools_profile_gptoss", tools_profile, torch, lm_oss, "gptoss", GPTOSS["vocab_size"],
-          info)
-    del lm_oss
-    torch.cuda.empty_cache()
-    phase("tools_profile", tools_profile, torch, lm16, "flagship", FLAGSHIP["vocab_size"], info)
-    phase("tools_microbench", tools_microbench, torch, lm16, info)
-    phase("tools_step_breakdown", tools_step_breakdown, torch, dirs["llama1b_int4"], info)
-    phase("tools_quality", tools_quality, torch, lm16, info)
-    phase("tools_bisect", tools_bisect, torch, info)
-    phase("sampled", path_sampled, torch, lm16, info)
-    phase("spec_flagship", spec_flagship, torch, lm16, dirs, info)
-    phase("batch_spec_flagship", batch_spec_flagship, torch, lm16, info)
-    serve_phases(torch, lm16, dirs, info)
-    phase("parallel", parallel_phase, torch, lm16, dirs["llama1b_int4"], info)
-    train_phases(torch, lm16, dirs, info)
-    del lm16
-    torch.cuda.empty_cache()
-    phase("batch_spec_int8", batch_spec_int8, torch, dirs["llama1b_int8_2l"], info)
-    torch.cuda.empty_cache()
-    lm_h = phase("hybrid", path_hybrid, torch, dirs["qwen08_int4"], info)
-    phase("hybrid_chunking", hybrid_chunking_check, torch, lm_h, info)
-    phase("whole_path_hybrid", whole_path_check, torch, lm_h, 4, QWEN08["vocab_size"],
-          "whole_path_hybrid", info, True)
-    phase("recurrent_families", path_recurrent_families, torch, dirs, info)
-    phase("batched", path_batched, torch, lm_h, info)
-    phase("control_batched", control_batched_fault, torch, lm_h, info)
-    phase("spec_hybrid", spec_hybrid, torch, lm_h, info)
-    phase("batch_spec_hybrid", batch_spec_hybrid, torch, lm_h, info)
-    phase("tools_profile_hybrid", tools_profile, torch, lm_h, "hybrid", QWEN08["vocab_size"],
-          info)
-    del lm_h
-    torch.cuda.empty_cache()
-    gemma_phases(torch, dirs, info)
-    slice_phases(torch, dirs, info)
+    # phase 1: build the kernels while the flagship's models are
+    # synthesized; the side processes synthesize their own from the start
+    ctx = multiprocessing.get_context("spawn")
+    sides = {}
+    for name in SIDE_MODELS:
+        conn, side_conn = ctx.Pipe()
+        proc = ctx.Process(target=side_process, args=(side_conn, name))
+        proc.start()
+        side_conn.close()
+        sides[name] = (conn, proc)
+    told = False
+    try:
+        with ProcessPoolExecutor(len(HEAD_MODELS), mp_context=ctx) as ex:
+            dirs = ModelDirs(ex, HEAD_MODELS)
+            info["build_seconds"] = kbuild.build()
+            log(f"BUILD kernels built in {info['build_seconds']:.1f} s (synthesis alongside)")
+            rows = timed_phase(info, "kernels", kernel_phase, torch, info)
+            lm16 = timed_phase(info, "path_int4", path_int4, torch, dirs["llama1b_int4"], info)
+            # phase 2's timed rows are done: the side processes share the
+            # card from here on
+            word = {"int4_path": info["int4_path"],
+                    "model_dirs": {n: dirs[n] for n in SHARED_MODELS}}
+            for conn, _ in sides.values():
+                conn.send(word)
+            told = True
+            head_phases(torch, lm16, dirs, info)
+            del lm16
+            torch.cuda.empty_cache()
+        info["model_wait_seconds"] = dirs.waited
+    finally:
+        if not told:
+            for conn, _ in sides.values():
+                with contextlib.suppress(OSError):
+                    conn.send(None)  # the side process stops before its phases
+        side_info = side_results(sides)
+    for side in side_info:
+        info["phase_seconds"].update(side.pop("phase_seconds"))
+        info.update(side)
     info["phase_seconds"]["total"] = time.perf_counter() - t_start
     log("PHASES " + json.dumps(info["phase_seconds"]))
 

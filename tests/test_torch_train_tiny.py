@@ -256,19 +256,21 @@ def test_gradient_gate(case, why):
 def test_bwd_parts_fill_the_card_without_empty_parts(s, h, g, c, dh):
     """K3b's dK/dV launch cuts the query tiles into parts (shapes only): at
     least one, none empty (each part holds whole tiles, the last one too),
-    and more than half the parts that would give two (key tile, group,
-    part) blocks a SM (or one part a query tile)."""
+    and more than half the parts that would give the plan's blocks a SM
+    to every SM from the (64-key tile, group, column slice, part) blocks
+    (or one part a query tile)."""
     from uzu_tpu_torch.ops.cuda.flash_attention import (
-        BWD_BLOCKS_PER_SM,
+        BWD_BM,
         bwd_parts,
-        bwd_tile,
+        bwd_plan,
     )
 
     sms = 132
-    t = bwd_tile(dh)
-    row_tiles = -(-s * (h // g) // t)
+    plan = bwd_plan(dh)
+    row_tiles = -(-s * (h // g) // plan.tile)
     parts = bwd_parts(s, h, g, c, dh, sms)
     per = -(-row_tiles // parts)  # the kernel's tiles per part
     assert 1 <= parts <= row_tiles and (parts - 1) * per < row_tiles
-    target = min(row_tiles, -(-BWD_BLOCKS_PER_SM * sms // (-(-c // t) * g)))
+    blocks = -(-c // BWD_BM) * g * plan.dkdv_slices
+    target = min(row_tiles, -(-plan.blocks_per_sm * sms // blocks))
     assert 2 * parts > target

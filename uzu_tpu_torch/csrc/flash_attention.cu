@@ -448,8 +448,9 @@ __global__ void __launch_bounds__(THREADS)
 flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __restrict__ v,
           const float* __restrict__ k_sc, const float* __restrict__ v_sc,
           const int* __restrict__ q_positions, const float* __restrict__ sinks,
-          float* __restrict__ out, float* __restrict__ part, int S, int H, int G, int C, int dh,
-          float scale, float soft_cap, int window, int splits, int tiles_per_split) {
+          float* __restrict__ out, float* __restrict__ part, float* __restrict__ lse, int S, int H,
+          int G, int C, int dh, float scale, float soft_cap, int window, int splits,
+          int tiles_per_split) {
   using L = Smem<TQ, TKV, DH, WIDE>;
   static_assert(!WIDE || DH == SLICE, "the wide case keeps the DH 256 layout");
   constexpr int CH = DH / 8;                               // bf16 chunks per row
@@ -863,6 +864,8 @@ flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __rest
     float mul = o_unit;
     float* dst;
     if (splits == 1) {
+      // the row's log-sum-exp of its scaled scores (m is in log2 units), before the sinks
+      if (lse != nullptr && (lane & 3) == 0 && cs == 0) lse[s * H + h] = m * LN2 + logf(l);
       if (sinks != nullptr) {
         const float sk = sinks[h] * LOG2E;
         const float m2 = fmaxf(m, sk);
@@ -897,8 +900,8 @@ flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __rest
 
 template <typename TQ, typename TKV, int DH, bool WIDE = false>
 int launch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
-           const int* qpos, const float* sinks, float* out, float* part, int S, int H, int G,
-           int C, int dh, float scale, float soft_cap, int window, int splits,
+           const int* qpos, const float* sinks, float* out, float* part, float* lse, int S,
+           int H, int G, int C, int dh, float scale, float soft_cap, int window, int splits,
            int tiles_per_split, cudaStream_t stream) {
   constexpr int smem = Smem<TQ, TKV, DH, WIDE>::LAUNCH_BYTES;
   // the shared-memory attribute is per device: set it once on each
@@ -918,40 +921,40 @@ int launch(const void* q, const void* k, const void* v, const float* ks, const f
   const dim3 grid((R + BQ - 1) / BQ * ncs, G, splits);
   flash_fwd<TQ, TKV, DH, WIDE><<<grid, THREADS, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v), ks,
-      vs, qpos, sinks, out, part, S, H, G, C, dh, scale, soft_cap, window, splits,
+      vs, qpos, sinks, out, part, lse, S, H, G, C, dh, scale, soft_cap, window, splits,
       tiles_per_split);
   if (splits > 1) {
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
     const int rows = S * H;
     uz_split::flash_combine<DH, WIDE><<<dim3((rows + 7) / 8, ncs), 256, 0, stream>>>(
-        part, sinks, out, S, H, dh, splits);
+        part, sinks, out, S, H, dh, splits, lse);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TQ, typename TKV>
 int dispatch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
-             const int* qpos, const float* sk, float* o, float* part, int S, int H, int G,
-             int C, int dh, float scale, float soft_cap, int window, int splits, int tps,
+             const int* qpos, const float* sk, float* o, float* part, float* lse, int S, int H,
+             int G, int C, int dh, float scale, float soft_cap, int window, int splits, int tps,
              cudaStream_t s) {
   switch (head_dim_instance(dh)) {
     case 32:
-      return launch<TQ, TKV, 32>(q, k, v, ks, vs, qpos, sk, o, part, S, H, G, C, dh, scale,
-                                 soft_cap, window, splits, tps, s);
+      return launch<TQ, TKV, 32>(q, k, v, ks, vs, qpos, sk, o, part, lse, S, H, G, C, dh,
+                                 scale, soft_cap, window, splits, tps, s);
     case 64:
-      return launch<TQ, TKV, 64>(q, k, v, ks, vs, qpos, sk, o, part, S, H, G, C, dh, scale,
-                                 soft_cap, window, splits, tps, s);
+      return launch<TQ, TKV, 64>(q, k, v, ks, vs, qpos, sk, o, part, lse, S, H, G, C, dh,
+                                 scale, soft_cap, window, splits, tps, s);
     case 128:
-      return launch<TQ, TKV, 128>(q, k, v, ks, vs, qpos, sk, o, part, S, H, G, C, dh, scale,
-                                  soft_cap, window, splits, tps, s);
+      return launch<TQ, TKV, 128>(q, k, v, ks, vs, qpos, sk, o, part, lse, S, H, G, C, dh,
+                                  scale, soft_cap, window, splits, tps, s);
     case 256:
       if (dh > SLICE) {
-        return launch<TQ, TKV, 256, true>(q, k, v, ks, vs, qpos, sk, o, part, S, H, G, C, dh,
-                                          scale, soft_cap, window, splits, tps, s);
+        return launch<TQ, TKV, 256, true>(q, k, v, ks, vs, qpos, sk, o, part, lse, S, H, G, C,
+                                          dh, scale, soft_cap, window, splits, tps, s);
       }
-      return launch<TQ, TKV, 256>(q, k, v, ks, vs, qpos, sk, o, part, S, H, G, C, dh, scale,
-                                  soft_cap, window, splits, tps, s);
+      return launch<TQ, TKV, 256>(q, k, v, ks, vs, qpos, sk, o, part, lse, S, H, G, C, dh,
+                                  scale, soft_cap, window, splits, tps, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -967,25 +970,28 @@ int dispatch(const void* q, const void* k, const void* v, const float* ks, const
 // window <= 0 mean none; splits >= 1 ranges of tiles_per_split 64-slot
 // tiles covering [0, C), and for splits > 1 an f32 scratch of
 // splits * S * H * (dh + 2) values. K3: q, k, v of one dtype (bf16 or
-// f32). K4: k/v int8 codes with f32 scales [C,G]; q bf16 or f32. Each
-// returns cudaGetLastError() after its launches.
+// f32), and lse f32 [S,H] or nullptr: where given, each row's log-sum-exp
+// of its scaled scores (natural log, sinks left out) is written there; the
+// output is the same bits either way. K4: k/v int8 codes with f32 scales
+// [C,G]; q bf16 or f32. Each returns cudaGetLastError() after its launches.
 extern "C" int uz_flash_attention(const void* q, const void* k, const void* v, int is_bf16,
                                   const void* q_positions, const void* sinks, void* out, int S,
                                   int H, int G, int C, int dh, float scale, float soft_cap,
                                   int window, int splits, int tiles_per_split, void* scratch,
-                                  void* stream) {
+                                  void* lse, void* stream) {
   const int* qpos = static_cast<const int*>(q_positions);
   const float* sk = static_cast<const float*>(sinks);
   float* o = static_cast<float*>(out);
   float* part = static_cast<float*>(scratch);
+  float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     return dispatch<__nv_bfloat16, __nv_bfloat16>(q, k, v, nullptr, nullptr, qpos, sk, o, part,
-                                                  S, H, G, C, dh, scale, soft_cap, window,
+                                                  l, S, H, G, C, dh, scale, soft_cap, window,
                                                   splits, tiles_per_split, s);
   }
-  return dispatch<float, float>(q, k, v, nullptr, nullptr, qpos, sk, o, part, S, H, G, C, dh,
-                                scale, soft_cap, window, splits, tiles_per_split, s);
+  return dispatch<float, float>(q, k, v, nullptr, nullptr, qpos, sk, o, part, l, S, H, G, C,
+                                dh, scale, soft_cap, window, splits, tiles_per_split, s);
 }
 
 extern "C" int uz_flash_attention_i8(const void* q, const void* k_codes, const void* k_scales,
@@ -1002,10 +1008,10 @@ extern "C" int uz_flash_attention_i8(const void* q, const void* k_codes, const v
   float* part = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    return dispatch<__nv_bfloat16, int8_t>(q, k_codes, v_codes, ks, vs, qpos, sk, o, part, S,
-                                           H, G, C, dh, scale, soft_cap, window, splits,
-                                           tiles_per_split, s);
+    return dispatch<__nv_bfloat16, int8_t>(q, k_codes, v_codes, ks, vs, qpos, sk, o, part,
+                                           nullptr, S, H, G, C, dh, scale, soft_cap, window,
+                                           splits, tiles_per_split, s);
   }
-  return dispatch<float, int8_t>(q, k_codes, v_codes, ks, vs, qpos, sk, o, part, S, H, G, C,
-                                 dh, scale, soft_cap, window, splits, tiles_per_split, s);
+  return dispatch<float, int8_t>(q, k_codes, v_codes, ks, vs, qpos, sk, o, part, nullptr, S, H,
+                                 G, C, dh, scale, soft_cap, window, splits, tiles_per_split, s);
 }

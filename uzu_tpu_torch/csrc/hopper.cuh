@@ -1,6 +1,7 @@
 // Hopper building blocks in PTX, shared by the wgmma kernels (K1/K2's
 // qmm_tile in quant_matmul.cu, K9/K10's grouped tiles in
-// grouped_matmul.cu): the 128-byte swizzle and wgmma's shared-memory
+// grouped_matmul.cu; K3b's cp.async, fences and waits in
+// flash_attention_bwd.cu): the 128-byte swizzle and wgmma's shared-memory
 // descriptors, cp.async, mbarriers, TMA 2-D loads and their tensor maps,
 // wgmma m64nNk16 (bf16 in, f32 accumulate) for N = 64, 128, 256, and on
 // the host the raise of a kernel's dynamic shared-memory limit.

@@ -931,7 +931,7 @@ int launch(const void* q, const void* k, const void* v, const float* ks, const f
     cfg.numAttrs = 1;
     e = cudaLaunchKernelEx(&cfg, uz_split::flash_combine<DH, WIDE>,
                            static_cast<const float*>(part),
-                           sinks, out, B, H, dh, splits);
+                           sinks, out, B, H, dh, splits, static_cast<float*>(nullptr));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());

@@ -15,7 +15,10 @@
 // logit, and normalizes into out [rows, dh]. It may be launched as a
 // programmatic dependent of the kernel that writes the partials (K5/K6
 // do): it then waits for that grid before it reads them; launched plainly
-// (K3/K4), the wait returns at once.
+// (K3/K4), the wait returns at once. Where `lse` is given (K3 asked for
+// its rows' statistics, for its backward K3b), it also writes each row's
+// log-sum-exp M + ln(Lsum), sinks left out, to lse[row]; nullptr (K4-K6,
+// and K3 when serving) leaves the launch as it was.
 
 #pragma once
 
@@ -31,7 +34,8 @@ constexpr float NEG = -1e30f;
 template <int DH, bool WIDE = false>
 __global__ void __launch_bounds__(256)
 flash_combine(const float* __restrict__ part, const float* __restrict__ sinks,
-              float* __restrict__ out, int S, int H, int dh, int splits) {
+              float* __restrict__ out, int S, int H, int dh, int splits,
+              float* __restrict__ lse) {
   asm volatile("griddepcontrol.wait;" ::: "memory");
   constexpr int PER = DH / 32;
   const size_t SH = static_cast<size_t>(S) * H;
@@ -56,6 +60,7 @@ flash_combine(const float* __restrict__ part, const float* __restrict__ sinks,
       if (col0 + 32 * d < dh) acc[d] += w * a[col0 + 32 * d];
     }
   }
+  if (lse != nullptr && lane == 0 && blockIdx.y == 0) lse[row] = M + logf(Lsum);
   float mul = 1.f;
   if (sinks != nullptr) {
     const float sk = sinks[row % H];

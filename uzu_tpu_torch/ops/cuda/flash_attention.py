@@ -23,18 +23,25 @@ versions of those two halves; nothing on the main path calls them.
 
 Gradient (K3b, `csrc/flash_attention_bwd.cu`). A CUDA call whose q, k or
 v needs a gradient runs through `FlashAttention`, a
-`torch.autograd.Function`: K3 forward, unchanged, and K3b backward (dQ,
-dK, dV of K3's function in f32 from dO and K3's output, up to Dh 256). A
-CPU tensor keeps `flash_attention_plain`, which autograd differentiates.
+`torch.autograd.Function`: K3 forward, asked for each row's log-sum-exp L
+([S, H] f32, written beside the same output bits), and K3b backward (dQ,
+dK, dV of K3's function in f32 from dO, K3's output and its L, on the
+tensor cores, up to Dh 256; `bwd_plan` gives its streamed tile, dK/dV
+column slices and blocks per SM, `bwd_parts` its split of the query
+tiles).
+A CPU tensor keeps `flash_attention_plain`, which autograd differentiates.
 A gradient under a logit soft cap, sinks or an INT8 cache (K4) raises
 NotImplementedError on the card (`grad_unsupported`).
-`flash_attention_bwd_plain` is K3b's plain version; nothing on the main
-path calls it.
+`flash_attention_bwd_plain` is K3b's plain version and
+`flash_attention_lse_plain` that of K3's L; nothing on the main path calls
+them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -53,13 +60,13 @@ BK = 64  # KV slots per tile of the kernel
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_ARGTYPES = [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P, _P]
+_ARGTYPES = [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P, _P, _P]
 _ARGTYPES_I8 = [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
                 _P, _P]
-_ARGTYPES_BWD = [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
-                 _P]
+_ARGTYPES_BWD = [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                 _I, _P]
 BWD_MAX_DH = 256  # K3b's widest instantiation
-BWD_BLOCKS_PER_SM = 2  # K3b's dK/dV blocks resident on an SM (~100 KB of shared memory each)
+BWD_BM = 64  # rows a K3b block owns: query rows (dQ launch), keys (dK/dV launch)
 _SMS: dict[int, int] = {}
 
 
@@ -248,44 +255,70 @@ def flash_attention(q, k_cache, v_cache, q_positions, *, scale,
 
 class FlashAttention(torch.autograd.Function):
     """K3 forward and K3b backward of a CUDA call (no soft cap, sinks or
-    INT8 cache). Saves q, k, v, the positions and K3's output; the
-    gradients come back in the inputs' dtypes."""
+    INT8 cache). The forward asks K3 for each row's log-sum-exp and saves
+    it with q, k, v, the positions and K3's output; the gradients come back
+    in the inputs' dtypes."""
 
     @staticmethod
     def forward(ctx, q, k_cache, v_cache, q_positions, scale, sliding_window_size):
+        lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
         out = _launch(q, k_cache, v_cache, q_positions, scale=scale,
-                      sliding_window_size=sliding_window_size)
-        ctx.save_for_backward(q, k_cache, v_cache, q_positions, out)
+                      sliding_window_size=sliding_window_size, lse=lse)
+        ctx.save_for_backward(q, k_cache, v_cache, q_positions, out, lse)
         ctx.scale, ctx.window = scale, sliding_window_size
         return out
 
     @staticmethod
     def backward(ctx, d_out):
-        q, k_cache, v_cache, q_positions, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k_cache, v_cache, q_positions, out, d_out,
-                                         scale=ctx.scale, sliding_window_size=ctx.window)
+        q, k_cache, v_cache, q_positions, out, lse = ctx.saved_tensors
+        # the forward checked and allocated what it saved
+        dq, dk, dv = _launch_bwd(q, k_cache, v_cache, q_positions, out, d_out, lse,
+                                 ctx.scale, ctx.window)
         return (dq.to(q.dtype), dk.to(k_cache.dtype), dv.to(v_cache.dtype), None, None, None)
 
 
+def _masked_scores(q, k_cache, q_positions, scale, sliding_window_size):
+    """The scaled scores [G, rep, S, C] in f32 with -inf outside each row's
+    visible keys, and that mask."""
+    s, h, dh = q.shape
+    c, g, _ = k_cache.shape
+    qf = q.float().reshape(s, g, h // g, dh)
+    scores = torch.einsum("sgrd,cgd->grsc", qf, k_cache.float()) * scale
+    qpos = q_positions[0].to(torch.int64) + torch.arange(s, device=q.device)
+    kpos = torch.arange(c, device=q.device)
+    valid = kpos[None, :] <= qpos[:, None]
+    if sliding_window_size is not None:
+        valid = valid & (kpos[None, :] > qpos[:, None] - sliding_window_size)
+    return scores.masked_fill(~valid, float("-inf")), valid
+
+
+def flash_attention_lse_plain(q, k_cache, v_cache, q_positions, *, scale,
+                              sliding_window_size=None) -> torch.Tensor:
+    """K3's L, plainly: f32 [S, H], each row's logsumexp over its visible
+    keys of the scaled scores (no soft cap or sinks; -inf for a row that
+    sees no key). v_cache is unused; it keeps K3's argument order."""
+    s, h, _ = q.shape
+    scores, _ = _masked_scores(q, k_cache, q_positions, scale, sliding_window_size)
+    return torch.logsumexp(scores, dim=-1).permute(2, 0, 1).reshape(s, h)
+
+
 def flash_attention_bwd_plain(q, k_cache, v_cache, q_positions, out, d_out, *, scale,
-                              sliding_window_size=None):
+                              sliding_window_size=None, lse=None):
     """K3b's plain version: (dq [S, H, Dh], dk, dv [C, G, Dh]) f32 of K3's
-    function (no soft cap or sinks), with L recomputed and D_i =
-    rowsum(dO_i * O_i) from the given output, all math in f32."""
+    function (no soft cap or sinks), with L the given `lse` [S, H] or, when
+    None, recomputed, and D_i = rowsum(dO_i * O_i) from the given output,
+    all math in f32."""
     s, h, dh = q.shape
     c, g, _ = k_cache.shape
     rep = h // g
     qf = q.float().reshape(s, g, rep, dh)
     kf, vf = k_cache.float(), v_cache.float()
     do = d_out.float().reshape(s, g, rep, dh)
-    scores = torch.einsum("sgrd,cgd->grsc", qf, kf) * scale
-    qpos = q_positions[0].to(torch.int64) + torch.arange(s, device=q.device)
-    kpos = torch.arange(c, device=q.device)
-    valid = kpos[None, :] <= qpos[:, None]
-    if sliding_window_size is not None:
-        valid = valid & (kpos[None, :] > qpos[:, None] - sliding_window_size)
-    scores = scores.masked_fill(~valid, float("-inf"))
-    lse = torch.logsumexp(scores, dim=-1, keepdim=True)
+    scores, valid = _masked_scores(q, k_cache, q_positions, scale, sliding_window_size)
+    if lse is None:
+        lse = torch.logsumexp(scores, dim=-1, keepdim=True)
+    else:
+        lse = lse.float().reshape(s, g, rep).permute(1, 2, 0)[..., None]
     p = torch.exp(scores - lse).masked_fill(~valid, 0.0)  # [G, rep, S, C]
     delta = (do * out.float().reshape(s, g, rep, dh)).sum(-1)  # [S, G, rep]
     dp = torch.einsum("sgrd,cgd->grsc", do, vf)
@@ -296,68 +329,134 @@ def flash_attention_bwd_plain(q, k_cache, v_cache, q_positions, out, d_out, *, s
     return dq.reshape(s, h, dh), dk, dv
 
 
-def bwd_tile(dh: int) -> int:
-    """K3b's tile (query rows and keys) at a head dim: 64 up to Dh 64, 32
-    at 128, 16 at 256 (csrc Tile<DH>::T)."""
+class BwdPlan(NamedTuple):
+    """What K3b's wrapper needs of an instantiation's launch shapes (csrc
+    `Plan`, reported by `uz_flash_attention_bwd_plan`)."""
+    tile: int  # rows of a streamed tile: keys in the dQ launch, query rows in dK/dV's
+    dkdv_slices: int  # dK/dV column slices (blocks per 64-key tile and part)
+    blocks_per_sm: int  # dK/dV blocks that share one SM (the block's shared memory)
+
+
+# csrc Plan<f32, instantiation>: tiles of 64 (32 for f32 at Dh 256, so
+# one ring stage of hi + lo fits), a dK/dV block owning 64 columns of each
+# of dK and dV (Dh 128: 2 slices, 256: 4), three blocks a SM up to Dh 64
+# for bf16 inputs, two for f32
+_BWD_PLANS = {
+    (32, False): BwdPlan(64, 1, 3), (32, True): BwdPlan(64, 1, 2),
+    (64, False): BwdPlan(64, 1, 3), (64, True): BwdPlan(64, 1, 2),
+    (128, False): BwdPlan(64, 2, 1), (128, True): BwdPlan(64, 2, 1),
+    (256, False): BwdPlan(64, 4, 1), (256, True): BwdPlan(32, 4, 1),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(dh: int, f32: bool = False) -> BwdPlan:
+    """K3b's plan at a head dim and input dtype (f32: q, k and v as bf16
+    hi + lo pairs): that of the instantiation that takes dh."""
     inst = head_dim_instance(dh)
-    return 64 if inst <= 64 else 32 if inst == 128 else 16
+    if inst is None or dh > BWD_MAX_DH:
+        raise ValueError(f"K3b takes Dh a positive multiple of 8 up to {BWD_MAX_DH}, not {dh}")
+    return _BWD_PLANS[inst, bool(f32)]
 
 
-def bwd_parts(s: int, h: int, g: int, c: int, dh: int, num_sms: int) -> int:
+@functools.lru_cache(maxsize=256)
+def bwd_parts(s: int, h: int, g: int, c: int, dh: int, num_sms: int,
+              f32: bool = False) -> int:
     """The parts K3b's dK/dV launch cuts the query tiles into: enough that
-    the (key tile, group, part) blocks fill BWD_BLOCKS_PER_SM a SM, each
-    part at least one query tile, none empty. Shapes only."""
-    t = bwd_tile(dh)
-    row_tiles = -(-s * (h // g) // t)
-    blocks = -(-c // t) * g
-    parts = min(row_tiles, max(1, -(-BWD_BLOCKS_PER_SM * num_sms // blocks)))
+    the (key tile, group, column slice, part) blocks fill the SMs at the
+    plan's blocks per SM, each part at least one query tile, none empty.
+    Shapes only."""
+    plan = bwd_plan(dh, f32)
+    row_tiles = -(-s * (h // g) // plan.tile)
+    blocks = -(-c // BWD_BM) * g * plan.dkdv_slices
+    parts = min(row_tiles, max(1, -(-plan.blocks_per_sm * num_sms // blocks)))
     per = -(-row_tiles // parts)
     return -(-row_tiles // per)
 
 
+def bwd_scratch_bytes(s: int, h: int, g: int, c: int, dh: int, f32: bool, parts: int) -> int:
+    """K3b's scratch, in the kernel's order of 256-byte aligned pieces: D
+    (f32 [S, H]), dO as bf16 hi + lo, for f32 q, k and v as bf16 hi + lo,
+    and with parts > 1 the partial dK and dV."""
+    def piece(n: int) -> int:
+        return -(-n // 256) * 256
+
+    nq, nkv = s * h * dh, c * g * dh
+    total = piece(4 * s * h) + 2 * piece(2 * nq)
+    if f32:
+        total += 2 * piece(2 * nq) + 4 * piece(2 * nkv)
+    if parts > 1:
+        total += 2 * piece(4 * parts * nkv)
+    return total
+
+
 def flash_attention_bwd(q, k_cache, v_cache, q_positions, out, d_out, *, scale,
-                        sliding_window_size=None):
+                        sliding_window_size=None, lse=None):
     """K3b: (dq [S, H, Dh], dk, dv [C, G, Dh]) f32. A CPU tensor takes
-    `flash_attention_bwd_plain`; a CUDA one launches the kernel or raises."""
+    `flash_attention_bwd_plain`; a CUDA one launches the kernel or raises.
+    `lse` is K3's L [S, H] of the same call; on the card without it, one K3
+    launch that asks for L computes it first."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k_cache, v_cache, q_positions, out, d_out,
-                                         scale=scale, sliding_window_size=sliding_window_size)
+                                         scale=scale, sliding_window_size=sliding_window_size,
+                                         lse=lse)
     s, h, dh = q.shape
-    c, g, _ = k_cache.shape
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
-    if (k_cache.shape != v_cache.shape or k_cache.shape[2] != dh or h % g
-            or out.shape != q.shape or d_out.shape != q.shape or q_positions.numel() < 1):
+    if (k_cache.shape != v_cache.shape or k_cache.shape[2] != dh or h % k_cache.shape[1]
+            or out.shape != q.shape or d_out.shape != q.shape or q_positions.numel() < 1
+            or (lse is not None and tuple(lse.shape) != (s, h))):
         raise ValueError(f"flash_attention_bwd: q {tuple(q.shape)}, k {tuple(k_cache.shape)}, "
                          f"v {tuple(v_cache.shape)}, out {tuple(out.shape)}, d_out "
-                         f"{tuple(d_out.shape)} do not fit together")
+                         f"{tuple(d_out.shape)}, lse {None if lse is None else tuple(lse.shape)}"
+                         f" do not fit together")
     if head_dim_instance(dh) is None or dh > BWD_MAX_DH:
         raise NotImplementedError(f"flash_attention_bwd: Dh {dh} (K3b takes multiples of 8 "
                                   f"up to {BWD_MAX_DH})")
     if q.dtype not in (torch.bfloat16, torch.float32) or k_cache.dtype != q.dtype \
             or v_cache.dtype != q.dtype:
         raise ValueError("flash_attention_bwd: q, k and v must be one dtype, bf16 or f32")
-    q, k_cache, v_cache = q.contiguous(), k_cache.contiguous(), v_cache.contiguous()
-    out = out.float().contiguous()
-    d_out = d_out.float().contiguous()
-    for t in (q, k_cache, v_cache, out, d_out):
+    for t in (k_cache, v_cache, out, d_out) + (() if lse is None else (lse,)):
         if t.device != q.device:
             raise ValueError("flash_attention_bwd: every tensor must be on one device")
+    k_cache, v_cache = _aligned(k_cache), _aligned(v_cache)
+    if lse is None:
+        lse = torch.empty((s, h), dtype=torch.float32, device=q.device)
+        _launch(q, k_cache, v_cache, q_positions, scale=scale,
+                sliding_window_size=sliding_window_size, lse=lse)
+    return _launch_bwd(q, k_cache, v_cache, q_positions, out.float(), d_out,
+                       _aligned(lse.float()), scale, sliding_window_size)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous and 16-byte aligned: itself where it is, else a copy."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch_bwd(q, k_cache, v_cache, q_positions, out, d_out, lse, scale, window):
+    """One K3b launch on CUDA tensors that fit together, with k, v and lse
+    (f32) contiguous and 16-byte aligned, as K3's forward left them; q, out
+    and d_out (f32) are made so here."""
+    s, h, dh = q.shape
+    c, g, _ = k_cache.shape
+    q, out, d_out = _aligned(q), _aligned(out), _aligned(d_out.float())
     qpos = q_positions.to(device=q.device, dtype=torch.int32).contiguous()
     dq = torch.empty((s, h, dh), dtype=torch.float32, device=q.device)
     dk = torch.empty((c, g, dh), dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
-    parts = bwd_parts(s, h, g, c, dh, num_sms(q.device))
-    scratch = torch.empty(2 * s * h + (2 * parts * c * g * dh if parts > 1 else 0),
-                          dtype=torch.float32, device=q.device)
+    f32 = q.dtype == torch.float32
+    parts = bwd_parts(s, h, g, c, dh, num_sms(q.device), f32)
+    scratch = torch.empty(bwd_scratch_bytes(s, h, g, c, dh, f32, parts), dtype=torch.uint8,
+                          device=q.device)
     if s and c:
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream().cuda_stream
-            rc = _lib_bwd()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                            int(q.dtype == torch.bfloat16), qpos.data_ptr(), out.data_ptr(),
-                            d_out.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                            scratch.data_ptr(), s, h, g, c, dh, float(scale),
-                            int(sliding_window_size or 0), parts, stream)
+            rc = _lib_bwd()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), int(not f32),
+                            qpos.data_ptr(), out.data_ptr(), d_out.data_ptr(),
+                            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                            scratch.data_ptr(), s, h, g, c, dh, float(scale), int(window or 0),
+                            parts, stream)
         check(rc, "flash_attention_bwd")
         LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv
@@ -372,8 +471,11 @@ def _lib_bwd():
 
 
 def _launch(q, k_cache, v_cache, q_positions, *, scale, sliding_window_size=None,
-            logit_soft_cap=None, sinks=None, k_scales=None, v_scales=None) -> torch.Tensor:
-    """One K3/K4 launch on CUDA tensors (no autograd)."""
+            logit_soft_cap=None, sinks=None, k_scales=None, v_scales=None,
+            lse=None) -> torch.Tensor:
+    """One K3/K4 launch on CUDA tensors (no autograd). `lse`, an f32 [S, H]
+    tensor (K3 only), receives each row's log-sum-exp of its scaled scores
+    (sinks left out); the output's bits do not depend on it."""
     s, h, dh = q.shape
     c, g, _ = k_cache.shape
     if q.device.type != "cuda":
@@ -400,6 +502,10 @@ def _launch(q, k_cache, v_cache, q_positions, *, scale, sliding_window_size=None
                 raise ValueError(f"flash_attention: scales must be f32 [{c}, {g}], got "
                                  f"{t.dtype} {tuple(t.shape)}")
         tensors += [k_scales, v_scales]
+    if lse is not None:
+        if quantized or tuple(lse.shape) != (s, h) or lse.dtype != torch.float32:
+            raise ValueError("flash_attention: lse is K3's f32 [S, H] (not K4's)")
+        tensors.append(lse)
     for t in tensors:
         if not t.is_contiguous() or t.data_ptr() % 16 or t.device != q.device:
             raise ValueError("flash_attention: q/k/v/scales must be contiguous, 16-byte "
@@ -417,6 +523,7 @@ def _launch(q, k_cache, v_cache, q_positions, *, scale, sliding_window_size=None
             s, h, g, c, dh, float(scale), float(logit_soft_cap or 0.0),
             int(sliding_window_size or 0), splits, per,
             None if scratch is None else scratch.data_ptr())
+    lse_ptr = None if lse is None else lse.data_ptr()
     is_bf16 = int(q.dtype == torch.bfloat16)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -425,7 +532,7 @@ def _launch(q, k_cache, v_cache, q_positions, *, scale, sliding_window_size=None
                             v_cache.data_ptr(), v_scales.data_ptr(), is_bf16, *tail, stream)
         else:
             rc = _lib()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), is_bf16,
-                        *tail, stream)
+                        *tail, lse_ptr, stream)
     name = "flash_attention_int8" if quantized else "flash_attention"
     check(rc, name)
     LAUNCHES[name] += 1
