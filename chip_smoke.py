@@ -15,6 +15,7 @@
     python3 chip_smoke.py --train-only   # phase 20 alone, with K3's L and K3b's rows of phase 2
     python3 chip_smoke.py --flash-bwd-only  # K3's L and K3b's rows of phase 2 alone
     python3 chip_smoke.py --step-profile-only  # STEP_REPS timed steps, one profiled; host µs
+    python3 chip_smoke.py --bench-drivers-only  # phase 21 alone, with its kernel rows
 
 Phases, each of which ends the run with a non-zero exit if it fails:
 
@@ -26,8 +27,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    them). Once phase 2's timed rows and phase 3's single stream are done,
    they share the card with this process: the second runs phases 7-8, 13
    and 14 and gpt-oss's and the hybrid's parts of phases 9-10 and 16-17,
-   the third phases 19, 20 and 15 (on its own copy of the INT4 flagship),
-   and this one the rest; each sends back its readings, and an error in
+   the third phases 19, 20, 15 (on its own copy of the INT4 flagship) and
+   21 (its 8B model synthesized from the run's start by a worker of its
+   own), and this one the rest; each sends back its readings, and an error in
    any fails the run. A phase that needs a model waits for that model
    alone.
 2. kernels: each kernel against its plain PyTorch version on the card at
@@ -328,6 +330,30 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     table). `exp_serving_smoke` over the 2-layer INT8 flagship: every
     stage line, in order.
 
+21. the port's bench tools (`uzu_tpu_torch/tools/{bench8b,benchmoe,
+    bench_qwen08}.py` over `tools/decode_probe.py`) on the card through
+    their public functions, at their DIMS, gen_len and prompts:
+    `bench_8b(paged=True)` on the Llama-3.1-8B-class INT4 model at full
+    width and depth (32 layers, d 4096, 32 query heads over 8 groups at Dh
+    128, untied INT4 readout; single stream, then `PagedBatchEngine` over 8
+    slots in 64-token pages), `bench_moe` (the gpt-oss-small shape: d 1024,
+    16 experts of which 4 are active, 8 layers, window 128 and sinks,
+    INT4 experts; 320 decode tokens and a 3584-token prefill) and
+    `bench_qwen08` (the Qwen3.5-class hybrid, seed 2). Each tool's JSON
+    line is printed on a line of its own and must load through the port's
+    `compare_bench.load_record`; every number finite and positive,
+    `vs_baseline` and `vs_practical` at most BENCH_RATE_SLACK and
+    `practical_bw_gbs` at most BENCH_RATE_SLACK x the card's spec rate; the
+    launches of each step function per call as the tool's model derives
+    them (`expected_step_launches`: 8B K1 129 a decode step, K3 32 a
+    prefill chunk, K5 32 a paged step; MoE K7 16 a step, K9 16 and K3 8 a
+    chunk; hybrid K1 97 a step, K3 6 a chunk); and the 8B's first 2 layers
+    card against host (TOL). Phase 2 holds K1 at the 8B's five linears
+    (M = 1 and its 512-row chunk), K3 at Dh 128 over the 8B's first chunk
+    and at the MoE's heads (16 over 8) with window 128 and sinks, K5 at Dh
+    128 over 64-token pages, K7 at E = 16, P = 4 and K9 at T = 2048 to
+    their plain versions.
+
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Full per-shape numbers also go to
 `.port_cache/chip_smoke.json`.
@@ -413,6 +439,26 @@ ROUNDED_HEAD_DIMS = (24, 16)
 # past 256: Gemma-4's global layers' width, and the smallest Dh past 256
 # (both run in the Dh-256 layout's wide case, 2 column slices)
 WIDE_HEAD_DIMS = (512, 264)
+# phase 21: the port's bench tools (uzu_tpu_torch/tools/), each model
+# synthesized by its tool's model_dir at the tool's DIMS: the
+# Llama-3.1-8B-class INT4 model (32 layers, d 4096, untied INT4 readout),
+# the gpt-oss-small-shaped MoE (d 1024, 16 experts of 4 active, INT4
+# experts) and the Qwen3.5-class hybrid with its own seed (2)
+BENCH_TOOLS = ("bench8b", "benchmoe", "bench_qwen08")
+BENCH_METRICS = {"bench8b": "llama8b_decode_tok_s", "benchmoe": "gptoss_small_decode_tok_s",
+                 "bench_qwen08": "qwen08_decode_tok_s"}
+# the 8B's linears and its prefill chunk's rows (the 128-token prompt in
+# the tool's 512-row bucket); the MoE's expert stacks, its decode step's
+# pairs and the routed rows of a 512-row chunk
+LLAMA8B_LINEAR_SHAPES = (("8b/qkv", 6144, 4096), ("8b/out", 4096, 4096),
+                         ("8b/up|gate", 28672, 4096), ("8b/down", 4096, 14336),
+                         ("8b/readout", 128256, 4096))
+LLAMA8B_CHUNK = 512
+MOE_SMALL_EXPERT_SHAPES = (("moe_small/up", 2816, 1024), ("moe_small/down", 1024, 1408))
+MOE_SMALL_CHUNK = 512
+# the bench tools' readings are rates against the card's stream rate: a
+# reading past it by more than this share means the byte count is wrong
+BENCH_RATE_SLACK = 1.05
 GEN_PROMPT, GEN_TOKENS = 128, 64
 REPS = 10
 # a greedy step whose single-stream top-2 logit margin is below this may
@@ -1022,26 +1068,28 @@ def _random_stack(torch, gen, e: int, n: int, k: int, bits: int, g: int = 32):
     return StackedQuantized(codes, scales, bits, g, -float(1 << (bits - 1)))
 
 
-def check_moe_gemv(torch, timer, rows, sweep: bool = False) -> None:
+def check_moe_gemv(torch, timer, rows, sweep: bool = False, e: int = GPTOSS["num_experts"],
+                   active: int = GPTOSS["num_active"], shapes=EXPERT_SHAPES, ps=(4, 32),
+                   bits_list=(4, 8), seed: int = 7) -> None:
     """K7 (INT4) and K8 (INT8) at gpt-oss's expert shapes: P = 4 pairs (one
     token's 4 experts: single-stream decode) and P = 32 (8 slots), through
     the wrapper the main path calls, each row with the `moe_gemv_plan` it
     launched. With `sweep`, the P = 4 rows also time the launch with the
     planes left in L2 by the one before, the plan's dealing at every kw,
     and the plan against contiguous ranges of ceil(items / 2 SMs) items, in
-    turns (device ms)."""
+    turns (device ms). `e`, `active`, `shapes`, `ps` and `bits_list` give
+    another model's stacks (e experts of which `active` route a token)."""
     from uzu_tpu_torch.ops.cuda import moe_gemv as mg
     from uzu_tpu_torch.ops.cuda.flash_attention import num_sms
     from uzu_tpu_torch.quant.format import dequantize_stacked
 
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    e, active = GPTOSS["num_experts"], GPTOSS["num_active"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     sms = num_sms(torch.device("cuda"))
-    for bits in (4, 8):
-        for wname, n, k in EXPERT_SHAPES:
+    for bits in bits_list:
+        for wname, n, k in shapes:
             sq = _random_stack(torch, gen, e, n, k, bits)
             plane_bytes = (sq.codes[0].numel() + sq.scales[0].numel() * 2)
-            for p in (4, 32):
+            for p in ps:
                 ids = _routing(torch, gen, p // active, e, active).reshape(-1)
                 x = torch.randn((p, k), device="cuda", generator=gen)
                 plan = mg.moe_gemv_plan(p, n, k, bits, sms)
@@ -1136,7 +1184,9 @@ GROUPED_Q_CASES = ((32, 64), (32, 8), (64, 16), (128, 32), (256, 64), (1024, 64)
 GROUPED_DENSE_CASES = ((256, 64), (1024, 64), (4096, 64))
 
 
-def check_grouped_matmul(torch, timer, rows, sweep: bool = False, cases=None) -> None:
+def check_grouped_matmul(torch, timer, rows, sweep: bool = False, cases=None,
+                         e: int = GPTOSS["num_experts"], active: int = GPTOSS["num_active"],
+                         shapes=EXPERT_SHAPES, seed: int = 8) -> None:
     """K9 over INT4 stacks and K10 over dense bf16 stacks at gpt-oss's
     expert shapes, at the routed rows of GROUPED_Q_CASES /
     GROUPED_DENSE_CASES, through the wrappers the main path calls, each row
@@ -1145,14 +1195,14 @@ def check_grouped_matmul(torch, timer, rows, sweep: bool = False, cases=None) ->
     offers and small rows every kw (device ms). The yardstick is one bmm
     over the used tiles' pre-gathered bf16 planes and rows, at the same
     layout. Only the real rows are compared (rows of unused tiles are
-    undefined). `cases` ([(kernel, T, bm)]) replaces the two lists."""
+    undefined). `cases` ([(kernel, T, bm)]) replaces the two lists; `e`,
+    `active` and `shapes` give another model's stacks."""
     from uzu_tpu_torch.ops.cuda import grouped_matmul as gm
     from uzu_tpu_torch.ops.cuda.flash_attention import num_sms
     from uzu_tpu_torch.ops.cuda.moe_gemv import gather_experts
     from uzu_tpu_torch.quant.format import dequantize_stacked
 
-    gen = torch.Generator(device="cuda").manual_seed(8)
-    e, active = GPTOSS["num_experts"], GPTOSS["num_active"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     sms = num_sms(torch.device("cuda"))
     if cases is None:
         cases = [("grouped_matmul_int4", t, bm) for t, bm in GROUPED_Q_CASES] + \
@@ -1168,7 +1218,7 @@ def check_grouped_matmul(torch, timer, rows, sweep: bool = False, cases=None) ->
         return launch
 
     real_q, real_d = gm.launch_grouped_quant, gm.launch_grouped
-    for wname, n, k in EXPERT_SHAPES:
+    for wname, n, k in shapes:
         sq = _random_stack(torch, gen, e, n, k, 4)
         dense = dequantize_stacked(_random_stack(torch, gen, e, n, k, 8), torch.bfloat16)
         xs = {t: torch.randn((t, k), device="cuda", generator=gen) for t in routes}
@@ -1818,6 +1868,12 @@ def model_config(name: str):
         return gptoss_config(num_layers=4 if name == "gptoss_int4" else 2, **GPTOSS)
     if name == "qwen08_int4":
         return qwen35_config(**QWEN08)
+    if name in BENCH_TOOLS:
+        from uzu_tpu_torch.tools import bench8b, bench_qwen08, benchmoe
+
+        return {"bench8b": lambda: llama_config(**bench8b.DIMS),
+                "benchmoe": lambda: gptoss_config(**benchmoe.DIMS),
+                "bench_qwen08": lambda: qwen35_config(**bench_qwen08.DIMS)}[name]()
     if name == "lfm2_4l":
         return lfm2_config(**LFM2_4L)
     return mamba2_hybrid_config(**MAMBA2_4L)
@@ -1834,12 +1890,19 @@ def synth_model(name: str) -> str:
     seed 0); the flagship with HybridSpec linears (normal fill, seed 0) and
     the Dh-512 models (raw-bytes fill, seed 0); a DFlash draft over the
     flagship (bf16, normal fill, seed 0); and the encoder classifier of
-    phase 18 (bf16, normal fill, seed 0). Logs the seconds it took."""
-    out = os.path.join(REPO, ".port_cache", name)
-    if os.path.exists(os.path.join(out, "model.safetensors")):
-        return out
+    phase 18 (bf16, normal fill, seed 0); the bench tools' models
+    (BENCH_TOOLS), each by its tool's `model_dir` into
+    .port_cache/bench/. Logs the seconds it took."""
+    import importlib
+
     t0 = time.perf_counter()
-    _synthesize(name, out)
+    if name in BENCH_TOOLS:
+        out = importlib.import_module(f"uzu_tpu_torch.tools.{name}").model_dir(REPO)
+    else:
+        out = os.path.join(REPO, ".port_cache", name)
+        if os.path.exists(os.path.join(out, "model.safetensors")):
+            return out
+        _synthesize(name, out)
     log(f"SYNTH {name} {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -1897,7 +1960,8 @@ SERVE_MODELS = ("llama1b_int4", "clf_12l")
 HEAD_MODELS = ("llama1b_int4", "llama1b_int8_2l", "dflash_flagship", "clf_12l")
 SIDE_MODELS = {"second": (3, ("qwen08_int4", "gptoss_int4", "lfm2_4l", "mamba2_4l",
                               "gptoss_int8_2l", *GEMMA_MODELS)),
-               "third": (1, SLICE_MODELS)}
+               # the 8B (~4.5 GB) from the run's start in a worker of its own
+               "third": (2, ("bench8b", *SLICE_MODELS, "benchmoe", "bench_qwen08"))}
 MODELS = (*HEAD_MODELS, *(name for _, names in SIDE_MODELS.values() for name in names))
 # the first process's models that it hands to the side processes
 SHARED_MODELS = ("llama1b_int4", "llama1b_int8_2l")
@@ -5546,6 +5610,7 @@ def parallel_two_ranks(torch, lm16, model_dir: str, info: dict) -> dict:
     if (clean[0]["heads"], clean[0]["up_rows"], clean[0]["down_cols"]) != (16, 8192, 4096):
         raise AssertionError(f"a rank's slice is not half the flagship's: {clean[0]}")
     readings = stream_readings(torch, lm16, [prompt], [clean[0]["tokens"]])
+    log("COMPARED_TWO_RANKS " + json.dumps(readings))
     check_streams(readings)
     bad = got[0]["contiguous_up_gate"]
     bad_readings = stream_readings(torch, lm16, [prompt], [bad["tokens"]])
@@ -5562,6 +5627,7 @@ def parallel_two_ranks(torch, lm16, model_dir: str, info: dict) -> dict:
     if pg[0]["tokens"] != pg[1]["tokens"]:
         raise AssertionError("the two ranks' paged streams differ")
     paged_readings = stream_readings(torch, lm16, paged, pg[0]["tokens"])
+    log("COMPARED_TWO_RANKS_PAGED " + json.dumps(paged_readings))
     check_streams(paged_readings)
     layers = len(lm16.params["layers"])
     if pg[0]["launches"]["paged_attention"] != pg[0]["decode_steps"] * layers:
@@ -6006,6 +6072,240 @@ def train_phases(torch, lm16, dirs: dict, info: dict) -> None:
     phase("serving_smoke", serving_smoke_phase, torch, dirs[SMOKE_MODEL], info)
 
 
+# -- phase 21: the bench tools -----------------------------------------------
+
+
+def check_bench_rows(torch, timer, rows, flash_usage, paged_usage) -> None:
+    """Phase 21's kernels at its models' shapes, each against its plain
+    version: K1 at the 8B's five linears (the readout untied) at M = 1 (a
+    decode step) and LLAMA8B_CHUNK (its prefill chunk); K3 at the 8B's
+    heads (32 over 8 groups, Dh 128) over its first chunk, and at the MoE's
+    (16 over 8, two query heads a group, Dh 64) over the last 512-row chunk
+    of its 3584-token prompt with the window of 128 and sinks, sinks alone
+    and the window alone; K5 at Dh 128 over 8 slots of the 8B's paged run
+    (bf16 pools of 128 pages of 64 tokens, the engine's table of 16 page
+    columns and the trash page's); K7 at the MoE's stacks (E 16, P = 4) and
+    K9 at a 512-row chunk's 2048 routed rows."""
+    from uzu_tpu_torch.ops.cuda.grouped_matmul import grouped_bm
+    from uzu_tpu_torch.tools import bench8b, benchmoe
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    for wname, n, k in LLAMA8B_LINEAR_SHAPES:
+        w, wd = random_qweights(torch, gen, n, k, 4)["symmetric"]
+        for m in (1, LLAMA8B_CHUNK):
+            qmm_row(torch, timer, rows, w, wd, wname, m, "symmetric", gen)
+        del w, wd
+    torch.cuda.empty_cache()
+    h, g, dh = (bench8b.DIMS[key] for key in ("num_heads", "num_groups", "head_dim"))
+    ctx = 1024  # bench_8b's max_context
+    q, kc, vc = (torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+                 for shape in ((LLAMA8B_CHUNK, h, dh), (ctx, g, dh), (ctx, g, dh)))
+    flash_row(torch, timer, rows, flash_usage, q, kc, vc, 0, "llama8b", {})
+    b, page, pool_pages = 8, 64, 128  # bench_8b's PagedBatchEngine
+    k = torch.randn((g, pool_pages, page, dh), device="cuda", generator=gen).to(torch.bfloat16)
+    v = torch.randn((g, pool_pages, page, dh), device="cuda", generator=gen).to(torch.bfloat16)
+    # each slot's 2 live pages (its 32-token prompt and 48 tokens), then the
+    # trash page (the pool's last) in the rest of the table's columns
+    table = torch.full((b, ctx // page + 1), pool_pages - 1, device="cuda", dtype=torch.int32)
+    table[:, :2] = torch.randperm(pool_pages - 1, device="cuda", generator=gen)[: 2 * b] \
+        .reshape(b, 2).to(torch.int32)
+    q = torch.randn((b, h, dh), device="cuda", generator=gen).to(torch.bfloat16)
+    for lens_name, lens in (("uniform56", [56] * b), ("ragged", [33, 40, 47, 54, 61, 68, 75, 80])):
+        lengths = torch.tensor(lens, device="cuda", dtype=torch.int32)
+        paged_row(torch, timer, rows, paged_usage, q, k, v, table, lengths, lens_name,
+                  "llama8b", {})
+    del k, v
+    d = benchmoe.DIMS
+    h, g, dh = d["num_heads"], d["num_groups"], d["head_dim"]
+    ctx, win = 4096, d["sliding_window"]  # bench_moe's max_context
+    sinks = torch.randn((h,), device="cuda", generator=gen)
+    q, kc, vc = (torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+                 for shape in ((MOE_SMALL_CHUNK, h, dh), (ctx, g, dh), (ctx, g, dh)))
+    for variant, kw in (("moe_small_window_sinks", dict(sliding_window_size=win, sinks=sinks)),
+                        ("moe_small_sinks", dict(sinks=sinks)),
+                        ("moe_small_window", dict(sliding_window_size=win))):
+        flash_row(torch, timer, rows, flash_usage, q, kc, vc, 3584 - MOE_SMALL_CHUNK, variant, kw)
+    e, active = d["num_experts"], d["num_active"]
+    check_moe_gemv(torch, timer, rows, e=e, active=active, shapes=MOE_SMALL_EXPERT_SHAPES,
+                   ps=(active,), bits_list=(4,), seed=22)
+    bm = grouped_bm(MOE_SMALL_CHUNK, 4, max(k for _, _, k in MOE_SMALL_EXPERT_SHAPES))
+    check_grouped_matmul(torch, timer, rows,
+                         cases=[("grouped_matmul_int4", MOE_SMALL_CHUNK * active, bm)], e=e,
+                         active=active, shapes=MOE_SMALL_EXPERT_SHAPES, seed=23)
+
+
+class StepLaunches:
+    """The kernels each step function of the engines launched while a
+    bench tool ran, one {kernel: launches} per call: every single-stream
+    forward (`LanguageModel._forward`: a prefill chunk, or a decode step
+    where it feeds one token) and every paged decode step and prefill chunk
+    (`paged_decode_step`, `paged_prefill_chunk` as `engine/paged_batch.py`
+    calls them). `lm` is the model of the last forward."""
+
+    def __init__(self):
+        self.calls: dict = {kind: [] for kind in ("prefill", "decode", "paged_prefill",
+                                                  "paged_decode")}
+        self.lm = None
+
+    @contextlib.contextmanager
+    def recording(self):
+        from uzu_tpu_torch.engine import paged_batch as pb
+        from uzu_tpu_torch.engine.engine import LanguageModel
+        from uzu_tpu_torch.ops.cuda.build import LAUNCHES
+
+        def counted(fn, kind_of):
+            def call(*args, **kw):
+                before = dict(LAUNCHES)
+                out = fn(*args, **kw)
+                self.calls[kind_of(args)].append(
+                    {n: LAUNCHES[n] - before[n] for n in LAUNCHES if LAUNCHES[n] != before[n]})
+                return out
+            return call
+
+        def forward_kind(args):
+            self.lm = args[0]
+            return "decode" if args[1].shape[0] == 1 else "prefill"
+
+        real = (LanguageModel._forward, pb.paged_decode_step, pb.paged_prefill_chunk)
+        LanguageModel._forward = counted(real[0], forward_kind)
+        pb.paged_decode_step = counted(real[1], lambda args: "paged_decode")
+        pb.paged_prefill_chunk = counted(real[2], lambda args: "paged_prefill")
+        try:
+            yield self
+        finally:
+            LanguageModel._forward, pb.paged_decode_step, pb.paged_prefill_chunk = real
+
+    def per_call(self) -> dict:
+        """{kind: {kernel: the distinct launches per call}}."""
+        out = {}
+        for kind, calls in self.calls.items():
+            names = sorted({n for c in calls for n in c})
+            out[kind] = {n: sorted({c.get(n, 0) for c in calls}) for n in names}
+        return out
+
+
+def expected_step_launches(lm) -> dict:
+    """{kind: {kernel: launches per call}} derived from the model: K1 once
+    per INT4 linear of its layers and once for a quantized readout per
+    forward and paged step, K3 once per attention layer per prefill chunk,
+    K5 once per attention layer per paged step, K7 twice per MoE layer (its
+    up|gate and down planes) per decode step, K9 twice per MoE layer per
+    prefill chunk."""
+    from uzu_tpu_torch.config.model import AttentionConfig, MixtureOfExpertsConfig
+    from uzu_tpu_torch.quant.format import QuantizedTensor
+
+    def quantized(tree) -> int:
+        if isinstance(tree, QuantizedTensor):
+            return 1
+        if isinstance(tree, dict):
+            return sum(quantized(v) for v in tree.values())
+        if isinstance(tree, list):
+            return sum(quantized(v) for v in tree)
+        return 0
+
+    emb = lm.params["embedding"]
+    k1 = quantized(lm.params["layers"]) + quantized(emb.get("output", emb.get("tied")))
+    lcs = lm.decoder_config.transformer_config.layer_configs
+    attn = sum(isinstance(lc.mixer_config, AttentionConfig) for lc in lcs)
+    moe = sum(isinstance(lc.mlp_config, MixtureOfExpertsConfig) for lc in lcs)
+    k1 = {"quant_matmul_int4": k1}
+    return {"decode": dict(k1, moe_gemv_int4=2 * moe),
+            "prefill": dict(k1, flash_attention=attn, grouped_matmul_int4=2 * moe),
+            "paged_decode": dict(k1, paged_attention=attn)}
+
+
+def bench_tool_run(torch, name: str, info: dict):
+    """One bench tool on the card through its public function at its
+    DIMS, gen_len and prompts (bench_8b with paged=True), the launch
+    counts set to 0 just before and read just after; prints its JSON line
+    and checks it: the line loads through the port's compare_bench, every
+    number finite and > 0, vs_baseline and vs_practical at most
+    BENCH_RATE_SLACK, practical_bw_gbs at most BENCH_RATE_SLACK x the
+    card's spec rate; every step function's launches per call as
+    `expected_step_launches` derives them from the tool's model, and
+    each kind of call made. Returns the tool's model."""
+    import importlib
+    import math
+
+    from uzu_tpu_torch.ops.cuda.build import LAUNCHES, reset_launches
+    from uzu_tpu_torch.tools import compare_bench
+
+    mod = importlib.import_module(f"uzu_tpu_torch.tools.{name}")
+    fn = getattr(mod, {"bench8b": "bench_8b", "benchmoe": "bench_moe",
+                       "bench_qwen08": "bench_qwen08"}[name])
+    kw = dict(paged=True) if name == "bench8b" else {}
+    steps = StepLaunches()
+    t0 = time.perf_counter()
+
+    def stage(s):
+        log(f"BENCH_STAGE [{name}] +{time.perf_counter() - t0:.1f} s {s}")
+
+    reset_launches()
+    with steps.recording():
+        res = fn(REPO, stage, device="cuda", **kw)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    line = json.dumps({"metric": BENCH_METRICS[name], **res})
+    log(line)
+    path = os.path.join(REPO, ".port_cache", "bench", f"{name}.jsonl")
+    with open(path, "w") as f:
+        f.write(line + "\n")
+    lm = steps.lm
+    per_call = steps.per_call()
+    expected = expected_step_launches(lm)
+    tcfg = lm.decoder_config.transformer_config
+    info[name] = dict(result=res, seconds=time.perf_counter() - t0, launches=launches,
+                      calls={kind: len(c) for kind, c in steps.calls.items()},
+                      launches_per_call=per_call, expected_per_call=expected,
+                      layers=len(tcfg.layer_configs), model_dim=tcfg.model_dim)
+    log(f"BENCH_{name.upper()} " + json.dumps(info[name]))
+    if compare_bench.load_record(path) != {key: float(v) for key, v in res.items()}:
+        raise AssertionError(f"{name}: compare_bench does not read back the printed line")
+    bad = {key: v for key, v in res.items() if not (math.isfinite(v) and v > 0)}
+    if bad:
+        raise AssertionError(f"{name}: readings not finite and positive: {bad}")
+    for key in ("vs_baseline", "vs_practical"):
+        if not res[key] <= BENCH_RATE_SLACK:
+            raise AssertionError(f"{name}: {key} {res[key]} > {BENCH_RATE_SLACK}: the bytes "
+                                 "a step touches are undercounted")
+    if not res["practical_bw_gbs"] <= BENCH_RATE_SLACK * HBM_BYTES_PER_S / 1e9:
+        raise AssertionError(f"{name}: the probe read {res['practical_bw_gbs']} GB/s, past "
+                             f"the card's {HBM_BYTES_PER_S / 1e9:.0f}")
+    if (len(tcfg.layer_configs), tcfg.model_dim) != (mod.DIMS["num_layers"],
+                                                    mod.DIMS["model_dim"]):
+        raise AssertionError(f"{name}: the tool's model is not at its DIMS")
+    kinds = ("prefill", "decode", "paged_decode") if name == "bench8b" else ("prefill", "decode")
+    for kind in kinds:
+        if not steps.calls[kind]:
+            raise AssertionError(f"{name}: no {kind} call ran")
+        for kernel, want in expected[kind].items():
+            got = per_call[kind].get(kernel, [0])
+            if got != [want]:
+                raise AssertionError(f"{name}: {kernel} launched {got} times per {kind} call, "
+                                     f"expected {want}")
+    return lm
+
+
+def bench_tools_phase(torch, dirs, info: dict) -> None:
+    """Phase 21: bench_8b(paged=True), bench_moe and bench_qwen08 on the
+    card through the port's public functions (`bench_tool_run`), each
+    after its model's synthesis; the 8B's first 2 layers card against host
+    (`whole_path_check`, TOL)."""
+    from uzu_tpu_torch.tools import bench8b
+
+    phase = functools.partial(timed_phase, info)
+    dirs["bench8b"]
+    lm = phase("bench8b", bench_tool_run, torch, "bench8b", info)
+    phase("whole_path_llama8b", whole_path_check, torch, lm, 2, bench8b.DIMS["vocab_size"],
+          "whole_path_llama8b", info)
+    del lm
+    torch.cuda.empty_cache()
+    for name in ("benchmoe", "bench_qwen08"):
+        dirs[name]
+        phase(name, bench_tool_run, torch, name, info)
+        torch.cuda.empty_cache()
+
+
 def kernel_record(rows, info) -> list[dict]:
     """One entry per kernel at its main-path shape (the decode GEMV of the
     up|gate projection for K1/K2, a 256-row prefill chunk over a 1024-slot
@@ -6137,6 +6437,26 @@ def kernel_record(rows, info) -> list[dict]:
         "paged_attention_tp2": ("paged_attention", dict(H=16, variant="tp2"),
                                 "parallel_two_ranks"),
     }
+    # phase 21's shapes: K1 at the 8B's linears (M = 1 and its prefill
+    # chunk's rows), K3 at its heads (Dh 128) and at the MoE's (two query
+    # heads a group, window and sinks), K5 at Dh 128 over 64-token pages, K7
+    # at the MoE's E = 16, P = 4 and K9 at its chunk's 2048 routed rows;
+    # launches of the tool's run
+    bench = {f"quant_matmul_int4_{w.replace('/', '_').replace('|', '')}_m{m}": (
+        "quant_matmul_int4", dict(weight=w, M=m), "bench8b")
+        for w, _, _ in LLAMA8B_LINEAR_SHAPES for m in (1, LLAMA8B_CHUNK)}
+    bench.update({
+        "flash_attention_llama8b": ("flash_attention", dict(variant="llama8b"), "bench8b"),
+        "flash_attention_moe_small": ("flash_attention", dict(variant="moe_small_window_sinks"),
+                                      "benchmoe"),
+        "paged_attention_llama8b": ("paged_attention", dict(variant="llama8b",
+                                                            lengths="uniform56"), "bench8b"),
+        "moe_gemv_int4_moe_small": ("moe_gemv_int4", dict(weight="moe_small/up", P=4),
+                                    "benchmoe"),
+        "grouped_matmul_int4_moe_small": ("grouped_matmul_int4",
+                                          dict(weight="moe_small/up",
+                                               T=MOE_SMALL_CHUNK * 4), "benchmoe"),
+    })
     out = []
     for name, (src, replaces, where, path, kernel) in spec.items():
         kname = name.split("_dh")[0]
@@ -6220,6 +6540,28 @@ def kernel_record(rows, info) -> list[dict]:
             shape={k: rep[k] for k in rep if k in (
                 "weight", "N", "K", "M", "S", "H", "G", "Dh", "C", "pos0", "q", "splits",
                 "variant", "B", "page", "width", "lengths", "live_tokens")}))
+    for name, (kname, where, path) in bench.items():
+        mine = [r for r in rows if r["kernel"] == kname
+                and all(r.get(k) == v for k, v in where.items())]
+        src, replaces, _, _, kernel = spec[kname]
+        rep = mine[0]
+        reading = info[path]
+        out.append(dict(
+            name=name, route="cuda", source=src, kernel=kernel, replaces=replaces,
+            launches=reading["launches"].get(kname, 0),
+            launches_per_call={kind: counts.get(kname)
+                               for kind, counts in reading["launches_per_call"].items()
+                               if kname in counts},
+            launches_by_path={path: reading["launches"].get(kname, 0)},
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            err_over_rms=max(r["err_over_rms"] for r in mine), tol=rep["tol"],
+            ms=rep["ms"], device_ms=rep["device_ms"], plain_ms=rep["plain_ms"],
+            bound_ms=rep["bound_ms"], bound_by=rep["bound_by"], library_ms=rep["library_ms"],
+            library_device_ms=rep["library_device_ms"],
+            shape={k: rep[k] for k in rep if k in (
+                "weight", "N", "K", "M", "S", "H", "G", "Dh", "C", "pos0", "q", "splits",
+                "variant", "B", "page", "width", "lengths", "live_tokens", "E", "P", "T", "Tp",
+                "bm", "route", "kw", "bn", "used_tiles", "distinct_experts")}))
     return out
 
 
@@ -6270,6 +6612,9 @@ def kernel_phase(torch, info: dict) -> list:
     check_block_copy(torch, timer, rows)
     check_batch_spec_rows(torch, timer, rows, paged_usage)
     check_parallel_rows(torch, timer, rows, usage, paged_usage)
+    t_bench = time.perf_counter()
+    check_bench_rows(torch, timer, rows, usage, paged_usage)
+    info["bench_rows_seconds"] = time.perf_counter() - t_bench
     del timer
     torch.cuda.empty_cache()
     return rows
@@ -6336,7 +6681,8 @@ def second_phases(torch, dirs, info: dict) -> None:
 
 def third_phases(torch, dirs, info: dict) -> None:
     """The third process's phases: 19 and 20 on the INT4 flagship (its own
-    copy, loaded from the first process's synthesis), then phase 15."""
+    copy, loaded from the first process's synthesis), then phases 15 and
+    21."""
     from uzu_tpu_torch.engine.engine import LanguageModel
 
     lm16 = LanguageModel.from_dir(dirs["llama1b_int4"], device="cuda", max_context=4096)
@@ -6345,6 +6691,8 @@ def third_phases(torch, dirs, info: dict) -> None:
     del lm16
     torch.cuda.empty_cache()
     slice_phases(torch, dirs, info)
+    torch.cuda.empty_cache()
+    bench_tools_phase(torch, dirs, info)
 
 
 def side_process(conn, name: str) -> None:
@@ -6598,6 +6946,27 @@ def main() -> int:
         lm16 = LanguageModel.from_dir(dirs["llama1b_int4"], device="cuda", max_context=4096)
         timed_phase(info, "parallel", parallel_phase, torch, lm16, dirs["llama1b_int4"], info)
         log("PARALLEL_ONLY " + json.dumps(info["phase_seconds"]))
+        return 0
+
+    if "--bench-drivers-only" in sys.argv[1:]:
+        # phase 21 alone, with its kernel rows of phase 2
+        t0 = time.perf_counter()
+        with ProcessPoolExecutor(len(BENCH_TOOLS),
+                                 mp_context=multiprocessing.get_context("spawn")) as ex:
+            synth = ex.map(synth_model, BENCH_TOOLS)
+            built = kbuild.build()
+            dirs = dict(zip(BENCH_TOOLS, synth))
+        log(f"BUILD kernels built in {built:.1f} s, models synthesized in "
+            f"{time.perf_counter() - t0:.1f} s")
+        timer, rows = Timer(torch), []
+        check_bench_rows(torch, timer, rows,
+                         kernel_usage(kbuild.BUILD_LOGS.get("flash_attention", ""), "flash_fwd"),
+                         kernel_usage(kbuild.BUILD_LOGS.get("paged_attention", ""),
+                                      "paged_decode"))
+        del timer
+        torch.cuda.empty_cache()
+        bench_tools_phase(torch, dirs, info)
+        log("BENCH_DRIVERS_ONLY " + json.dumps(info["phase_seconds"]))
         return 0
 
     if "--flash-bwd-only" in sys.argv[1:]:

@@ -268,7 +268,7 @@ def test_push_ring_matches_jax():
 
 # -- isolation and device policy ---------------------------------------------------------
 
-FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "uzu_tpu")
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "uzu_tpu", "bench")
 
 
 def _port_sources():
@@ -302,6 +302,9 @@ def test_import_loads_no_jax_module():
             "import uzu_tpu_torch.tools.microbench, uzu_tpu_torch.tools.exp_step_breakdown; "
             "import uzu_tpu_torch.tools.exp_qmm_bisect, uzu_tpu_torch.tools.telemetry; "
             "import uzu_tpu_torch.tools.logs, uzu_tpu_torch.tools.corpus; "
+            "import uzu_tpu_torch.tools.decode_probe, uzu_tpu_torch.tools.bench8b; "
+            "import uzu_tpu_torch.tools.benchmoe, uzu_tpu_torch.tools.bench_qwen08; "
+            "import uzu_tpu_torch.tools.compare_bench; "
             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]; "
             "print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -85,10 +85,20 @@
 //
 // Rounding: bf16 q, k and v enter the products as they are, and p is
 // rounded to bf16 before P V, as the TPU kernel's _accumulate does; sums
-// are f32. f32 q, k and v are carried as bf16 pairs hi + lo (x - hi), three
-// products for S (hi.hi + hi.lo + lo.hi) and two for P V: rounding them to
-// bf16 alone, as the TPU kernel does, leaves the result 2-5e-2 of RMS off
-// the f32 plain version, past the 2e-2 the port holds its kernels to.
+// are f32. That costs each row 2^-9 of its own output, but a row at a
+// position below BK sees only the first KV tile's few keys, and its output
+// is many times the RMS of a chunk from position 0: at DH 128 the rounding
+// reads 2.1-2.4e-2 of that RMS there (S=512 from 0, H 32, G 8), past the
+// 2e-2 the port holds its kernels to (a CPU model of the rounding reads
+// 1.8e-2 at DH 64, 1.5e-2 at 256, 0.9e-2 at 32). So at DH 128, in the
+// first KV tile, such rows take p as a bf16 pair hi + lo (p - hi), one more
+// P V product, which the other rows of the block feed zeros; every row from
+// position BK on is bitwise as before, blocks with no such row skip the
+// product, and the other head dims keep the TPU kernel's rounding bit for
+// bit (random-weight greedy streams break near-ties on it). f32 q, k and v are
+// carried as bf16 pairs hi + lo (x - hi), three products for S (hi.hi +
+// hi.lo + lo.hi) and two for P V: rounding them to bf16 alone, as the TPU
+// kernel does, leaves the result 2-5e-2 of RMS off the f32 plain version.
 // K4 keeps the cache one byte per value: codes go into the ring as int8
 // (half of K3's copy bytes) and become operand tiles in shared memory
 // exactly, K's as bf16 and V's as fp16 (every int8 value fits both
@@ -571,6 +581,11 @@ flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __rest
   const int lo1 = window > 0 ? qp1 - window + 1 : 0;
   const int hi0 = min(qp0, C - 1);
   const int hi1 = min(qp1, C - 1);
+  // at DH 128 rows at positions below BK see the first KV tile alone and
+  // take p as a bf16 pair there (see Rounding above); uniform over the block
+  const bool short_rows = DH == 128 && q_lo < BK;
+  const bool short0 = qp0 < BK;
+  const bool short1 = qp1 < BK;
   const int col_t = 2 * (lane & 3);
   const float sl2 = scale * LOG2E;
   const float cap_in = soft_cap > 0.f ? scale / soft_cap : 0.f;
@@ -782,8 +797,11 @@ flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __rest
     m0 = mn0;
     m1 = mn1;
 
-    // p in f32 for the sums; p in bf16 for P V (K4: p * v_scale / u in fp16)
-    uint32_t pa[4][4];
+    // p in f32 for the sums; p in bf16 for P V (K4: p * v_scale / u in
+    // fp16), and in the first tile p - bf16(p) for the short rows (pl, zero
+    // for the other rows)
+    const bool pair = !L::QUANT && short_rows && c0 == 0;
+    uint32_t pa[4][4], pl[4][4];
     float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -800,6 +818,11 @@ flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __rest
         const float vb = vs2[j].y * inv_u;
         pa[kk][ai] = pack_f16x2(p[0] * va, p[1] * vb);
         pa[kk][ai + 1] = pack_f16x2(p[2] * va, p[3] * vb);
+      } else if (pair) {
+        split_bf16x2(p[0], p[1], pa[kk][ai], pl[kk][ai]);
+        split_bf16x2(p[2], p[3], pa[kk][ai + 1], pl[kk][ai + 1]);
+        if (!short0) pl[kk][ai] = 0u;
+        if (!short1) pl[kk][ai + 1] = 0u;
       } else {
         pa[kk][ai] = pack_bf16x2(p[0], p[1]);
         pa[kk][ai + 1] = pack_bf16x2(p[2], p[3]);
@@ -834,6 +857,7 @@ flash_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k, const TKV* __rest
           wgmma_rs_f16(o[n], pa[kk], vd);
         } else {
           wgmma_rs(o[n], pa[kk], vd);
+          if (pair) wgmma_rs(o[n], pl[kk], vd);
         }
         if constexpr (L::KVLO) {
           wgmma_rs(o[n], pa[kk], sw_desc<DH>(at + 2 * L::TILE, SW_ATOM, 8 * ROWB));
