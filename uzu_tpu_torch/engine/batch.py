@@ -53,6 +53,7 @@ import torch
 
 from ..config.model import AttentionConfig
 from ..models.batch_decode import batch_decode_step
+from ..tools.profile import SPANS, torch_profiler
 from .sampling import (
     SamplingParams,
     apply_count_penalties,
@@ -146,7 +147,13 @@ class BatchEngineBase:
     and `_pending`, and implements `_admit`, `_dispatch_decode`, `_finish`
     and `_cancel_admitting`. A dispatched chunk is (`_HostCopy` of its
     [K, B] tokens, then the first tokens of the slots admitted before it;
-    snapshot {slot: (request, has_first, preemption count)})."""
+    snapshot {slot: (request, has_first, preemption count)}).
+
+    While a profiler runs, the engines record program spans
+    (`tools/profile.py`) that the benchmark's readers read: `engine.step`
+    (the queue's length at its start) and under it `engine.decode_dispatch`
+    (the steps it enqueued), and the gauge `engine.queued` at every change
+    of the queue's length."""
 
     #: grammar-constrained requests need per-round host masks, which the
     #: fused K-step chunk engines do not have (the speculative engines do)
@@ -194,6 +201,8 @@ class BatchEngineBase:
                       submitted_at=time.perf_counter())
         self._next_id += 1
         self.queue.append(req)
+        if torch_profiler._is_profiler_enabled:
+            SPANS.gauge("engine.queued", len(self.queue))
         return req
 
     @property
@@ -209,6 +218,8 @@ class BatchEngineBase:
             return False
         if req in self.queue:
             self.queue.remove(req)
+            if torch_profiler._is_profiler_enabled:
+                SPANS.gauge("engine.queued", len(self.queue))
         elif self._admitting is not None and self._admitting[0] is req:
             self._cancel_admitting()
         else:
@@ -435,25 +446,31 @@ class BatchEngineBase:
         """One scheduling action; returns False when fully idle. Admission
         fills every free slot before a decode chunk is paid for (unless
         `admit_greedy` is off: at most one admission between chunks)."""
-        admitted = False
-        while self._admit():
-            admitted = True
-            if self.num_active and not self.admit_greedy:
-                break
-            if self.num_active >= self.batch_size:
-                break
-        pending, self._pending = self._pending, None
-        # drain first: if the in-flight chunk surely finishes every active
-        # slot and nothing is queued, read it instead of dispatching a chunk
-        # of identity steps
-        if pending is not None and not self.queue and self._drains_all(pending[1]):
-            self._process_emitted(*pending)
-            pending = None
-        if self.num_active:
-            self._pending = self._dispatch_decode()
-        if pending is not None:
-            self._process_emitted(*pending)
-        return bool(self._pending or pending or admitted or self.queue or self._admitting)
+        sp = (SPANS.begin("engine.step", queued=len(self.queue))
+              if torch_profiler._is_profiler_enabled else None)
+        try:
+            admitted = False
+            while self._admit():
+                admitted = True
+                if self.num_active and not self.admit_greedy:
+                    break
+                if self.num_active >= self.batch_size:
+                    break
+            pending, self._pending = self._pending, None
+            # drain first: if the in-flight chunk surely finishes every active
+            # slot and nothing is queued, read it instead of dispatching a chunk
+            # of identity steps
+            if pending is not None and not self.queue and self._drains_all(pending[1]):
+                self._process_emitted(*pending)
+                pending = None
+            if self.num_active:
+                self._pending = self._dispatch_decode()
+            if pending is not None:
+                self._process_emitted(*pending)
+            return bool(self._pending or pending or admitted or self.queue or self._admitting)
+        finally:
+            if sp is not None:
+                SPANS.end(sp)
 
     def run(self) -> None:
         """Drive until all submitted requests finish."""
@@ -515,8 +532,10 @@ class BatchEngine(BatchEngineBase):
             isinstance(lc.mixer_config, AttentionConfig)
             for lc in lm.decoder_config.transformer_config.layer_configs) else 0
         # work counts: prefill chunks run, decode chunks dispatched, prompt
-        # tokens whose prefill the prefix copy skipped
-        self.stats = {"prefill_chunks": 0, "decode_chunks": 0, "shared_prefix_tokens": 0}
+        # tokens whose prefill the prefix copy skipped, requests taken from
+        # the queue, KV capacity growths
+        self.stats = {"prefill_chunks": 0, "decode_chunks": 0, "shared_prefix_tokens": 0,
+                      "admissions": 0, "ctx_grows": 0}
 
     # -- slot state ----------------------------------------------------------
 
@@ -534,6 +553,7 @@ class BatchEngine(BatchEngineBase):
         cap = self.lm._ctx_bucket(needed) or self.lm.max_context
         if cap <= self._ctx_cap:
             return
+        self.stats["ctx_grows"] += 1
         self._ctx_cap = cap
         self._state = self._grown(self._state, cap, batch=True)
         if self._admitting is not None:
@@ -598,6 +618,9 @@ class BatchEngine(BatchEngineBase):
         if slot_i is None:
             return False
         req = self.queue.popleft()
+        self.stats["admissions"] += 1
+        if torch_profiler._is_profiler_enabled:
+            SPANS.gauge("engine.queued", len(self.queue))
         n = len(req.prompt)
         # capacity before anything touches the batched state
         self._ensure_ctx(n + 2 * self.decode_chunk + 1)
@@ -689,6 +712,8 @@ class BatchEngine(BatchEngineBase):
     def _dispatch_decode(self):
         """Enqueue one fused K-step chunk and start the copy of its tokens;
         returns (host copy, snapshot) without waiting for either."""
+        sp = (SPANS.begin("engine.decode_dispatch") if torch_profiler._is_profiler_enabled
+              else None)
         k = self.decode_chunk
         live = self._live()
         # context bucket from the host's position mirror; the 2k margin
@@ -705,4 +730,7 @@ class BatchEngine(BatchEngineBase):
             self.lm._ctx_bucket(max_pos + 2 * k + 1))
         self.stats["decode_chunks"] += 1
         parts = [torch.stack(col) for col in zip(*emitted)]  # [K, B, ...] each
-        return self._snapshot(parts, live, n_lp)
+        out = self._snapshot(parts, live, n_lp)
+        if sp is not None:
+            SPANS.end(sp, steps=k)
+        return out

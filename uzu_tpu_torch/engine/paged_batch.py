@@ -37,6 +37,7 @@ import torch
 
 from ..models.paged_decode import paged_decode_step, paged_prefill_chunk, paged_supported
 from ..models.paged_kv import PagePool, PagePoolOverflow, init_pools
+from ..tools.profile import SPANS, torch_profiler
 from .batch import BatchEngineBase, Request
 from .engine import LanguageModel
 from .sampling import SamplingParams
@@ -106,8 +107,13 @@ class PagedBatchEngine(BatchEngineBase):
                       if self.stop_ids else None)
         self._pending = None  # (host copy of the in-flight chunk, snapshot)
         # work counts: prefill chunks run, fused decode chunks dispatched,
-        # prompt tokens whose prefill page sharing skipped
-        self.stats = {"prefill_chunks": 0, "decode_chunks": 0, "shared_prefix_tokens": 0}
+        # prompt tokens whose prefill page sharing skipped, requests taken
+        # from the queue, requests preempted, the prompt and sampled tokens
+        # those preemptions threw away (computed again on re-admission),
+        # prefix-cache entries evicted
+        self.stats = {"prefill_chunks": 0, "decode_chunks": 0, "shared_prefix_tokens": 0,
+                      "admissions": 0, "preemptions": 0, "recomputed_tokens": 0,
+                      "prefix_cache_evictions": 0}
 
     # -- device work -------------------------------------------------------
 
@@ -135,6 +141,8 @@ class PagedBatchEngine(BatchEngineBase):
         needed = -(-(len(peek.prompt) + 1) // self.page_size)
         if needed > self.pool.num_pages:
             self.queue.popleft()
+            if torch_profiler._is_profiler_enabled:
+                SPANS.gauge("engine.queued", len(self.queue))
             peek.finished = True
             peek.finish_reason = "length"
             peek.finished_at = time.perf_counter()
@@ -164,6 +172,9 @@ class PagedBatchEngine(BatchEngineBase):
         if needed_new > self.pool.free_pages:
             return False
         req = self.queue.popleft()
+        self.stats["admissions"] += 1
+        if torch_profiler._is_profiler_enabled:
+            SPANS.gauge("engine.queued", len(self.queue))
 
         if best_src is not None and shared_pages > 0:
             self.pool.share_prefix(best_src, slot_i, shared_pages)
@@ -246,6 +257,7 @@ class PagedBatchEngine(BatchEngineBase):
         while len(self._retired) > self.apc_max_entries:
             old, _ = self._retired.popitem(last=False)
             self.pool.release(old)
+            self.stats["prefix_cache_evictions"] += 1
 
     def _evict_retired(self, need_pages: int, keep=None) -> bool:
         """Free LRU prefix-cache entries until `need_pages` pages are free
@@ -258,6 +270,7 @@ class PagedBatchEngine(BatchEngineBase):
                 continue
             del self._retired[rid]
             self.pool.release(rid)
+            self.stats["prefix_cache_evictions"] += 1
             evicted = True
         return evicted
 
@@ -278,6 +291,8 @@ class PagedBatchEngine(BatchEngineBase):
         request at the front, from scratch."""
         slot = self.slots[slot_i]
         req = slot.request
+        self.stats["preemptions"] += 1
+        self.stats["recomputed_tokens"] += len(req.prompt) + len(req.tokens)
         req.tokens = []
         req.logprob_content = []
         req.preempted += 1
@@ -289,6 +304,8 @@ class PagedBatchEngine(BatchEngineBase):
         self._admit_order.pop(slot_i, None)
         self._halted[slot_i] = True
         self.queue.appendleft(req)
+        if torch_profiler._is_profiler_enabled:
+            SPANS.gauge("engine.queued", len(self.queue))
 
     def _tables_host(self) -> np.ndarray:
         """[B, MAXP] page tables on the host. Free slots and unused entries
@@ -332,9 +349,13 @@ class PagedBatchEngine(BatchEngineBase):
     def _dispatch_decode(self):
         """Enqueue one fused K-step chunk and start the copy of its tokens;
         returns (host copy, snapshot) without waiting for either."""
+        sp = (SPANS.begin("engine.decode_dispatch") if torch_profiler._is_profiler_enabled
+              else None)
         k = self.decode_chunk
         self._grow_or_preempt(k)
         if not self.num_active:
+            if sp is not None:
+                SPANS.end(sp, steps=0)
             return None
         lm = self.lm
         dev = lm.device
@@ -383,4 +404,7 @@ class PagedBatchEngine(BatchEngineBase):
         self.stats["decode_chunks"] += 1
 
         parts = [torch.stack(col) for col in zip(*emitted)]  # [K, B, ...] each
-        return self._snapshot(parts, live, n_lp)
+        out = self._snapshot(parts, live, n_lp)
+        if sp is not None:
+            SPANS.end(sp, steps=k)
+        return out

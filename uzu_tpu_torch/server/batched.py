@@ -546,8 +546,10 @@ class BatchedChatServer:
 
     def handle_stats(self):
         """Operational snapshot (GET /v1/stats): scheduler occupancy, queue
-        depth, paged-pool pressure, speculation acceptance — what an
-        operator watches to size batch_size/num_pages."""
+        depth, paged-pool pressure, speculation acceptance, and the
+        engine's work counters (admissions, preemptions and the tokens they
+        recompute, prefix-cache evictions, ...) — what an operator watches
+        to size batch_size/num_pages."""
         with self._lock:
             eng = self.engine
             out = {
@@ -556,6 +558,7 @@ class BatchedChatServer:
                 "active_slots": eng.num_active,
                 "queued": len(eng.queue),
                 "admitting": eng._admitting is not None,
+                "counters": dict(eng.stats),
             }
             pool = getattr(eng, "pool", None)
             if pool is not None:
