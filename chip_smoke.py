@@ -4,7 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --flash-only   # K3/K4's rows of phase 2 alone
     python3 chip_smoke.py --paged-only   # K5/K6's rows of phase 2 alone
-    python3 chip_smoke.py --qmm-only     # K1/K2's rows with K7-K10's (shared headers)
+    python3 chip_smoke.py --qmm-only     # K1/K2's rows (prefill M too) with K7-K10's (shared headers)
     python3 chip_smoke.py --grouped-only # K7-K10's rows alone, BN / kw sweeps, ptxas, row checks
     python3 chip_smoke.py --gemma-only   # phase 14 alone, with K3-K6's Gemma rows
     python3 chip_smoke.py --hybrid-linear-only  # phase 15 alone, with K3-K6's rows past Dh 256
@@ -454,6 +454,23 @@ LLAMA8B_LINEAR_SHAPES = (("8b/qkv", 6144, 4096), ("8b/out", 4096, 4096),
                          ("8b/up|gate", 28672, 4096), ("8b/down", 4096, 14336),
                          ("8b/readout", 128256, 4096))
 LLAMA8B_CHUNK = 512
+# K1's tile at prefill M (--qmm-only): the linears of the benchmark's two
+# configurations (Qwen3-4B, LFM2-1.2B; fused as the port fuses them), the
+# rows of their 2048- and 4096-row chunks, and ragged M past a full 64-row
+# box; the three weights of the kernel table's rows; their error limit, the
+# worst err/RMS of K1's smaller-M rows
+PREFILL_LINEAR_SHAPES = (("qwen3/qkv", 6144, 2560), ("qwen3/out", 2560, 4096),
+                         ("qwen3/up|gate", 19456, 2560), ("qwen3/down", 2560, 9728),
+                         ("lfm2/qkv", 3072, 2048), ("lfm2/out", 2048, 2048),
+                         ("lfm2/conv_in", 6144, 2048), ("lfm2/up|gate", 16384, 2048),
+                         ("lfm2/down", 2048, 8192))
+PREFILL_M = (2048, 4096)
+PREFILL_RAGGED_M = (1025, 2049, 4095)
+PREFILL_ROW_WEIGHTS = ("qwen3/up|gate", "qwen3/down", "lfm2/up|gate")
+PREFILL_TOL = 1.28e-2
+# a weight narrow enough that the plan splits K at the ragged M (6, 3, 2
+# splits): the f32 partials' scratch and the split sum at M past 1024
+PREFILL_SPLIT_SHAPE = ("split", 512, 4096)
 MOE_SMALL_EXPERT_SHAPES = (("moe_small/up", 2816, 1024), ("moe_small/down", 1024, 1408))
 MOE_SMALL_CHUNK = 512
 # the bench tools' readings are rates against the card's stream rate: a
@@ -569,9 +586,10 @@ def rel_err(got, want) -> tuple[float, float]:
 # -- phase 2: kernels --------------------------------------------------------
 
 
-def qmm_row(torch, timer, rows, w, wd, wname: str, m: int, variant: str, gen) -> None:
+def qmm_row(torch, timer, rows, w, wd, wname: str, m: int, variant: str, gen,
+            tol: float = TOL) -> None:
     """One K1/K2 case: the kernel against its plain version on a random
-    [M, K] bf16 x (err/RMS <= TOL), its time, the plain version's, the
+    [M, K] bf16 x (err/RMS <= tol), its time, the plain version's, the
     dequantized matmul as the yardstick, the bound and the launch plan."""
     from uzu_tpu_torch.ops.cuda.flash_attention import num_sms
     from uzu_tpu_torch.ops.cuda.quant_matmul import (
@@ -588,9 +606,9 @@ def qmm_row(torch, timer, rows, w, wd, wname: str, m: int, variant: str, gen) ->
     want = quant_matmul_plain(w, x)
     torch.cuda.synchronize()
     abs_err, err = rel_err(got, want)
-    if not (err <= TOL):
+    if not (err <= tol):
         raise AssertionError(f"quant_matmul int{bits} {wname} M={m} {variant}: "
-                             f"error {err:.3e} of RMS > {TOL}")
+                             f"error {err:.3e} of RMS > {tol}")
     nbytes = (m * k * 2 + w.codes.numel() + w.scales.numel() * 2
               + (w.qbias.numel() * 2 if w.qbias is not None else 0) + m * n * 4)
     b_ms, b_by = bound(nbytes, 2.0 * m * n * k)
@@ -599,7 +617,7 @@ def qmm_row(torch, timer, rows, w, wd, wname: str, m: int, variant: str, gen) ->
     plan = qmm_plan(m, n, k, bits, num_sms(x.device))
     row = dict(kernel=f"quant_matmul_int{bits}", weight=wname, N=n, K=k, M=m,
                variant=variant, plan=plan._asdict(), blocks=plan_blocks(plan, m, n),
-               max_abs_err=abs_err, err_over_rms=err, tol=TOL, ms=ms, device_ms=dev_ms,
+               max_abs_err=abs_err, err_over_rms=err, tol=tol, ms=ms, device_ms=dev_ms,
                plain_ms=timer.ms(lambda: quant_matmul_plain(w, x), 3),
                library_ms=lib_ms, library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by)
     rows.append(row)
@@ -647,6 +665,48 @@ def check_quant_matmul_hybrid(torch, timer, rows) -> None:
         w, wd = random_qweights(torch, gen, n, k, 4)["symmetric"]
         for m in (1, 4, 128):
             qmm_row(torch, timer, rows, w, wd, wname, m, "symmetric", gen)
+
+
+def check_quant_matmul_prefill(torch, timer, rows) -> None:
+    """K1's tile at prefill M: rows (`qmm_row`, err/RMS <= PREFILL_TOL) of
+    PREFILL_ROW_WEIGHTS at every PREFILL_M and PREFILL_RAGGED_M, INT4 in
+    symmetric groups of 32 as the benchmark's weights are (stored qbias too
+    at the largest ragged M); then every PREFILL_LINEAR_SHAPES weight at
+    PREFILL_M timed at both tile heights with splits 1 (QMM_PREFILL_BM:
+    device ms of bm 128 and 256, the plan's bm, blocks and waves); then
+    PREFILL_SPLIT_SHAPE's rows at the ragged M, on split plans."""
+    from uzu_tpu_torch.ops.cuda.flash_attention import num_sms
+    from uzu_tpu_torch.ops.cuda.quant_matmul import QmmPlan, TILE_K, qmm_plan, quant_matmul
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    sms = num_sms(torch.device("cuda"))
+    sweep = []
+    for wname, n, k in PREFILL_LINEAR_SHAPES:
+        both = random_qweights(torch, gen, n, k, 4)
+        w, wd = both["symmetric"]
+        if wname in PREFILL_ROW_WEIGHTS:
+            for m in sorted(PREFILL_M + PREFILL_RAGGED_M):
+                qmm_row(torch, timer, rows, w, wd, wname, m, "symmetric", gen, PREFILL_TOL)
+            qmm_row(torch, timer, rows, *both["stored_qbias"], wname, max(PREFILL_RAGGED_M),
+                    "stored_qbias", gen, PREFILL_TOL)
+        for m in PREFILL_M:
+            x = torch.randn((m, k), device="cuda", generator=gen).to(torch.bfloat16)
+            chunks = -(-k // TILE_K)
+            entry = dict(weight=wname, N=n, K=k, M=m, plan_bm=qmm_plan(m, n, k, 4, sms).bm)
+            for bm in (128, 256):
+                plan = QmmPlan("tile", bm=bm, splits=1, chunks_per_split=chunks)
+                blocks = -(-n // 128) * -(-m // bm)
+                entry[f"bm{bm}"] = dict(
+                    blocks=blocks, waves=blocks / sms,
+                    device_ms=timer.ms(lambda: quant_matmul(w, x, plan), spin=True))
+            sweep.append(entry)
+        del both, w, wd
+        torch.cuda.empty_cache()
+    log("QMM_PREFILL_BM " + json.dumps(sweep))
+    wname, n, k = PREFILL_SPLIT_SHAPE
+    w, wd = random_qweights(torch, gen, n, k, 4)["symmetric"]
+    for m in PREFILL_RAGGED_M:
+        qmm_row(torch, timer, rows, w, wd, wname, m, "symmetric", gen, PREFILL_TOL)
 
 
 def check_qmm_rows(torch, info: dict) -> None:
@@ -6797,6 +6857,7 @@ def main() -> int:
                                                          "moe")))
             check_quant_matmul(torch, timer, rows)
             check_quant_matmul_hybrid(torch, timer, rows)
+            check_quant_matmul_prefill(torch, timer, rows)
             check_qmm_rows(torch, {})
             check_moe_gemv(torch, timer, rows)
             check_grouped_matmul(torch, timer, rows)

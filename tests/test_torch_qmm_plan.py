@@ -6,6 +6,9 @@ here on the CPU:
   it covers N and K once in whole tiles and chunks, takes shapes only,
   gives every flagship and gpt-oss shape a route, and on the tile route
   fills a wave of 132 SMs or says why not;
+- `ops/linear.py`'s route: bf16 x at every row count reaches K1's wrapper,
+  f32 x past GEMM_THRESHOLD_M keeps the dequantize-then-matmul (counted);
+  the tile's plan at the benchmark configurations' prefill shapes;
 - `quant_matmul_split_plain`, the plain version of a plan's split-K tile
   (per-split partials, then the fixed-order merge), against
   `quant_matmul_plain`, the JAX package's XLA reference and its Pallas
@@ -34,7 +37,7 @@ from uzu_tpu_torch.quant import format as tq
 torch.set_num_threads(1)
 
 SMS = 132  # the H100 SXM's SM count
-M_ROWS = (1, 8, 16, 64, 256, 1024)
+M_ROWS = (1, 8, 16, 64, 256, 1024, 2048, 4096)
 # (name, N, K) of every K1/K2 linear of the flagship (Llama-1B widths) and
 # of gpt-oss-20b's widths (d 2880, 64 query / 8 KV heads of 64, vocab 201088)
 SHAPES = (("qkv", 3072, 2048), ("out", 2048, 2048), ("up|gate", 16384, 2048),
@@ -75,7 +78,7 @@ def test_plan_routes_every_main_path_shape(bits, name, n, k, m):
 
 
 @pytest.mark.parametrize("bits", [4, 8])
-@pytest.mark.parametrize("m", [33, 64, 100, 256, 1024])
+@pytest.mark.parametrize("m", [33, 64, 100, 256, 1024, 1025, 2049, 4095])
 @pytest.mark.parametrize("n,k", [(200, 512), (3072, 2048), (2048, 8192), (300, 2880),
                                  (136, 2888), (5120, 2880)])
 def test_tile_plan_covers_n_and_k_once(bits, m, n, k):
@@ -115,6 +118,111 @@ def test_f32_x_keeps_the_f32_gemv_at_small_m():
     assert qmm.qmm_plan(1, 256, 512, 4, SMS, x_bf16=False).route == "gemv_f32"
     assert qmm.qmm_plan(32, 256, 512, 8, SMS, x_bf16=False).route == "gemv_f32"
     assert qmm.qmm_plan(33, 256, 512, 4, SMS, x_bf16=False).route == "tile"
+
+
+# -- prefill M: ops/linear.py's route and the tile's plan ----------------------------
+
+# (name, N, K) of the linears of Qwen3-4B and LFM2-1.2B as the port fuses them
+# (qkv, up|gate; LFM2's ShortConv in_proj 3d), the rows of their 2048- and
+# 4096-row prefill chunks, and the device ms of qmm_tile at bm 128 and 256
+# (splits 1) on an H100 SXM (chip_smoke.py --qmm-only, QMM_PREFILL_BM)
+PREFILL_MS = {
+    ("qwen3/qkv", 6144, 2560, 2048): (0.2757, 0.1859),
+    ("qwen3/qkv", 6144, 2560, 4096): (0.5428, 0.3580),
+    ("qwen3/out", 2560, 4096, 2048): (0.2223, 0.1859),
+    ("qwen3/out", 2560, 4096, 4096): (0.3574, 0.2759),
+    ("qwen3/up|gate", 19456, 2560, 2048): (0.8501, 0.5774),
+    ("qwen3/up|gate", 19456, 2560, 4096): (1.6457, 1.0776),
+    ("qwen3/down", 2560, 9728, 2048): (0.5092, 0.4330),
+    ("qwen3/down", 2560, 9728, 4096): (0.8145, 0.6235),
+    ("lfm2/qkv", 3072, 2048, 2048): (0.1176, 0.1022),
+    ("lfm2/qkv", 3072, 2048, 4096): (0.2266, 0.1553),
+    ("lfm2/out", 2048, 2048, 2048): (0.0801, 0.0545),
+    ("lfm2/out", 2048, 2048, 4096): (0.1533, 0.1052),
+    ("lfm2/conv_in", 6144, 2048, 2048): (0.2263, 0.1541),
+    ("lfm2/conv_in", 6144, 2048, 4096): (0.4393, 0.2956),
+    ("lfm2/up|gate", 16384, 2048, 2048): (0.5791, 0.3814),
+    ("lfm2/up|gate", 16384, 2048, 4096): (1.1388, 0.7364),
+    ("lfm2/down", 2048, 8192, 2048): (0.2800, 0.1805),
+    ("lfm2/down", 2048, 8192, 4096): (0.5511, 0.3522),
+}
+
+
+def _qweight(n, k, bits=4, g=32, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    codes = torch.randint(0, 256, (n, k * bits // 8), dtype=torch.uint8, generator=gen)
+    scales = (torch.rand((n, k // g), generator=gen) * 0.01 + 0.001).to(torch.bfloat16)
+    return tq.QuantizedTensor(codes, scales, None, bits, g, -float(1 << (bits - 1)))
+
+
+def _spy(monkeypatch):
+    from uzu_tpu_torch.ops import linear as tlinear
+
+    calls = []
+    real = qmm.quant_matmul
+
+    def spy(w, x2, plan=None):
+        calls.append((tuple(x2.shape), x2.dtype))
+        return real(w, x2, plan)
+
+    monkeypatch.setattr(qmm, "quant_matmul", spy)
+    return tlinear, calls
+
+
+@pytest.mark.parametrize("m", [33, 1024, 1025, 2048, 4096])
+def test_linear_sends_bf16_x_to_k1_at_every_m(monkeypatch, m):
+    """bf16 x of any row count above the small-M routes reaches K1's
+    wrapper, whose plan there is the tile; the dequantize-then-matmul is
+    not taken, and the result is K1's plain product rounded to bf16."""
+    from uzu_tpu_torch.ops.cuda.build import LAUNCHES
+
+    tlinear, calls = _spy(monkeypatch)
+    n, k = 256, 128
+    w = _qweight(n, k)
+    x = torch.randn((m, k), generator=torch.Generator().manual_seed(m)).to(torch.bfloat16)
+    before = LAUNCHES["linear_dequant_matmul"]
+    y = tlinear.linear_apply(w, x.reshape(1, m, k))
+    assert calls == [((m, k), torch.bfloat16)]
+    assert qmm.qmm_plan(m, n, k, 4, SMS).route == "tile"
+    assert LAUNCHES["linear_dequant_matmul"] == before
+    assert y.dtype == torch.bfloat16 and y.shape == (1, m, n)
+    assert torch.equal(y[0], qmm.quant_matmul_plain(w, x).to(torch.bfloat16))
+
+
+def test_f32_x_above_the_threshold_keeps_the_dequantize_then_matmul(monkeypatch):
+    """f32 x past GEMM_THRESHOLD_M rows is contracted in f32 over the
+    dequantized weight, not rounded to bf16 for K1's tile, and is counted;
+    at the threshold it still reaches K1's wrapper."""
+    from uzu_tpu_torch.ops.cuda.build import LAUNCHES
+    from uzu_tpu_torch.quant.format import dequantize
+
+    tlinear, calls = _spy(monkeypatch)
+    w = _qweight(256, 128)
+    m = tlinear.GEMM_THRESHOLD_M + 1
+    x = torch.randn((m, 128), generator=torch.Generator().manual_seed(1))
+    before = LAUNCHES["linear_dequant_matmul"]
+    y = tlinear.linear_apply(w, x)
+    assert calls == [] and LAUNCHES["linear_dequant_matmul"] == before + 1
+    assert y.dtype == torch.float32
+    assert torch.equal(y, torch.matmul(x, dequantize(w, torch.float32).t()))
+    tlinear.linear_apply(w, x[:-1])
+    assert calls == [((m - 1, 128), torch.float32)]
+    assert LAUNCHES["linear_dequant_matmul"] == before + 1
+
+
+@pytest.mark.parametrize("name,n,k,m", sorted(PREFILL_MS))
+def test_prefill_plan_at_the_benchmark_shapes(name, n, k, m):
+    """At the prefill chunks of both benchmark configurations the tile's
+    plan covers N and K once, takes no split (each row summed as at any
+    other M of the shape), and its bm is the one measured faster: a bm-128
+    block costs 0.73-0.80 of a bm-256 block there, so bm 128 lost even
+    where its last wave was the fuller one."""
+    plan = qmm.qmm_plan(m, n, k, 4, SMS)
+    chunks = -(-k // qmm.TILE_K)
+    assert plan.route == "tile" and plan.splits == 1 and plan.chunks_per_split == chunks
+    assert qmm.plan_blocks(plan, m, n) == -(-n // qmm.TILE_N) * -(-m // plan.bm)
+    ms128, ms256 = PREFILL_MS[(name, n, k, m)]
+    assert plan.bm == (128 if ms128 < ms256 else 256)
 
 
 # -- the split-K route's plain version ------------------------------------------------------

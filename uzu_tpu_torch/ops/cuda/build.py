@@ -8,7 +8,11 @@ reused. Nothing here runs at import: the package
 imports, and its CPU path runs, on a machine without `nvcc`.
 
 `LAUNCHES` counts, per kernel, the launches its wrapper made; a wrapper
-adds one where it launches its kernel and nowhere else. `BUILD_LOGS` keeps
+adds one where it launches its kernel and nowhere else. Two keys count
+routes instead: `quant_matmul_tile`, the K1/K2 launches on the tile route
+(also counted under their kernel), and `linear_dequant_matmul`, the
+products `ops/linear.py` took through a dequantized weight and a plain
+matmul (no hand kernel; counted on every device). `BUILD_LOGS` keeps
 what nvcc printed for each library built in this process (ptxas's
 registers, shared memory and spills per kernel, from `-Xptxas -v`).
 """
@@ -34,6 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: dict[str, int] = {
     "quant_matmul_int4": 0,
     "quant_matmul_int8": 0,
+    "quant_matmul_tile": 0,
+    "linear_dequant_matmul": 0,
     "flash_attention": 0,
     "flash_attention_int8": 0,
     "flash_attention_bwd": 0,

@@ -103,7 +103,12 @@ def heuristic_plan(m: int, n: int, k: int, bits: int, sms: int,
     keeps 2 chunks or more; it does not depend on m, so every m on this
     route sums in the same order. Tile: bm = 128 or 256 rows by m; where
     the (n, m) blocks do not fill the SMs, K is split into the most ranges
-    of at least TILE_MIN_CHUNKS chunks that keep the blocks within one wave."""
+    of at least TILE_MIN_CHUNKS chunks that keep the blocks within one wave.
+    Above 128 rows bm is 256 whatever the last wave holds: at prefill M a
+    bm-128 block takes 0.73-0.80 of a bm-256 block's time (the per-chunk
+    dequantization, not the products, sets it), so on an H100 bm 256 was
+    the faster at every prefill shape measured, even where bm 128's last
+    wave was the fuller (tests/test_torch_qmm_plan.py's PREFILL_MS)."""
     if m <= GEMV_MAX_M:
         if not x_bf16:
             return QmmPlan("gemv_f32")
@@ -240,4 +245,6 @@ def quant_matmul(w: QuantizedTensor, x2: torch.Tensor, plan: QmmPlan | None = No
             torch.cuda.current_stream().cuda_stream)
     check(rc, "quant_matmul")
     LAUNCHES["quant_matmul_int4" if w.bits == 4 else "quant_matmul_int8"] += 1
+    if plan.route == "tile":
+        LAUNCHES["quant_matmul_tile"] += 1
     return out

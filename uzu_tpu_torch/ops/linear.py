@@ -2,9 +2,12 @@
 
 Counterpart of `uzu_tpu/ops/linear.py`. Weights use the OutputInput
 layout, W [N, K] and y = x @ W^T. Quantized weights go through the fused
-dequant matmul kernel K1/K2 (`ops/cuda/quant_matmul.py`) for up to
-GEMM_THRESHOLD_M rows; above that, as in the JAX package, the weight is
-dequantized once and contracted by a plain matmul. HybridSpec linears
+dequant matmul kernel K1/K2 (`ops/cuda/quant_matmul.py`) at every row
+count for bf16 x: bf16 x bf16 products with f32 sums, the contraction of
+the JAX package's `_xla_quant_matmul`. Other x (f32) above
+GEMM_THRESHOLD_M rows is contracted in its own precision by a plain
+matmul over the weight dequantized once, since K1's tile would round it
+to bf16. HybridSpec linears
 (`HybridLinear`: QLoRA adapter and Hadamard incoherence around a quantized
 base) take `hybrid_apply`, whose base runs through the same route. Under tensor parallelism a linear
 whose input dimension is split over the ranks holds a `SplitInput`: each
@@ -25,8 +28,11 @@ import torch
 
 from ..quant.format import HybridLinear, QuantizedTensor, dequantize
 from .cuda import quant_matmul as qmm
+from .cuda.build import LAUNCHES
 
-# above this many rows dequantize-then-matmul amortizes the dequant
+# above this many rows x that is not bf16 (the deep f32 checks) is
+# contracted in its own precision over the dequantized weight, where K1's
+# tile would round it to bf16; bf16 x takes K1 at every row count
 GEMM_THRESHOLD_M = 1024
 
 
@@ -125,8 +131,9 @@ def quant_matmul(w: QuantizedTensor, x: torch.Tensor) -> torch.Tensor:
     """Fused dequant matmul: y[m, n] = sum_k x[m,k] * dq(w)[n,k]."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if x2.shape[0] > GEMM_THRESHOLD_M:
+    if x2.shape[0] > GEMM_THRESHOLD_M and x2.dtype != torch.bfloat16:
         y = torch.matmul(x2.float(), dequantize(w, x.dtype).float().t())
+        LAUNCHES["linear_dequant_matmul"] += 1
     else:
         y = qmm.quant_matmul(w, x2)
     return y.reshape(*lead, y.shape[-1]).to(x.dtype)
