@@ -16,6 +16,7 @@
     python3 chip_smoke.py --flash-bwd-only  # K3's L and K3b's rows of phase 2 alone
     python3 chip_smoke.py --step-profile-only  # STEP_REPS timed steps, one profiled; host µs
     python3 chip_smoke.py --bench-drivers-only  # phase 21 alone, with its kernel rows
+    python3 chip_smoke.py --jamba-only   # S1's rows with K1/K3's at Jamba2-3B's shapes
 
 Phases, each of which ends the run with a non-zero exit if it fails:
 
@@ -365,6 +366,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import math
 import multiprocessing
 import os
 import statistics
@@ -1877,6 +1879,119 @@ def check_block_copy(torch, timer, rows) -> None:
                library_ms=lib_ms, library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by)
     rows.append(row)
     log("KERNEL " + json.dumps(row))
+
+
+# Jamba2-3B's Mamba-1 and attention widths (the benchmark's jamba2-3b):
+# d 2560, Di 5120, N 16, dt rank 160; 20 query heads over 1 KV head, Dh 128
+JAMBA_LINEAR_SHAPES = (("jamba/x_proj", 192, 5120), ("jamba/dt_proj", 5120, 160))
+JAMBA_SCAN = dict(di=5120, n=16, chunk=4096, slots=32)
+# S1's y is rounded once to bf16 (half an ulp: at most 2^-8 of itself) from
+# f32 arithmetic that differs from the plain version's only in order and
+# exp2 against exp (~1e-6): each element within twice that of the plain
+# version's f32 y (over |y| + 1e-3 RMS, for values near 0). h is f32 in both.
+SCAN_TOL_Y, SCAN_TOL_H = 2.0 ** -7, 1e-4
+
+
+def scan_inputs(torch, gen, b: int, s: int, di: int, n: int):
+    """Inputs of S1 as Jamba's mixer hands them over: x, dt, z bf16 with z a
+    strided view of the in-projection's [x | z] rows, B and C RMS-scaled,
+    A_log = log(1..N) with noise, dt_bias = softplus^-1 of a log-uniform
+    draw in [1e-3, 1e-1], D = 1, a warm state."""
+    proj = torch.randn((b, s, 2 * di), device="cuda", generator=gen).to(torch.bfloat16)
+    x, dt = (torch.randn((b, s, di), device="cuda", generator=gen).to(torch.bfloat16)
+             for _ in range(2))
+    bm, cm = (torch.randn((b, s, n), device="cuda", generator=gen).to(torch.bfloat16)
+              for _ in range(2))
+    a_log = (torch.log(torch.arange(1, n + 1, device="cuda", dtype=torch.float32)).repeat(di, 1)
+             + 0.05 * torch.randn((di, n), device="cuda", generator=gen))
+    v = torch.exp(torch.empty(di, device="cuda").uniform_(math.log(1e-3), math.log(1e-1),
+                                                           generator=gen))
+    dt_bias = v + torch.log(-torch.expm1(-v))
+    h0 = 0.1 * torch.randn((b, di, n), device="cuda", generator=gen)
+    return (x, dt, proj[..., di:], bm, cm, a_log, dt_bias, torch.ones(di, device="cuda"), h0)
+
+
+def check_selective_scan(torch, timer, rows) -> None:
+    """S1 at Jamba2-3B's widths against its plain version: a 4096-row
+    prefill chunk from a carried state (whole, and with its last 96 rows
+    padded past the length), and the decode step of 32 slots (3 halted).
+    Bound: bytes (x, dt, z, B, C read, y written, once; h read and written
+    once); the operations counted are the recurrence's 6 per channel and
+    state a row, exp2 not counted."""
+    from uzu_tpu_torch.ops.cuda.build import BUILD_LOGS, ptxas_usage
+    from uzu_tpu_torch.ops.cuda.selective_scan import selective_scan, selective_scan_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    di, n = JAMBA_SCAN["di"], JAMBA_SCAN["n"]
+    usage = ptxas_usage(BUILD_LOGS.get("selective_scan", ""))
+    cases = [("prefill", 1, JAMBA_SCAN["chunk"], [JAMBA_SCAN["chunk"]]),
+             ("prefill_ragged", 1, JAMBA_SCAN["chunk"], [JAMBA_SCAN["chunk"] - 96]),
+             ("decode", JAMBA_SCAN["slots"], 1, [1] * (JAMBA_SCAN["slots"] - 3) + [0] * 3)]
+    for variant, b, s, lens in cases:
+        args = scan_inputs(torch, gen, b, s, di, n)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        y, h = selective_scan(*args, lengths)
+        # the plain version on the same values in f32: y before its rounding
+        want_y, want_h = selective_scan_plain(*(a.float() for a in args), lengths)
+        torch.cuda.synchronize()
+        abs_y, err_y = rel_err(y, want_y)
+        abs_h, err_h = rel_err(h, want_h)
+        rms = want_y.pow(2).mean().sqrt()
+        elem_y = ((y.float() - want_y).abs() / (want_y.abs() + 1e-3 * rms)).max().item()
+        if not (elem_y <= SCAN_TOL_Y and err_h <= SCAN_TOL_H):
+            raise AssertionError(f"selective_scan {variant}: y {elem_y:.3e} of itself, h "
+                                 f"{err_h:.3e} of RMS > {SCAN_TOL_Y} / {SCAN_TOL_H}")
+        nbytes = b * s * (4 * di * 2 + 2 * n * 2) + 2 * b * di * n * 4 + di * n * 4
+        b_ms, b_by = bound(nbytes, 6.0 * b * s * di * n)
+        run = lambda: selective_scan(*args, lengths)  # noqa: E731
+        ms, dev_ms = timer.both(run)
+        kernel = "selective_scan_step" if s == 1 else "selective_scan_chunk"
+        row = dict(kernel="selective_scan", variant=variant, B=b, S=s, Di=di, N=n,
+                   lengths=sorted(set(lens)),
+                   ptxas={k: v for k, v in usage.items() if kernel in k},
+                   max_abs_err=abs_y, err_over_rms=err_y, err_over_itself=elem_y,
+                   h_err_over_rms=err_h,
+                   tol=SCAN_TOL_Y, h_tol=SCAN_TOL_H, ms=ms, device_ms=dev_ms,
+                   plain_ms=timer.ms(lambda: selective_scan_plain(*args, lengths), 2),
+                   library_ms=None, library_device_ms=None, bound_ms=b_ms, bound_by=b_by)
+        rows.append(row)
+        log("KERNEL " + json.dumps(row))
+        del args, y, h, want_y, want_h
+        torch.cuda.empty_cache()
+
+
+def check_jamba_rows(torch, timer, rows) -> None:
+    """K1 at Jamba's x_proj (N = 192, K = 5120) and dt_proj (N = 5120, K =
+    160, not a multiple of 64) at a decode step of 32 slots and a 4096-row
+    prefill chunk; K3 at its 20 query heads over 1 KV head, Dh 128, no RoPE
+    (positions enter only the causal mask), a 256-row chunk late in an
+    8192-slot context and a 1024-row one at 15360 over 16384 slots."""
+    from uzu_tpu_torch.ops.cuda.build import BUILD_LOGS
+
+    from uzu_tpu_torch.ops.cuda.quant_matmul import quant_matmul, quant_matmul_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    for wname, n, k in JAMBA_LINEAR_SHAPES:
+        w, wd = random_qweights(torch, gen, n, k, 4)["symmetric"]
+        for m in (32, 4096):
+            # the plain version against the tile's own arithmetic (weights
+            # rounded to bf16, f32 sums), and K1 against that, on one x
+            x = torch.randn((m, k), device="cuda", generator=gen).to(torch.bfloat16)
+            plain = quant_matmul_plain(w, x)
+            rounded = x.float() @ wd.float().t()
+            log("QMM_JAMBA_ROUNDING " + json.dumps(dict(
+                weight=wname, M=m, rounding_err_over_rms=rel_err(rounded, plain)[1],
+                k1_vs_rounded_err_over_rms=rel_err(quant_matmul(w, x), rounded)[1])))
+            qmm_row(torch, timer, rows, w, wd, wname, m, "symmetric", gen,
+                    TOL if m <= 32 else PREFILL_TOL)
+    usage = kernel_usage(BUILD_LOGS.get("flash_attention", ""), "flash_fwd")
+    for s, c, pos0 in ((256, 8192, 8192 - 259), (1024, 16384, 15360)):
+        q = torch.randn((s, 20, 128), device="cuda", generator=gen).to(torch.bfloat16)
+        kc, vc = (torch.randn((c, 1, 128), device="cuda", generator=gen).to(torch.bfloat16)
+                  for _ in range(2))
+        flash_row(torch, timer, rows, usage, q, kc, vc, pos0, "plain", {})
+        del q, kc, vc
+        torch.cuda.empty_cache()
 
 
 # -- phases 3-10: the port's main paths -----------------------------------------
@@ -6670,6 +6785,8 @@ def kernel_phase(torch, info: dict) -> list:
     check_grouped_rows(torch, info)
     check_moe_rows(torch, info)
     check_block_copy(torch, timer, rows)
+    check_selective_scan(torch, timer, rows)
+    check_jamba_rows(torch, timer, rows)
     check_batch_spec_rows(torch, timer, rows, paged_usage)
     check_parallel_rows(torch, timer, rows, usage, paged_usage)
     t_bench = time.perf_counter()
@@ -6886,6 +7003,16 @@ def main() -> int:
             check_paged_gptoss(torch, timer, rows, usage)
             check_paged_gemma(torch, timer, rows, usage)
         log(f"{flag[2:].replace('-', '_').upper()} {len(rows)} rows")
+        return 0
+
+    if "--jamba-only" in sys.argv[1:]:
+        sources = ("selective_scan", "quant_matmul", "flash_attention")
+        log(f"BUILD {', '.join(sources)} built in {kbuild.build(sources):.1f} s")
+        log("SCAN_PTXAS " + json.dumps(kbuild.ptxas_usage(kbuild.BUILD_LOGS.get("selective_scan", ""))))
+        timer, rows = Timer(torch), []
+        check_selective_scan(torch, timer, rows)
+        check_jamba_rows(torch, timer, rows)
+        log(f"JAMBA_ONLY {len(rows)} rows")
         return 0
 
     if "--hybrid-linear-only" in sys.argv[1:]:

@@ -224,6 +224,28 @@ class Mamba2Config:
 
 
 @config_member("TokenMixerConfig")
+class Mamba1Config:
+    """Mamba-1 selective SSM as Jamba computes it: one decay per channel and
+    state (A [inner_dim, state_dim]), dt / B / C each RMS-normalized after
+    the x projection, dt_projection's bias applied inside the softplus.
+    The port's own config: the JAX package has no Mamba-1 mixer."""
+
+    in_projection_config: LinearConfig
+    x_projection_config: LinearConfig
+    dt_projection_config: LinearConfig
+    out_projection_config: LinearConfig
+    conv_config: SeparableCausalConvConfig
+    kernel_size: int
+    inner_dim: int
+    state_dim: int
+    dt_rank: int
+    dt_norm_config: NormalizationConfig
+    b_norm_config: NormalizationConfig
+    c_norm_config: NormalizationConfig
+    activation: Family["Activation"]
+
+
+@config_member("TokenMixerConfig")
 class DeltaNetConfig:
     in_proj_config: LinearConfig
     conv_config: SeparableCausalConvConfig

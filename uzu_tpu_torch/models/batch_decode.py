@@ -131,7 +131,7 @@ def batch_decode_step(
         else:
             def recurrent(h):
                 out, new_state = ssm_forward_batched(m, p["mixer"], h[:, None], layer_state,
-                                                     fed)
+                                                     fed, layer=i)
                 return out[:, 0], new_state
 
             x, new = residual_block(layer_cfg, p, x, recurrent)

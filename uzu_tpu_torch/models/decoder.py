@@ -301,6 +301,7 @@ def layer_forward(
     tree_parents=None,
     tree_conv_src=None,
     seq_group=None,
+    layer_index: int = -1,
 ):
     mixer_cfg = layer_cfg.mixer_config
     if not isinstance(mixer_cfg, AttentionConfig):
@@ -317,7 +318,7 @@ def layer_forward(
         else:
             def mixer(h):
                 return ssm_forward(mixer_cfg, params["mixer"], h, positions, layer_state,
-                                   true_length, defer=defer_ssm)
+                                   true_length, defer=defer_ssm, layer=layer_index)
         x, new_state = residual_block(layer_cfg, params, x, mixer)
     else:
         owns = layer_state is not None
@@ -402,7 +403,7 @@ def decoder_forward(
             layer_cfg, params["layers"][i], x, positions, state["layers"][i], shared_kv,
             true_length, ctx_limit, None if per_layer is None else per_layer[:, i],
             tree=tree, defer_ssm=defer_ssm, tree_parents=tree_parents,
-            tree_conv_src=tree_conv_src, seq_group=seq_group,
+            tree_conv_src=tree_conv_src, seq_group=seq_group, layer_index=i,
         )
         new_layer_states.append(new_state)
         if i in collect_layers:

@@ -1,4 +1,5 @@
-"""Recurrent token mixers: ShortConv (LFM2), Mamba2, Gated DeltaNet (Qwen3.5).
+"""Recurrent token mixers: ShortConv (LFM2), Mamba2, Gated DeltaNet (Qwen3.5),
+Mamba-1 (Jamba).
 
 Counterpart of `uzu_tpu/models/ssm.py`, with its semantics:
 
@@ -14,9 +15,18 @@ Counterpart of `uzu_tpu/models/ssm.py`, with its semantics:
   decay = exp(-exp(a_log) * softplus(a_raw + dt_bias)); the delta rule
   S <- decay S + beta (v - decay S k) (x) k; o = decay S q + delta (k . q);
   per-head RMSNorm(o) * norm_w * silu(z); out_proj.
+- Mamba-1 (the port's own; the JAX package has none): in_projection rows
+  are [x | z]; x = act(causal depthwise conv(x) + conv_bias); x_projection
+  rows are [dt | B | C], each RMS-normalized; dt = dt_projection(dt);
+  delta = softplus(dt + dt_bias); h <- exp(delta A) h + delta B x with one
+  decay per channel and state (A = -exp(a_log) [Di, N]); y = h C + D x;
+  y *= silu(z); out_projection. The scan runs through S1
+  (`ops/cuda/selective_scan.py`), whose plain version is the CPU path;
+  speculative verification (defer, tree, commit) raises for it.
 
 States are f32 (a ShortConv tail keeps the state's dtype): time-major
-[k-1, C] conv tails and [H, dv, dk] (GDN) / [H, dh, n] (Mamba2) states.
+[k-1, C] conv tails and [H, dv, dk] (GDN) / [H, dh, n] (Mamba2) / [Di, N]
+(Mamba-1) states.
 Rows at and past `true_length` are identity transitions (decay 1, input
 0), and the conv tail is cut at `true_length`, so padded rows never enter
 the state. Below SSM_CHUNKED_MIN_S rows the recurrence is a per-token
@@ -52,9 +62,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..config.model import DeltaNetConfig, GELU, Mamba2Config, ShortConvConfig, SiLU
+from ..config.model import (DeltaNetConfig, GELU, Mamba1Config, Mamba2Config, ShortConvConfig,
+                            SiLU)
+from ..ops.cuda.selective_scan import selective_scan
 from ..ops.linear import linear_apply
+from ..ops.norm import normalize
 from ..params.safetensors_io import to_torch
+from ..tools.profile import SPANS, torch_profiler
 
 SSM_PREFILL_CHUNK = 64
 # below this many rows the per-token loop wins (no padding, no [L, L] work)
@@ -423,26 +437,78 @@ def _delta_net_forward(cfg: DeltaNetConfig, params, x, state, true_length, defer
 
 
 # --------------------------------------------------------------------------
+# Mamba-1 (Jamba)
+# --------------------------------------------------------------------------
+
+
+def _lengths(b: int, true_length, device) -> torch.Tensor:
+    """[B] int32 true lengths on the device from an int, a 0-d tensor or a
+    tensor of B lengths."""
+    if isinstance(true_length, torch.Tensor):
+        return true_length.reshape(-1).to(device=device, dtype=torch.int32).expand(b)
+    return torch.full((b,), int(true_length), dtype=torch.int32, device=device)
+
+
+def _mamba1_forward(cfg: Mamba1Config, params, x, state, true_length, defer=False):
+    if defer:
+        raise NotImplementedError("Mamba-1 mixers have no deferred (speculative) forward")
+    b, s, _ = x.shape
+    di, n, r = cfg.inner_dim, cfg.state_dim, cfg.dt_rank
+    proj = linear_apply(params["in"]["w"], x)  # [B, S, 2 Di]
+    z = proj[..., di:]
+    xin = torch.where(_valid_mask(b, s, true_length, x.device), proj[..., :di].float(), 0.0)
+    padded = torch.cat([state["conv"], xin], dim=1)  # f32 [B, k-1+S, Di]
+    xs = _act(cfg.activation, _causal_depthwise_conv(
+        padded, params["conv_w"], params.get("conv_b"), s)).to(x.dtype)
+    xbc = linear_apply(params["x"]["w"], xs)  # [B, S, R + 2N]
+    dt = normalize(xbc[..., :r], cfg.dt_norm_config, params["dt_norm"])
+    bs = normalize(xbc[..., r:r + n], cfg.b_norm_config, params["b_norm"])
+    cs = normalize(xbc[..., r + n:], cfg.c_norm_config, params["c_norm"])
+    ys, ssm = selective_scan(xs, linear_apply(params["dt"]["w"], dt), z, bs, cs,
+                             params["a_log"], params["dt_bias"], params["skip_weight"],
+                             state["ssm"], _lengths(b, true_length, x.device))
+    return (linear_apply(params["out"]["w"], ys),
+            {"conv": _next_conv_state(padded, true_length, cfg.kernel_size - 1), "ssm": ssm})
+
+
+# --------------------------------------------------------------------------
 # Dispatch: plain, deferred and tree forwards, commits
 # --------------------------------------------------------------------------
 
 
 def ssm_forward_batched(mixer_cfg, params, x: torch.Tensor, state: dict, true_length,
-                        defer: bool = False):
+                        defer: bool = False, layer: int = -1):
     """x [B, S, D], state leaves with a leading [B], true_length an int or
     a tensor of B lengths -> (out [B, S, D], new state, or with `defer`
-    the replay inputs of `ssm_commit`, each with a leading [B])."""
+    the replay inputs of `ssm_commit`, each with a leading [B]). While a
+    profiler session runs, a Mamba-1 call records the span
+    `model.ssm_mixer` with the rows it computes (B * S, padded ones too)
+    and the decoder's `layer` index."""
     if isinstance(mixer_cfg, ShortConvConfig):
         return _short_conv_forward(mixer_cfg, params, x, state, true_length, defer)
     if isinstance(mixer_cfg, Mamba2Config):
         return _mamba2_forward(mixer_cfg, params, x, state, true_length, defer)
     if isinstance(mixer_cfg, DeltaNetConfig):
         return _delta_net_forward(mixer_cfg, params, x, state, true_length, defer)
+    if isinstance(mixer_cfg, Mamba1Config):
+        if not torch_profiler._is_profiler_enabled:
+            return _mamba1_forward(mixer_cfg, params, x, state, true_length, defer)
+        sp = SPANS.begin("model.ssm_mixer", rows=x.shape[0] * x.shape[1], layer=layer)
+        try:
+            return _mamba1_forward(mixer_cfg, params, x, state, true_length, defer)
+        finally:
+            SPANS.end(sp)
     raise ValueError(f"unsupported mixer {type(mixer_cfg).__name__}")
 
 
+def _no_speculation(mixer_cfg) -> None:
+    if isinstance(mixer_cfg, Mamba1Config):
+        raise NotImplementedError("speculative verification of Mamba-1 mixers is not "
+                                  "supported (no tree forward or commit)")
+
+
 def ssm_forward(mixer_cfg, params, x: torch.Tensor, positions, state: dict,
-                true_length=None, defer: bool = False):
+                true_length=None, defer: bool = False, layer: int = -1):
     """One sequence: x [S, D], unbatched state; true_length an int or a
     0-d device tensor (default S). Returns (out [S, D], new state).
 
@@ -453,7 +519,7 @@ def ssm_forward(mixer_cfg, params, x: torch.Tensor, positions, state: dict,
         true_length = x.shape[0]
     out, new = ssm_forward_batched(mixer_cfg, params, x[None],
                                    {name: v[None] for name, v in state.items()},
-                                   true_length, defer)
+                                   true_length, defer, layer)
     return out[0], {name: v[0] for name, v in new.items()}
 
 
@@ -522,6 +588,7 @@ def ssm_tree_forward(mixer_cfg, params, x: torch.Tensor, state: dict, parents,
     inputs]), linearized on the host). The recurrence runs node by node,
     each from its PARENT's state. Returns (out [M, D], aux for
     `ssm_tree_commit`); no state is committed."""
+    _no_speculation(mixer_cfg)
     parents = [int(p) for p in parents]
     if isinstance(mixer_cfg, ShortConvConfig):
         return _short_conv_tree(mixer_cfg, params, x, state, conv_src)
@@ -556,6 +623,7 @@ def ssm_tree_commit(mixer_cfg, aux: dict, path_idx, conv_commit_src: torch.Tenso
     aux["padded"]. The state replays the plain decode step over the path
     (a padded entry is an identity transition in the JAX package; here it
     is skipped, which is the same state)."""
+    _no_speculation(mixer_cfg)
     conv = aux["padded"][conv_commit_src.long()]
     if isinstance(mixer_cfg, ShortConvConfig):
         return {"conv": conv.to(aux["conv0"].dtype)}
@@ -571,6 +639,7 @@ def ssm_commit_batched(mixer_cfg, aux: dict, commit) -> dict:
     transitions, the masking the partial-chunk prefill uses, so each state
     is the plain forward's over its accepted prefix; a commit of 0 keeps
     the state handed to the forward. No host sync."""
+    _no_speculation(mixer_cfg)
     if not isinstance(mixer_cfg, (ShortConvConfig, Mamba2Config, DeltaNetConfig)):
         raise ValueError(f"unsupported mixer {type(mixer_cfg).__name__}")
     k = mixer_cfg.kernel_size
@@ -618,6 +687,13 @@ def make_ssm_state(mixer_cfg, model_dim: int, dtype=torch.bfloat16, device=None)
                                 device=device),
             "ssm": torch.zeros((mixer_cfg.num_heads, mixer_cfg.value_head_dim,
                                 mixer_cfg.head_dim), dtype=torch.float32, device=device),
+        }
+    if isinstance(mixer_cfg, Mamba1Config):
+        return {
+            "conv": torch.zeros((k - 1, mixer_cfg.inner_dim), dtype=torch.float32,
+                                device=device),
+            "ssm": torch.zeros((mixer_cfg.inner_dim, mixer_cfg.state_dim), dtype=torch.float32,
+                               device=device),
         }
     raise ValueError(f"unsupported mixer {type(mixer_cfg).__name__}")
 
@@ -676,6 +752,26 @@ def load_ssm_mixer(tree, mixer_cfg, model_dim: int, device=None) -> dict:
         }
         if mixer_cfg.conv_config.has_biases:
             out["conv_b"] = f32("conv.biases", (conv_dim,))
+        return out
+
+    if isinstance(mixer_cfg, Mamba1Config):
+        di, n, r, k = (mixer_cfg.inner_dim, mixer_cfg.state_dim, mixer_cfg.dt_rank,
+                       mixer_cfg.kernel_size)
+        out = {
+            "in": load_linear(tree.subtree("in_projection"), model_dim, 2 * di, False, device),
+            "x": load_linear(tree.subtree("x_projection"), di, r + 2 * n, False, device),
+            "dt": load_linear(tree.subtree("dt_projection"), r, di, False, device),
+            "out": load_linear(tree.subtree("out_projection"), di, model_dim, False, device),
+            "conv_w": f32("conv.weights", (di, k)),
+            "a_log": f32("a_log", (di, n)),
+            "dt_bias": f32("dt_bias", (di,)),
+            "skip_weight": f32("skip_connection_weight", (di,)),
+            "dt_norm": f32("dt_norm.scales", (r,)),
+            "b_norm": f32("b_norm.scales", (n,)),
+            "c_norm": f32("c_norm.scales", (n,)),
+        }
+        if mixer_cfg.conv_config.has_biases:
+            out["conv_b"] = f32("conv.biases", (di,))
         return out
 
     raise ValueError(f"unsupported mixer {type(mixer_cfg).__name__}")

@@ -31,7 +31,7 @@ from ...runtime import kernel_build_dir
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 SOURCES = ("quant_matmul", "flash_attention", "flash_attention_bwd", "paged_attention",
-           "moe_gemv", "grouped_matmul", "block_copy")
+           "moe_gemv", "grouped_matmul", "block_copy", "selective_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -50,6 +50,8 @@ LAUNCHES: dict[str, int] = {
     "grouped_matmul_int4": 0,
     "grouped_matmul": 0,
     "scale_block_copy": 0,
+    "selective_scan": 0,
+    "selective_scan_step": 0,
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

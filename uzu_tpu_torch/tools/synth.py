@@ -1,11 +1,12 @@
 """Synthesize model directories (config.json + model.safetensors), numpy only.
 
 Counterpart of `uzu_tpu/tools/synth.py` for the decoder shapes the port
-runs (attention, ShortConv, Mamba2 and Gated DeltaNet mixers, dense and
+runs (attention, ShortConv, Mamba2, Gated DeltaNet and Mamba-1 mixers, dense and
 mixture-of-experts MLPs, per-layer embeddings, full-precision / IntSpec /
 MLXSpec / HybridSpec weights, dense or symmetric-quantized expert stacks):
 with the same seed, fill and specs it draws the same random numbers in the
 same order and writes the same bytes, bf16 included, without `ml_dtypes`.
+Mamba-1 (`jamba_config`) is the port's own and has no JAX counterpart.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from ..config.model import (
     Layout,
     LinearConfig,
     LlamaRoPEConfig,
+    Mamba1Config,
     Mamba2Config,
     MixtureOfExpertsConfig,
     MLXSpec,
@@ -261,6 +263,25 @@ class ModelBuilder:
             self.dense(f"{p}.a_log", (m.num_heads,), np.float32, scale=0.3)
             self.dense(f"{p}.dt_bias", (m.num_heads,), np.float32, scale=0.3)
             self.tensors[f"{p}.norm.scales"] = np.ones(m.value_head_dim, np.float32)
+        elif isinstance(m, Mamba1Config):
+            # Mamba's published initialisation where it is not noise: A_log
+            # = log(1..N) in every channel, dt_bias = softplus^-1 of a
+            # log-uniform draw in [1e-3, 1e-1], D = 1
+            di, n, r = m.inner_dim, m.state_dim, m.dt_rank
+            self.linear(f"{p}.in_projection", d, 2 * di, linear_spec, False)
+            self.linear(f"{p}.x_projection", di, r + 2 * n, linear_spec, False)
+            self.linear(f"{p}.dt_projection", r, di, linear_spec, False)
+            self.linear(f"{p}.out_projection", di, d, linear_spec, False)
+            self.dense(f"{p}.conv.weights", (di, m.kernel_size), np.float32, scale=0.4)
+            if m.conv_config.has_biases:
+                self.dense(f"{p}.conv.biases", (di,), np.float32, scale=0.1)
+            self.tensors[f"{p}.a_log"] = np.log(np.tile(np.arange(1, n + 1, dtype=np.float32),
+                                                        (di, 1)))
+            dt = np.exp(self.rng.uniform(np.log(1e-3), np.log(1e-1), di)).astype(np.float32)
+            self.tensors[f"{p}.dt_bias"] = dt + np.log(-np.expm1(-dt))
+            self.tensors[f"{p}.skip_connection_weight"] = np.ones(di, np.float32)
+            for name, dim in (("dt_norm", r), ("b_norm", n), ("c_norm", n)):
+                self.norm_scales(f"{p}.{name}", dim, False)
         else:
             raise ValueError(f"unsupported mixer {type(m).__name__}")
 
@@ -589,6 +610,37 @@ def mamba2_hybrid_config(
         num_layers=num_layers, model_dim=model_dim, hidden_dim=hidden_dim,
         vocab_size=vocab_size,
     )
+
+
+def jamba_config(
+    *, num_layers: int = 4, model_dim: int = 256, hidden_dim: int = 512,
+    vocab_size: int = 512, inner_dim: int = 512, state_dim: int = 16, dt_rank: int = 16,
+    kernel_size: int = 4, attn_period: int = 4, attn_offset: int = 2, num_heads: int = 4,
+    num_groups: int = 1, head_dim: int = 64, norm_eps: float = 1e-6,
+) -> LanguageModelConfig:
+    """Jamba-style hybrid: Mamba-1 mixers (RMS-normalized dt, B and C; conv
+    bias; no projection biases) with attention at the layers where i %
+    attn_period == attn_offset; no positional encoding anywhere (NoPE),
+    RMSNorm of eps `norm_eps` throughout."""
+    norm = _rms(norm_eps)
+    mamba = Mamba1Config(
+        in_projection_config=LinearConfig(), x_projection_config=LinearConfig(),
+        dt_projection_config=LinearConfig(), out_projection_config=LinearConfig(),
+        conv_config=SeparableCausalConvConfig(has_biases=True), kernel_size=kernel_size,
+        inner_dim=inner_dim, state_dim=state_dim, dt_rank=dt_rank, dt_norm_config=norm,
+        b_norm_config=norm, c_norm_config=norm, activation=SiLU(alpha=1.0))
+    base = _hybrid_config(
+        lambda i: None if i % attn_period == attn_offset else mamba,
+        num_layers=num_layers, model_dim=model_dim, hidden_dim=hidden_dim,
+        vocab_size=vocab_size, attn_heads=num_heads, attn_groups=num_groups,
+        attn_head_dim=head_dim)
+    layers = [dataclasses.replace(lc, rope_config=None, pre_mixer_norm_config=norm,
+                                  pre_mlp_norm_config=norm)
+              for lc in base.decoder_config.transformer_config.layer_configs]
+    out = _with_mlp(base, layers, hidden_dim)
+    tcfg = dataclasses.replace(out.decoder_config.transformer_config, output_norm_config=norm)
+    return dataclasses.replace(out, decoder_config=dataclasses.replace(
+        out.decoder_config, transformer_config=tcfg))
 
 
 def qwen35_config(
